@@ -1,0 +1,44 @@
+"""Model factory (port of bpbreid_tpu/models/__init__.py:118).
+
+Only ``bpbreid`` (HRNet-W32 backbone) and ``hrnet32`` are ported; every
+other registry name raises. ``build_model`` puts the model on
+``device`` (default ``'cuda'``, raising when CUDA is missing) in eval
+mode, with weights drawn from ``seed`` by an explicit
+``torch.Generator`` (flax's default initializers).
+"""
+import torch
+
+from bpbreid_tpu_torch import resolve_device
+from bpbreid_tpu_torch.models.common import init_parameters
+
+__all__ = ['build_model']
+
+PORTED = ('bpbreid', 'hrnet32')
+
+
+def build_model(name, num_classes, loss='part_based', pretrained=False,
+                device=None, seed=0, **kwargs):
+    """Build a ported model by registry name.
+
+    Args:
+        name: 'bpbreid' (needs ``config=``) or 'hrnet32'.
+        device: torch device; ``None`` means ``'cuda'``.
+        seed: seed of the ``torch.Generator`` that draws the weights.
+    Returns:
+        the ``nn.Module`` on ``device``, in eval mode.
+    """
+    if name not in PORTED:
+        raise NotImplementedError(
+            "model '{}' is not ported yet (ported: {})".format(
+                name, ', '.join(PORTED)))
+    device = resolve_device(device)
+    if name == 'bpbreid':
+        from bpbreid_tpu_torch.models.bpbreid import bpbreid
+        model = bpbreid(num_classes, loss=loss, pretrained=pretrained,
+                        **kwargs)
+    else:
+        from bpbreid_tpu_torch.models.hrnet import hrnet32
+        model = hrnet32(num_classes, loss=loss, pretrained=pretrained,
+                        **kwargs)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()

@@ -1,0 +1,78 @@
+"""Carry weights from the JAX package into the port.
+
+The port's own copy of the name mapping in
+bpbreid_tpu/utils/torch_weights.py: every flax variable path already
+mirrors a torch ``state_dict`` key, so
+
+  params/<p1>/.../kernel       -> '<p1>....weight'   (HWIO -> OIHW, IO -> OI)
+  params/.../scale             -> '....weight'        (batchnorm)
+  params/.../bias              -> '....bias'
+  batch_stats/.../mean | var   -> '....running_mean | running_var'
+
+``variables`` is a nested dict of numpy arrays, as
+``jax.device_get(model.init(...))`` gives; nothing here imports JAX.
+"""
+import numpy as np
+import torch
+
+__all__ = ['jax_variables_to_state_dict', 'load_jax_variables']
+
+
+def _walk(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _torch_key(path, collection):
+    *mods, leaf = path
+    if collection == 'batch_stats':
+        names = {'mean': 'running_mean', 'var': 'running_var'}
+    else:
+        names = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
+                 'embedding': 'weight'}
+    if leaf not in names:
+        raise KeyError('no torch counterpart for {}/{}'.format(
+            collection, '/'.join(path)))
+    return '.'.join([*mods, names[leaf]])
+
+
+def jax_variables_to_state_dict(variables):
+    """Flax variables -> ``{torch key: np.ndarray}`` in torch layout.
+    Collections other than ``params`` and ``batch_stats`` are ignored."""
+    out = {}
+    for coll in ('params', 'batch_stats'):
+        for path, v in _walk(variables.get(coll, {})):
+            a = np.asarray(v)
+            if path[-1] == 'kernel':
+                if a.ndim == 4:                  # HWIO -> OIHW
+                    a = np.transpose(a, (3, 2, 0, 1))
+                elif a.ndim == 2:                # IO -> OI
+                    a = np.transpose(a, (1, 0))
+            out[_torch_key(path, coll)] = a
+    return out
+
+
+@torch.no_grad()
+def load_jax_variables(module, variables):
+    """Copy JAX variables into ``module``'s parameters and buffers.
+
+    Raises if any parameter or buffer of ``module`` is left unfilled,
+    if a JAX variable has no place in ``module``, or on a shape mismatch.
+    """
+    sd = jax_variables_to_state_dict(variables)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    if missing or unexpected:
+        raise KeyError('JAX variables do not cover the module: missing {}, '
+                       'unexpected {}'.format(missing[:10], unexpected[:10]))
+    for key, target in own.items():
+        src = torch.from_numpy(np.ascontiguousarray(sd[key]))
+        if tuple(src.shape) != tuple(target.shape):
+            raise ValueError('shape mismatch for {}: jax {} vs port {}'.format(
+                key, tuple(src.shape), tuple(target.shape)))
+        target.copy_(src.to(target.dtype))
+    return module
