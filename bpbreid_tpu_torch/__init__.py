@@ -1,11 +1,13 @@
 """bpbreid_tpu_torch: the PyTorch/CUDA port of bpbreid_tpu.
 
-Eval and retrieval of BPBReID with an HRNet-W32 backbone, written in
-PyTorch for an NVIDIA Hopper GPU. Layout and names mirror
-``bpbreid_tpu`` (``models/hrnet.py``, ``ops/pooling.py``, ...), so each
-module's JAX counterpart is found at the same path. The one Pallas TPU
-kernel on this path (``ops/pallas/pooling.py``) is a hand-written CUDA
-kernel here (``ops/cuda/``).
+Eval, retrieval and the train step of BPBReID with an HRNet-W32
+backbone, written in PyTorch for an NVIDIA Hopper GPU. Layout and names
+mirror ``bpbreid_tpu`` (``models/hrnet.py``, ``ops/pooling.py``,
+``losses/``, ...), so each module's JAX counterpart is found at the same
+path. The Pallas TPU kernels on these paths (the attention pool of
+``ops/pallas/pooling.py``; the train-mode BN sums of
+``experiments/pallas_bn_*.py``) are hand-written CUDA kernels here
+(``ops/cuda/``).
 
 Tensors are channel-first (NCHW) inside the port; entry points take an
 explicit ``device`` that defaults to ``'cuda'`` and raise when CUDA is

@@ -1,5 +1,10 @@
-"""Part-based eval engine (port of the eval path of
+"""Part-based engine: the train step and the eval path (port of
 bpbreid_tpu/engine/part_based.py).
+
+``forward_backward``: augment -> forward in train mode -> GiLt + BPA
+losses -> backward -> open-layers gradient masking while the base is
+frozen -> optimizer step; the BN running statistics are updated by the
+forward (``_train_step_impl`` :196, ``_loss_fn`` :173).
 
 ``eval_step``: preprocess -> forward -> the configured test embedding
 streams concatenated to ``[N, P+2, D]`` + visibility + pixel-accuracy
@@ -18,9 +23,12 @@ import numpy as np
 import torch
 
 from bpbreid_tpu_torch import resolve_device
-from bpbreid_tpu_torch.constants import bn_correspondants
+from bpbreid_tpu_torch.constants import PIXELS, bn_correspondants
 from bpbreid_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
-                                            eval_preprocess)
+                                            eval_preprocess,
+                                            sample_train_draws, train_augment)
+from bpbreid_tpu_torch.losses.bpa import BodyPartAttentionLoss
+from bpbreid_tpu_torch.losses.gilt import GiLtLoss
 from bpbreid_tpu_torch.metrics.distance import \
     compute_distance_matrix_using_bp_features
 from bpbreid_tpu_torch.metrics.rank import evaluate_rank
@@ -36,25 +44,55 @@ def normalize(features, dim=-1):
 
 
 class ImagePartBasedEngine:
-    """Eval-only part-based engine.
+    """Part-based engine.
 
     Args:
-        model: a ported ``BPBreID`` on ``device``, in eval mode.
+        model: a ported ``BPBreID`` on ``device``.
+        optimizer: a ``torch.optim`` optimizer over ``model``'s parameters
+            (``optim.build_optimizer``), or None for an eval-only engine.
+        scheduler: an ``optim.LRSchedule``, or None.
         test_embeddings: embedding stream keys (``config.model.bpbreid
             .test_embeddings``).
         mask_kwargs: mask-chain parameters
             (``data.augment.mask_chain_kwargs``), or None without masks.
+        losses_weights: GiLt + BPA weights (``config.loss.part_based
+            .weights``); None gives the defaults.
+        transforms, cj: train-time augmentations and the colour-jitter
+            settings (``config.data.transforms``, ``config.data.cj``).
+        open_layers: names whose parameters train while the base is
+            frozen (``set_freeze_base``).
+        seed: seed of the engine's ``torch.Generator`` for the
+            augmentation draws.
         device: torch device; ``None`` means ``'cuda'``.
     """
 
-    def __init__(self, model, test_embeddings=('bn_foreg', 'parts'),
+    def __init__(self, model, optimizer=None, scheduler=None,
+                 test_embeddings=('bn_foreg', 'parts'),
                  mask_kwargs=None, norm_mean=IMAGENET_MEAN,
                  norm_std=IMAGENET_STD, mask_filtering_testing=True,
                  testing_binary_visibility_score=True,
                  dist_combine_strat='mean',
-                 batch_size_pairwise_dist_matrix=500, device=None):
+                 batch_size_pairwise_dist_matrix=500, losses_weights=None,
+                 margin=0.3, loss_name='part_averaged_triplet_loss',
+                 mask_filtering_training=False, ppl='cl',
+                 transforms=('rc', 're'), cj=None, open_layers=('classifier',),
+                 seed=0, device=None):
         self.device = resolve_device(device)
         self.model = model
+        self.optimizer = optimizer
+        self.scheduler = scheduler
+        weights = losses_weights or {**GiLtLoss.default_losses_weights,
+                                     PIXELS: {'ce': 0.35}}
+        self.losses_weights = weights
+        self.GiLt = GiLtLoss(weights,
+                             use_visibility_scores=mask_filtering_training,
+                             triplet_margin=margin, loss_name=loss_name)
+        self.body_part_attention_loss = BodyPartAttentionLoss(loss_type=ppl)
+        self.transforms = tuple(transforms)
+        self.cj = dict(cj or {})
+        self.open_layers = list(open_layers or [])
+        self._freeze_base = False
+        self.generator = torch.Generator(self.device).manual_seed(seed)
         self.test_embeddings = list(test_embeddings)
         self.mask_kwargs = mask_kwargs
         self.norm_mean = tuple(norm_mean)
@@ -65,8 +103,10 @@ class ImagePartBasedEngine:
         self.batch_size_pairwise_dist_matrix = batch_size_pairwise_dist_matrix
 
     @classmethod
-    def from_config(cls, config, model, mask_kwargs=None, device=None):
-        return cls(model,
+    def from_config(cls, config, model, mask_kwargs=None, device=None,
+                    optimizer=None, scheduler=None):
+        cj = config.data.cj
+        return cls(model, optimizer=optimizer, scheduler=scheduler,
                    test_embeddings=config.model.bpbreid.test_embeddings,
                    mask_kwargs=mask_kwargs,
                    norm_mean=config.data.norm_mean,
@@ -79,7 +119,88 @@ class ImagePartBasedEngine:
                        config.test.part_based.dist_combine_strat),
                    batch_size_pairwise_dist_matrix=(
                        config.test.batch_size_pairwise_dist_matrix),
-                   device=device)
+                   losses_weights=config.loss.part_based.weights,
+                   margin=config.loss.triplet.margin,
+                   loss_name=config.loss.part_based.name,
+                   mask_filtering_training=(
+                       config.model.bpbreid.mask_filtering_training),
+                   ppl=config.loss.part_based.ppl,
+                   transforms=config.data.transforms,
+                   cj={'cj_brightness': cj.brightness,
+                       'cj_contrast': cj.contrast,
+                       'cj_saturation': cj.saturation, 'cj_hue': cj.hue,
+                       'cj_p': cj.p},
+                   open_layers=config.train.open_layers,
+                   seed=config.train.seed, device=device)
+
+    # ------------------------------------------------------------------
+    # train step
+    # ------------------------------------------------------------------
+    def set_freeze_base(self, freeze):
+        """While frozen, only parameters named by ``open_layers`` get
+        their gradient; the others get zeros (the optimizer still
+        applies weight decay to them, as the JAX step does)."""
+        self._freeze_base = bool(freeze)
+
+    def apply_lr(self, epoch):
+        """Set the optimizer's learning rate for ``epoch``."""
+        if self.scheduler is not None and self.optimizer is not None:
+            self.scheduler.set_in_optimizer(self.optimizer, epoch)
+
+    def loss_fn(self, outputs, masks, pids):
+        """GiLt + bpa_w * BPA of the train-mode model outputs; the BPA
+        target is the grouped masks resized to the pixel logits' grid
+        (align-corners bilinear) and taken by argmax."""
+        (embeddings, visibility, id_cls_scores, pixels_cls_scores,
+         _spatial, _masks) = outputs
+        loss, summary = self.GiLt(embeddings, visibility, id_cls_scores,
+                                  pids, generator=self.generator)
+        bpa_w = float(self.losses_weights[PIXELS]['ce'])
+        if pixels_cls_scores is not None and masks is not None and bpa_w > 0:
+            hf, wf = pixels_cls_scores.shape[-2:]
+            target = resize_bilinear_align_corners(masks, hf, wf)
+            bpa_loss, bpa_summary = self.body_part_attention_loss(
+                pixels_cls_scores, target.argmax(dim=1))
+            loss = loss + bpa_w * bpa_loss
+            summary = {**summary, **bpa_summary}
+        return loss, summary
+
+    def forward_backward(self, batch, draws=None):
+        """One train step on ``batch`` (``image`` ``[B, H, W, 3]`` uint8,
+        optional ``mask`` ``[B, h, w, C]``, ``pid`` ``[B]``; numpy or
+        tensors). ``draws`` are the augmentation draws
+        (``data.augment.sample_train_draws``), taken from the engine's
+        generator when None. Returns ``(loss, summary)`` as tensors on
+        the device (no host sync)."""
+        if self.optimizer is None:
+            raise RuntimeError('the engine has no optimizer: build it with '
+                               'one to train')
+        imgs_u8 = torch.as_tensor(batch['image']).to(self.device)
+        raw_masks = torch.as_tensor(batch['mask']).to(self.device) \
+            if batch.get('mask') is not None else None
+        pids = torch.as_tensor(batch['pid']).to(self.device)
+        n, h, w = imgs_u8.shape[:3]
+        if draws is None:
+            draws = sample_train_draws(self.generator, n, h, w,
+                                       self.transforms, **self.cj)
+        imgs, masks = train_augment(imgs_u8, raw_masks, draws,
+                                    norm_mean=self.norm_mean,
+                                    norm_std=self.norm_std,
+                                    mask_kwargs=self.mask_kwargs)
+        self.model.train()
+        loss, summary = self.loss_fn(self.model(imgs, masks), masks, pids)
+        self.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        for name, p in self.model.named_parameters():
+            if p.grad is None:
+                # no path to the loss: a zero gradient, as JAX gives, so
+                # the optimizer's weight decay and moments still apply
+                p.grad = torch.zeros_like(p)
+            elif self._freeze_base and not any(ol in name
+                                               for ol in self.open_layers):
+                p.grad.zero_()
+        self.optimizer.step()
+        return loss.detach(), summary
 
     @torch.inference_mode()
     def eval_step(self, imgs_u8, raw_masks=None):
@@ -89,6 +210,7 @@ class ImagePartBasedEngine:
         embedding masks [N, P+2, Hf, Wf], pixels_cls_scores, masks,
         pxl_correct [N], pxl_total [N])``.
         """
+        self.model.eval()
         imgs, masks = eval_preprocess(imgs_u8, raw_masks,
                                       norm_mean=self.norm_mean,
                                       norm_std=self.norm_std,

@@ -1,4 +1,4 @@
-"""BPBReID part-based re-identification model, eval path (port of
+"""BPBReID part-based re-identification model (port of
 bpbreid_tpu/models/bpbreid.py).
 
 backbone feature map -> learned pixel-to-part attention -> masked
@@ -18,8 +18,15 @@ Pooling paths, as in the JAX model:
   background-GAP and parts-GWAP go through the fused CUDA kernel
   ``ops/cuda/pooling.py`` (on CPU tensors its plain version).
 
-Only the HRNet-W32 backbone and eval mode are ported.
+Train mode (``model.train()``) is ``BPBreID.__call__(..., train=True)``:
+batch statistics in every BN (``models/common.py``), the pixel
+classifier's virtual multires statistics, the binary training
+visibility, and no test-time mask refinement. The fused K2 kernel has no
+backward: on the card it refuses inputs that require grad.
+
+Only the HRNet-W32 backbone is ported.
 """
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -27,12 +34,13 @@ import torch.nn.functional as F
 from bpbreid_tpu_torch.constants import (
     BACKGROUND, BN_BACKGROUND, BN_CONCAT_PARTS, BN_FOREGROUND, BN_GLOBAL,
     BN_PARTS, CONCAT_PARTS, FOREGROUND, GLOBAL, PARTS)
-from bpbreid_tpu_torch.models.common import (BN_EPS, Dense, FastBatchNorm,
-                                             PConv)
+from bpbreid_tpu_torch.models.common import (BN_EPS, BN_MOMENTUM, Dense,
+                                             FastBatchNorm, PConv)
 from bpbreid_tpu_torch.models.hrnet import hrnet32
 from bpbreid_tpu_torch.ops.cuda.pooling import fused_attention_pool
 from bpbreid_tpu_torch.ops.pooling import parts_pooling
-from bpbreid_tpu_torch.ops.resize import (linear_matrix_align_corners,
+from bpbreid_tpu_torch.ops.resize import (_linear_matrix_align_corners,
+                                          linear_matrix_align_corners,
                                           resize_bilinear_align_corners)
 
 __all__ = ['BPBreID', 'BNClassifier', 'PixelToPartClassifier',
@@ -63,6 +71,15 @@ class PixelToPartClassifier(nn.Module):
     1x1 conv are folded per HRNet branch, logits are computed at each
     branch's resolution in f32 and only the (K+1)-channel maps are
     upsampled (align-corners bilinear commutes with the affine head).
+
+    In train mode the BN takes batch statistics, in plain PyTorch ops
+    that autograd differentiates (as JAX does): the moments of the
+    concat map, or on the multires path the moments of the VIRTUAL
+    upsampled concat, per branch: the mean is linear in the branch, and
+    E[(A y B^T)^2] per channel is tr(G_h y G_w y^T) / P with the Gram
+    matrices G = A^T A of the static interpolation operators. The
+    running statistics take the flax update (unclipped variance, as in
+    the JAX version).
     """
 
     def __init__(self, channels, parts_num, dtype=torch.float32):
@@ -72,15 +89,50 @@ class PixelToPartClassifier(nn.Module):
         self.classifier = PConv(channels, parts_num + 1, 1, bias=True,
                                 dtype=dtype)
 
+    def _batch_moments(self, x=None, branches=None, out_hw=None):
+        """(mean, var) of the map, or of the virtual concat of the
+        upsampled branches, per channel in f32 (JAX :131-174)."""
+        if branches is None:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            return mean, (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        hf, wf = out_hw
+        n, p = branches[0].shape[0], hf * wf
+        means, e2s = [], []
+        for y in branches:
+            h_i, w_i = y.shape[-2:]
+            yf = y.float()
+            if (h_i, w_i) == (hf, wf):
+                # identity resize: the plain moments
+                means.append(yf.mean(dim=(0, 2, 3)))
+                e2s.append((yf * yf).mean(dim=(0, 2, 3)))
+                continue
+            a = _linear_matrix_align_corners(h_i, hf)          # [hf, h_i]
+            b = _linear_matrix_align_corners(w_i, wf)
+            mh, mw, gh, gw = (torch.as_tensor(np.asarray(v), device=y.device)
+                              for v in (a.sum(0), b.sum(0), a.T @ a, b.T @ b))
+            means.append(torch.einsum('nchw,h,w->c', yf, mh, mw) / (n * p))
+            t = torch.einsum('nchw,hk->nckw', yf, gh)
+            e2s.append(torch.einsum('nckw,wl,nckl->c', t, gw, yf) / (n * p))
+        mean = torch.cat(means)
+        return mean, torch.cat(e2s) - mean * mean
+
     def forward(self, x=None, branches=None, out_hw=None):
-        if self.training:
-            raise NotImplementedError('train mode is not ported yet')
         bn, conv = self.bn, self.classifier
         w_mat = conv.weight[:, :, 0, 0]                        # [K+1, D]
+        if self.training:
+            mean, var = self._batch_moments(x, branches, out_hw)
+            with torch.no_grad():
+                bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                                      + (1.0 - BN_MOMENTUM) * mean)
+                bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                                     + (1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = bn.running_mean, bn.running_var
         if branches is None:
             dt = self.dtype
-            mul = (torch.rsqrt(bn.running_var + BN_EPS) * bn.weight).to(dt)
-            y = (x.to(dt) - bn.running_mean.to(dt)[:, None, None]) \
+            mul = (torch.rsqrt(var + BN_EPS) * bn.weight).to(dt)
+            y = (x.to(dt) - mean.to(dt)[:, None, None]) \
                 * mul[:, None, None] + bn.bias.to(dt)[:, None, None]
             # the 1x1 conv as a conv: a contiguous NCHW result, as the
             # fused pooling kernel reads it
@@ -88,8 +140,8 @@ class PixelToPartClassifier(nn.Module):
                 + conv.bias.to(dt)[:, None, None]
 
         hf, wf = out_hw
-        a_full = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
-        b_full = bn.bias - bn.running_mean * a_full
+        a_full = bn.weight * torch.rsqrt(var + BN_EPS)
+        b_full = bn.bias - mean * a_full
         const = w_mat @ b_full + conv.bias                     # [K+1]
         logits, off = None, 0
         for y in branches:
@@ -152,12 +204,14 @@ class BPBreID(nn.Module):
         if dim_reduce not in ('none', 'after_pooling', 'before_pooling'):
             raise NotImplementedError(
                 "dim_reduce '{}' is not ported yet".format(dim_reduce))
-        del last_stride, training_binary_visibility_score
+        del last_stride
         self.parts_num = parts_num
         self.pooling = pooling
         self.learnable_attention_enabled = learnable_attention_enabled
         self.shared_parts_id_classifier = shared_parts_id_classifier
         self.test_use_target_segmentation = test_use_target_segmentation
+        self.training_binary_visibility_score = \
+            training_binary_visibility_score
         self.testing_binary_visibility_score = testing_binary_visibility_score
         self.use_pallas_pooling = use_pallas_pooling
         self.dtype = dtype
@@ -192,13 +246,12 @@ class BPBreID(nn.Module):
                 for _ in range(parts_num)])
 
     def forward(self, images, external_parts_masks=None):
-        if self.training:
-            raise NotImplementedError('train mode is not ported yet; call '
-                                      'model.eval()')
         K = self.parts_num
+        train = self.training
         backbone = self.backbone_appearance_feature_extractor
         branches = backbone.forward_branches(images)
-        multires = self.multires and self.test_use_target_segmentation == 'none'
+        multires = self.multires and (
+            train or self.test_use_target_segmentation == 'none')
         n = images.shape[0]
         hf, wf = branches[0].shape[-2:]
         spatial_features = None if multires else backbone.concat(branches)
@@ -223,7 +276,7 @@ class BPBreID(nn.Module):
         parts_masks = probs[:, 1:]                             # [N, K, Hf, Wf]
 
         # test-time refinement with external masks
-        if self.test_use_target_segmentation != 'none':
+        if not train and self.test_use_target_segmentation != 'none':
             if external_parts_masks is None:
                 raise ValueError('external masks required for '
                                  'test_use_target_segmentation')
@@ -249,7 +302,8 @@ class BPBreID(nn.Module):
         global_masks = torch.ones_like(foreground_masks)
 
         # visibility scores
-        if self.testing_binary_visibility_score:
+        if (self.training_binary_visibility_score if train
+                else self.testing_binary_visibility_score):
             pred = probs.argmax(dim=1)                          # [N, Hf, Wf]
             vis = F.one_hot(pred, K + 1).flatten(1, 2).amax(dim=1) > 0
             foreground_visibility = vis.any(dim=1)
@@ -371,7 +425,8 @@ class BPBreID(nn.Module):
         # mask refinement
         fused = (self.use_pallas_pooling and self.pooling == 'gwap'
                  and pixels_cls_scores is not None
-                 and self.test_use_target_segmentation == 'none')
+                 and (self.training
+                      or self.test_use_target_segmentation == 'none'))
         if fused:
             num, den, _ = fused_attention_pool(spatial_features,
                                                pixels_cls_scores)

@@ -1,5 +1,4 @@
-"""Shared conv-net building blocks, eval path (port of
-bpbreid_tpu/models/common.py).
+"""Shared conv-net building blocks (port of bpbreid_tpu/models/common.py).
 
 Channel-first (NCHW). Parameter and buffer names follow the reference
 torch ``state_dict`` (``layer1.0.conv1.weight``, ``...bn1.running_mean``)
@@ -8,10 +7,11 @@ module casts to its compute ``dtype`` where the JAX module does:
 
 - ``PConv``/``Dense``: input and weight cast to ``dtype``, then the bias
   added in ``dtype`` (flax ``nn.Conv``/``nn.Dense``);
-- ``FastBatchNorm``: normalize in f32 with the running statistics, then
-  cast to ``dtype`` (flax ``nn.BatchNorm`` and ``FastBatchNorm`` eval).
-
-Only eval mode is ported: train-mode BN raises.
+- ``FastBatchNorm``: normalize in f32, then cast to ``dtype`` (flax
+  ``nn.BatchNorm`` and ``FastBatchNorm``), with the running statistics in
+  eval mode and the batch statistics in train mode, where the per-channel
+  sums of the forward and the backward are the K3 kernel
+  (``ops/cuda/batchnorm.py``).
 """
 import math
 
@@ -19,10 +19,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ['BN_EPS', 'PConv', 'Dense', 'FastBatchNorm', 'BasicBlock',
-           'Bottleneck', 'ResLayer', 'init_parameters']
+from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_grad_stats, bn_stats,
+                                                  channel_view)
+
+__all__ = ['BN_EPS', 'BN_MOMENTUM', 'PConv', 'Dense', 'FastBatchNorm',
+           'BasicBlock', 'Bottleneck', 'ResLayer', 'init_parameters']
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9   # flax: running = 0.9 * running + 0.1 * batch
 # flax lecun_normal: truncated normal in [-2, 2] rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
 
@@ -72,11 +76,69 @@ class Dense(nn.Module):
         return y
 
 
+class _BatchNormTrain(torch.autograd.Function):
+    """Batch norm with batch statistics (``_bn_train`` :186, forward
+    ``_bn_train_fwd_core`` :191, backward ``_bn_train_vjp_bwd`` :211).
+
+    ``x`` is viewed as ``[A, C, B]`` (``channel_view``); ``m = A*B``:
+    mean = sum(x)/m, var = max(0, sum(x^2)/m - mean^2) (the fast variance,
+    clipped as in flax), y = (x - mean) * rstd * scale + bias in f32, cast
+    to ``dtype``. Backward: dx = rstd*scale * (dy - sum(dy)/m
+    - xhat * sum(dy*xhat)/m), dscale = sum(dy*xhat), dbias = sum(dy).
+    The sums are ``bn_stats``/``bn_grad_stats``; mean and var are
+    returned without gradient, for the running update.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, channel_dim, dtype):
+        x = x.contiguous()
+        a, c, b = channel_view(x.shape, channel_dim)
+        m = a * b
+        s1, s2 = bn_stats(x, channel_dim)
+        mean = s1 / m
+        var = torch.clamp(s2 / m - mean * mean, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        y = (x.view(a, c, b).float() - mean.view(1, c, 1)) \
+            * (rstd * weight).view(1, c, 1)
+        if bias is not None:
+            y = y + bias.view(1, c, 1)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.channel_dim = channel_dim
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(dtype).view(x.shape), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, rstd = ctx.saved_tensors
+        a, c, b = channel_view(x.shape, ctx.channel_dim)
+        m = a * b
+        # autograd may hand over a strided gradient: the kernel reads a
+        # contiguous one
+        dy = dy.contiguous()
+        sum_dy, sum_dy_xhat = bn_grad_stats(dy, x, mean, rstd,
+                                            ctx.channel_dim)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            xhat = (x.view(a, c, b).float() - mean.view(1, c, 1)) \
+                * rstd.view(1, c, 1)
+            dx = (rstd * weight).view(1, c, 1) * (
+                dy.view(a, c, b).float() - (sum_dy / m).view(1, c, 1)
+                - xhat * (sum_dy_xhat / m).view(1, c, 1))
+            dx = dx.to(x.dtype).view(x.shape)
+        dbias = sum_dy if ctx.needs_input_grad[2] else None
+        return dx, sum_dy_xhat, dbias, None, None, None
+
+
 class FastBatchNorm(nn.Module):
-    """Eval-mode batch norm: f32 normalize with the running statistics,
-    cast to ``dtype``. ``channel_dim`` is 1 for NCHW maps and -1 for
-    feature-last embeddings (flax ``nn.BatchNorm`` on ``[N, D]`` and
-    ``[N, K, D]``)."""
+    """Batch norm that normalizes in f32 and casts to ``dtype``.
+    ``channel_dim`` is 1 for NCHW maps and -1 for feature-last
+    embeddings (flax ``nn.BatchNorm`` on ``[N, D]`` and ``[N, K, D]``).
+
+    Eval mode uses the running statistics. Train mode uses the batch
+    statistics (``_BatchNormTrain``) and updates the running ones as
+    flax does: ``0.9 * running + 0.1 * batch``, with the biased batch
+    variance.
+    """
 
     def __init__(self, num_features, eps=BN_EPS, bias=True, channel_dim=1,
                  dtype=torch.float32):
@@ -94,8 +156,15 @@ class FastBatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError('train-mode batch norm is not ported '
-                                      'yet; call model.eval()')
+            y, mean, var = _BatchNormTrain.apply(
+                x, self.weight, self.bias, self.eps, self.channel_dim,
+                self.dtype)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1.0 - BN_MOMENTUM) * var)
+            return y
         shape = self._shape(x)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``<name>.cu`` in this directory exposes a plain C interface. At
+Each ``<source>.cu`` in this directory exposes a plain C interface (one
+or more entry points; ``KERNELS`` names them). At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``bpbreid_tpu_torch/_build/`` (keyed by a hash of the
 source and flags) and loaded with ``ctypes``. Nothing here imports or
@@ -29,15 +30,19 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
 
-# kernel name -> (C function, ctypes argtypes)
+# kernel name -> (source, C function, ctypes argtypes)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
-    'attention_pool': ('bpbreid_attention_pool',
+    'attention_pool': ('attention_pool', 'bpbreid_attention_pool',
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    'bn_stats': ('bn_stats', 'bpbreid_bn_stats',
+                 [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    'bn_grad_stats': ('bn_stats', 'bpbreid_bn_grad_stats',
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 launch_counts = collections.Counter()
-_libs = {}
+_libs, _fns = {}, {}
 _lock = threading.Lock()
 
 
@@ -55,21 +60,23 @@ def _nvcc():
     return nvcc
 
 
-def _library_path(name):
-    src = SRC_DIR / '{}.cu'.format(name)
+def _library_path(source):
+    src = SRC_DIR / '{}.cu'.format(source)
     digest = hashlib.sha256(src.read_bytes()
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / 'lib{}-{}.so'.format(name, digest)
+    return src, BUILD_DIR / 'lib{}-{}.so'.format(source, digest)
 
 
 def build_kernels(names=None):
-    """Compile every named kernel that is not built yet, one ``nvcc``
-    per source, all started together. Returns ``{name: ptxas log}`` for
-    the sources compiled by this call; raises on any failed build."""
+    """Compile the sources of the named kernels that are not built yet,
+    one ``nvcc`` per source, all started together. Returns ``{source:
+    ptxas log}`` for the sources compiled by this call; raises on any
+    failed build."""
     names = list(KERNELS if names is None else names)
+    sources = sorted({KERNELS[name][0] for name in names})
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
+    for name in sources:
         src, out = _library_path(name)
         if out.exists():
             continue
@@ -93,21 +100,25 @@ def build_kernels(names=None):
 
 
 def load_kernel(name):
-    """The ctypes function of kernel ``name``, building it at first use."""
+    """``(library, ctypes function)`` of kernel ``name``, building its
+    source at first use."""
     with _lock:
-        if name not in _libs:
-            _, out = _library_path(name)
-            if not out.exists():
-                build_kernels([name])
-            lib = ctypes.CDLL(str(out))
-            fn_name, argtypes = KERNELS[name]
+        if name not in _fns:
+            source, fn_name, argtypes = KERNELS[name]
+            if source not in _libs:
+                _, out = _library_path(source)
+                if not out.exists():
+                    build_kernels([name])
+                lib = ctypes.CDLL(str(out))
+                lib.bpbreid_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.bpbreid_cuda_error_string.restype = ctypes.c_char_p
+                _libs[source] = lib
+            lib = _libs[source]
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            lib.bpbreid_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.bpbreid_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = (lib, fn)
-        return _libs[name]
+            _fns[name] = (lib, fn)
+        return _fns[name]
 
 
 def check_cuda_error(lib, code, what):

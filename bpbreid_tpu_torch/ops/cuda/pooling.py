@@ -14,7 +14,10 @@ JAX kernel's ``(num, den, vismax)`` f32 contract.
 ``fused_attention_pool`` launches the CUDA kernel
 (``attention_pool.cu``) for CUDA tensors and raises if it cannot; it
 runs the plain version ``attention_pool_reference`` only for tensors
-that lie on the CPU.
+that lie on the CPU. The kernel has no backward (nor has the JAX
+package's): on the card it raises when an input requires grad, rather
+than return outputs cut from the graph. On the CPU the plain version is
+differentiable, as the JAX one is.
 """
 import torch
 
@@ -66,6 +69,13 @@ def fused_attention_pool(features, logits):
         return attention_pool_reference(features, logits)
     if features.device.type != 'cuda':
         raise ValueError('unsupported device {}'.format(features.device))
+    if torch.is_grad_enabled() and (features.requires_grad
+                                    or logits.requires_grad):
+        raise RuntimeError(
+            'fused_attention_pool (K2) has no backward yet: its CUDA kernel '
+            'would cut the gradients into the features and the pixel '
+            'classifier. Train with multires pooling or '
+            'use_pallas_pooling=False')
     n, d, h, w = features.shape
     k1 = logits.shape[1]
     if features.dtype not in _DTYPE_CODES or logits.dtype not in _DTYPE_CODES:

@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout and
-drives the port's serving path once at full width: BPBReID with an
+drives the port's two paths once at full width: BPBReID with an
 HRNet-W32 backbone at 384x128, five parts (five_v), GWAP, 512-d
-after-pooling reduction, 751 classes, bf16, seeded random weights, with
-the fused attention-pool kernel on the path (``use_pallas_pooling``,
-multires off). Phases:
+after-pooling reduction, 751 classes, bf16, seeded random weights.
+The serving path runs the fused attention-pool kernel (K2,
+``use_pallas_pooling``, multires off); the train step runs the default
+multires pooling with the BN-sum kernels (K3, forward and backward) in
+every train-mode BN. Phases:
 
 1. build every kernel (one nvcc per source, started together);
 2. each kernel against its plain PyTorch version on the card, at the
-   main-path shape and at ragged shapes, with timings (CUDA events);
+   main-path shapes and at ragged shapes, with timings (CUDA events);
 3. the serving run: eval_preprocess -> model -> test embeddings ->
    normalize -> part-based distance -> CMC/mAP over seeded query and
    gallery batches of 64, with the kernels' launch counts, the forward's
@@ -20,7 +22,15 @@ multires off). Phases:
 4. the same weights on the plain pooling path and on the default
    multires path, held against phase 3;
 5. the same port model in f32 on the card and on the CPU at a small
-   input (TF32 off).
+   input (TF32 off);
+6. the train run: ``engine.forward_backward`` (augment -> train-mode
+   forward -> GiLt + BPA -> backward -> Adam) on a batch of 16
+   identities x 4 instances, 3 warm-up and 10 timed steps with fresh
+   augmentation draws and the K3 launch counts; then 20 steps on the one
+   batch with one set of draws, whose loss must fall; and a
+   torch.profiler breakdown of three steps;
+7. one small f32 train step on the card and on the CPU (TF32 off):
+   loss, gradients, updated parameters and BN statistics.
 
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
@@ -44,6 +54,27 @@ HEIGHT, WIDTH = 384, 128
 N_QUERY_BATCHES, N_GALLERY_BATCHES = 2, 4
 N_IDS = 48
 SEED = 0
+# train batch: identities x instances
+TRAIN_IDS, TRAIN_INSTANCES = 16, 4
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LEARN = 3, 10, 20
+LR, WEIGHT_DECAY = 3.5e-4, 5e-4
+# K3 at the train path's BN inputs: ([shape], channel_dim), NCHW maps
+# (stem, layer1 Bottleneck output, the four HRNet branches) and the
+# feature-last BNs (BNNeck [64, 512], parts dim-reduce [64*5, 512])
+K3_MAIN_SHAPES = [((BATCH, 64, 192, 64), 1), ((BATCH, 256, 96, 32), 1),
+                  ((BATCH, 32, 96, 32), 1), ((BATCH, 64, 48, 16), 1),
+                  ((BATCH, 128, 24, 8), 1), ((BATCH, 256, 12, 4), 1),
+                  ((BATCH, 512), -1), ((5 * BATCH, 512), -1)]
+# odd C, odd H*W, A = 1, a tiny feature-last
+K3_RAGGED_SHAPES = [((3, 33, 7, 5), 1), ((1, 32, 96, 32), 1),
+                    ((2, 5, 13, 1), 1), ((7, 3), -1)]
+# the row of the kernels line: the largest BN input of the step
+K3_REPORT = ((BATCH, 256, 96, 32), 'torch.bfloat16')
+K3_SOURCE = 'bpbreid_tpu_torch/ops/cuda/bn_stats.cu'
+K3_KERNEL_NAMES = ('rows_partial_kernel', 'cols_partial_kernel',
+                   'finalize_kernel')
+K3_REPLACES = ('experiments/pallas_bn_v2.py:55 (K3a); '
+               'experiments/pallas_bn_bench.py:82 (K3b)')
 
 
 def log(*args):
@@ -150,6 +181,108 @@ def phase_kernels(torch):
     return rows
 
 
+def _bn_library_stats(torch, x):
+    """``torch.batch_norm_stats``: one CUDA call that reads ``x`` (NCHW or
+    [M, C]) once; it returns mean and inverse std, not the two sums."""
+    return torch.batch_norm_stats(x, 1e-5)
+
+
+def _bn_library_grad_stats(torch, dy, x, mean, rstd):
+    """``torch.batch_norm_backward_reduce``: sum(dy) and
+    sum(dy * (x - mean)) in one CUDA call."""
+    return torch.batch_norm_backward_reduce(dy, x, mean, rstd, None, True,
+                                            False, False)
+
+
+def _k3_bound_ms(nbytes, flops):
+    """Bytes over the memory rate against f32 operations over the f32
+    rate (the sums run outside the tensor cores)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS['float32'] * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+def _k3_errors(torch, got, want, scales):
+    """Largest |kernel - plain| and whether every channel is within
+    1e-5 of its sum of magnitudes (the kernel sums in f64, the plain
+    version in f32)."""
+    err, ok = 0.0, True
+    for a, b, sc in zip(got, want, scales):
+        d = (a - b).abs()
+        err = max(err, d.max().item())
+        ok = ok and bool((d <= 1e-5 * sc + 1e-6).all()) \
+            and bool(torch.isfinite(a).all())
+    return err, ok
+
+
+def phase_k3(torch):
+    """K3 forward (bn_stats) and backward (bn_grad_stats) against their
+    plain versions, at the train path's BN inputs in bf16 and f32 and at
+    ragged shapes; times at the main-path shapes."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (
+        bn_grad_stats, bn_grad_stats_reference, bn_stats, bn_stats_reference,
+        channel_view)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
+    rows, failures = [], []
+    cases = [(sh, cd, dt, True) for sh, cd in K3_MAIN_SHAPES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(sh, cd, torch.float32, False) for sh, cd in K3_RAGGED_SHAPES]
+    cases += [(sh, cd, torch.bfloat16, False) for sh, cd in K3_RAGGED_SHAPES]
+    for shape, cd, dt, timed in cases:
+        x = (0.5 + torch.randn(shape, device='cuda', generator=gen)).to(dt)
+        dy = torch.randn(shape, device='cuda', generator=gen).to(dt)
+        a, c, b = channel_view(x.shape, cd)
+        m = a * b
+        x3, dy3 = x.reshape(a, c, b).float(), dy.reshape(a, c, b).float()
+        got = bn_stats(x, cd)
+        torch.cuda.synchronize()
+        err_f, ok_f = _k3_errors(torch, got, bn_stats_reference(x, cd),
+                                 (x3.abs().sum((0, 2)),
+                                  (x3 * x3).sum((0, 2))))
+        mean = got[0] / m
+        rstd = torch.rsqrt((got[1] / m - mean * mean).clamp(min=0) + 1e-5)
+        got_g = bn_grad_stats(dy, x, mean, rstd, cd)
+        torch.cuda.synchronize()
+        xhat = (x3 - mean.view(1, c, 1)) * rstd.view(1, c, 1)
+        err_b, ok_b = _k3_errors(
+            torch, got_g, bn_grad_stats_reference(dy, x, mean, rstd, cd),
+            (dy3.abs().sum((0, 2)), (dy3 * xhat).abs().sum((0, 2))))
+        del x3, dy3, xhat
+        row = {'shape': list(shape), 'channel_dim': cd, 'dtype': str(dt),
+               'view': [a, c, b], 'fwd_max_abs_err': err_f,
+               'bwd_max_abs_err': err_b}
+        if not ok_f:
+            failures.append('K3 bn_stats at {} {}: err {}'.format(
+                shape, dt, err_f))
+        if not ok_b:
+            failures.append('K3 bn_grad_stats at {} {}: err {}'.format(
+                shape, dt, err_b))
+        if timed:
+            t = lambda fn: time_ms(fn, torch, warmup=2, iters=5,  # noqa: E731
+                                   repeats=3)
+            nx = x.numel() * x.element_size()
+            row['fwd_ms'] = t(lambda: bn_stats(x, cd))
+            row['fwd_plain_ms'] = t(lambda: bn_stats_reference(x, cd))
+            row['fwd_library_ms'] = t(lambda: _bn_library_stats(torch, x))
+            row['fwd_bound_ms'], row['fwd_bound_by'] = _k3_bound_ms(
+                nx + 2 * c * 4, 3.0 * x.numel())
+            row['bwd_ms'] = t(lambda: bn_grad_stats(dy, x, mean, rstd, cd))
+            row['bwd_plain_ms'] = t(
+                lambda: bn_grad_stats_reference(dy, x, mean, rstd, cd))
+            row['bwd_library_ms'] = t(lambda: _bn_library_grad_stats(
+                torch, dy, x, mean, rstd))
+            row['bwd_bound_ms'], row['bwd_bound_by'] = _k3_bound_ms(
+                2 * nx + 4 * c * 4, 5.0 * x.numel())
+        log('K3', json.dumps(row))
+        rows.append(row)
+        del x, dy, got, got_g
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError('\n'.join(failures))
+    return rows
+
+
 def make_batches(n_batches, rng, base_images, camid_offset):
     """Seeded uint8 images (identity template + noise), 36-channel
     confidence fields at 1/8 of the image grid, pids and camids."""
@@ -185,33 +318,44 @@ def serving_config():
     return cfg
 
 
-def profile_eval_steps(torch, engine, imgs, masks, steps=3):
-    """Device time by kernel over ``steps`` eval steps (torch.profiler):
-    the device's busy share of the host-clock window and the kernels
-    that take the most time. Kernels run on one stream, so their summed
-    durations are the busy time."""
+def profile_steps(torch, step, steps=3):
+    """Device time by kernel over ``steps`` calls of ``step``
+    (torch.profiler): the device's busy share of the host-clock window
+    and the kernels that take the most time. Kernels run on one stream,
+    so their summed durations are the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.eval_step(imgs, masks)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # device-side ranges of record_function annotations (the
+        # optimizer's step, zero_grad) are not kernels
+        if e.device_type == DeviceType.CUDA \
+                and not getattr(e, 'is_user_annotation', False):
             ms, calls = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
                                calls + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    host = sorted(prof.key_averages(), key=lambda k: -k.self_cpu_time_total)
+    k3_ms = sum(ms for name, (ms, _) in by_name.items()
+                if any(k in name for k in K3_KERNEL_NAMES))
     return {'steps': steps, 'wall_ms': wall_ms,
             'device_busy_ms': busy_ms if by_name else 'not measured',
             'busy_share': busy_ms / wall_ms if by_name else 'not measured',
+            'k3_device_ms': k3_ms if by_name else 'not measured',
+            'device_kernel_launches': sum(c for _, c in by_name.values()),
             'top_kernels': [{'name': name[:100], 'ms': ms, 'calls': calls}
-                            for name, (ms, calls) in top]}
+                            for name, (ms, calls) in top],
+            'top_host_ops': [{'name': k.key[:80],
+                              'self_cpu_ms': k.self_cpu_time_total / 1e3,
+                              'calls': k.count} for k in host[:12]]}
 
 
 def relative_errors(a, b):
@@ -300,9 +444,10 @@ def phase_serving(torch, results):
                'pixel_accuracy': acc}
     log('serving', json.dumps(serving))
     results['serving'] = serving
-    profile_out = profile_eval_steps(torch, engine, imgs, masks)
+    profile_out = profile_steps(torch,
+                                lambda: engine.eval_step(imgs, masks))
     log('profile', json.dumps({k: v for k, v in profile_out.items()
-                               if k != 'top_kernels'}))
+                               if not k.startswith('top_')}))
     for row in profile_out['top_kernels'][:6]:
         log('  {:9.3f} ms {:5d} calls  {}'.format(row['ms'], row['calls'],
                                                   row['name']))
@@ -380,6 +525,229 @@ def phase_small_reference(torch, results):
                              .format(err))
 
 
+def train_config(height=HEIGHT, width=WIDTH, dtype='bfloat16',
+                 dim_reduce_output=512):
+    """The JAX train recipe (bpbreid_tpu/tools/bench_train.py): five_v,
+    transforms rf rc re, GWAP with multires pooling, no K2."""
+    from bpbreid_tpu_torch.config import get_default_config
+    from bpbreid_tpu_torch.ops.masks import compute_parts_num_and_names
+    cfg = get_default_config()
+    cfg.data.height, cfg.data.width = height, width
+    cfg.data.transforms = ['rf', 'rc', 're']
+    cfg.model.compute_dtype = dtype
+    cfg.model.bpbreid.backbone = 'hrnet32'
+    cfg.model.bpbreid.masks.preprocess = 'five_v'
+    cfg.model.bpbreid.dim_reduce_output = dim_reduce_output
+    cfg.train.batch_size = BATCH
+    compute_parts_num_and_names(cfg)
+    return cfg
+
+
+def train_engine(torch, cfg, num_classes, device, **model_kwargs):
+    from bpbreid_tpu_torch.data.augment import mask_chain_kwargs
+    from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.optim import build_optimizer
+    model = build_model('bpbreid', num_classes, config=cfg, device=device,
+                        seed=SEED, **model_kwargs)
+    optimizer = build_optimizer(model, optim='adam', lr=LR,
+                                weight_decay=WEIGHT_DECAY)
+    return model, ImagePartBasedEngine.from_config(
+        cfg, model, mask_chain_kwargs(cfg), device=device,
+        optimizer=optimizer)
+
+
+def make_train_batch(rng, n_ids, n_inst, height, width, device):
+    """Identity x instance batch: a template per identity plus noise,
+    confidence fields at 1/8 of the image grid."""
+    import torch
+    pids = np.repeat(np.arange(n_ids), n_inst)
+    base = rng.integers(0, 256, size=(n_ids, height, width, 3))
+    noise = rng.integers(-20, 21, size=(len(pids), height, width, 3))
+    imgs = np.clip(base[pids] + noise, 0, 255).astype(np.uint8)
+    masks = rng.uniform(size=(len(pids), height // 8, width // 8, 36)) \
+        .astype(np.float32)
+    return {'image': torch.as_tensor(imgs, device=device),
+            'mask': torch.as_tensor(masks, device=device),
+            'pid': torch.as_tensor(pids, device=device)}
+
+
+def phase_train(torch, results):
+    """The full-width train run (see the module docstring, phase 6)."""
+    from bpbreid_tpu_torch.data.augment import sample_train_draws
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    cfg = train_config()
+    model, engine = train_engine(torch, cfg, 751, 'cuda')
+    batch = make_train_batch(np.random.default_rng(SEED + 2), TRAIN_IDS,
+                             TRAIN_INSTANCES, HEIGHT, WIDTH, 'cuda')
+    # train-mode BNs whose sums go through K3: all but the pixel
+    # classifier's, whose multires statistics are virtual. The losses
+    # read no background stream and no per-part id score (GiLt: id on
+    # global/foreground/concat, triplet on parts), so autograd runs no
+    # backward for those streams' BNs
+    bn = [n for n, mod in model.named_modules()
+          if isinstance(mod, FastBatchNorm) and n != 'pixel_classifier.bn']
+    no_grad = [n for n in bn if n.startswith((
+        'background_after_pooling_dim_reduce',
+        'background_identity_classifier', 'parts_identity_classifier'))]
+    losses, step_ms = [], []
+
+    def step(draws=None):
+        t0 = time.perf_counter()
+        loss, _ = engine.forward_backward(batch, draws)
+        losses.append(loss.item())          # waits for the step
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(TRAIN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for _ in range(TRAIN_TIMED):
+        step_ms.append(step())
+    launches = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # learning: the one batch with one set of draws, repeated (fresh
+    # draws at 16 x 4 move the loss by more than 20 steps lower it)
+    draws = sample_train_draws(engine.generator, BATCH, HEIGHT, WIDTH,
+                               cfg.data.transforms)
+    timed_losses, losses = losses, []
+    for _ in range(TRAIN_LEARN):
+        step(draws)
+    per_step = {k: v / TRAIN_TIMED for k, v in launches.items()}
+    median_ms = statistics.median(step_ms)
+    train = {'batch': BATCH, 'ids_x_instances': [TRAIN_IDS, TRAIN_INSTANCES],
+             'dtype': 'bfloat16', 'step_ms_median': median_ms,
+             'step_ms': step_ms, 'images_per_s': BATCH / median_ms * 1e3,
+             'peak_memory_gb': peak_gb, 'losses': timed_losses,
+             'learning_losses': losses,
+             'k3_launches_per_step': per_step,
+             'bn_modules_through_k3': len(bn),
+             'bn_modules_without_backward': len(no_grad)}
+    log('train', json.dumps({k: v for k, v in train.items()
+                             if k not in ('losses', 'learning_losses',
+                                          'step_ms')}))
+    log('train losses', ' '.join('{:.4f}'.format(v) for v in timed_losses))
+    log('learning losses', ' '.join('{:.4f}'.format(v) for v in losses))
+    checks = []
+    if per_step.get('bn_stats') != len(bn):
+        checks.append('bn_stats launches per step {} != {} BN modules'
+                      .format(per_step.get('bn_stats'), len(bn)))
+    if per_step.get('bn_grad_stats') != len(bn) - len(no_grad):
+        checks.append('bn_grad_stats launches per step {} != {}'.format(
+            per_step.get('bn_grad_stats'), len(bn) - len(no_grad)))
+    if not all(np.isfinite(timed_losses + losses)):
+        checks.append('non-finite loss {} {}'.format(timed_losses, losses))
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        checks.append('loss did not fall over {} steps: {}'.format(
+            TRAIN_LEARN, losses))
+    if checks:
+        raise AssertionError('; '.join(checks))
+    profile_out = profile_steps(torch, lambda: engine.forward_backward(batch))
+    log('train profile', json.dumps({k: v for k, v in profile_out.items()
+                                     if not k.startswith('top_')}))
+    for row in profile_out['top_kernels']:
+        log('  {:9.3f} ms {:5d} calls  {}'.format(row['ms'], row['calls'],
+                                                  row['name']))
+    log('  host, self time:')
+    for row in profile_out['top_host_ops'][:8]:
+        log('  {:9.3f} ms {:5d} calls  {}'.format(
+            row['self_cpu_ms'], row['calls'], row['name']))
+    train['profile'] = profile_out
+    results['train'] = train
+    results['train_launches'] = launches
+    del model, engine, batch
+    torch.cuda.empty_cache()
+
+
+def phase_small_train_reference(torch, results):
+    """One f32 train step of a depth-reduced model, 64x32, batch 8 (2
+    identities x 4 instances), on the card and on the CPU, with the same
+    weights and augmentation draws (TF32 off).
+
+    At batch 8 the train-mode gradient is ill-conditioned: BN over as
+    few as 16 values per channel, so the order of the f32 sums moves it
+    by a few per cent (tests/test_torch_train_step.py measures the noise
+    floor). Tolerances: loss 1e-5 relative; gradients 4e-2 relative L2
+    over all parameters and per tensor 0.3 of its largest entry; BN
+    statistics 1e-4 of their scale; parameters exactly Adam's first
+    update from each side's gradient, lr * g / (|g| + eps), to 1e-6."""
+    from bpbreid_tpu_torch.data.augment import sample_train_draws
+    cfg = train_config(64, 32, 'float32', 64)
+    stages = {'stage2': (1, 2, (2, 2), (32, 64)),
+              'stage3': (1, 3, (2, 2, 2), (32, 64, 128)),
+              'stage4': (1, 4, (2, 2, 2, 2), (32, 64, 128, 256))}
+    cpu_batch = make_train_batch(np.random.default_rng(SEED + 3), 2, 4, 64,
+                                 32, 'cpu')
+    draws = sample_train_draws(torch.Generator().manual_seed(SEED), 8, 64,
+                               32, cfg.data.transforms)
+    out = {}
+    for device in ('cuda', 'cpu'):
+        model, engine = train_engine(torch, cfg, 7, device,
+                                     backbone_stages=stages)
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.named_parameters()}
+        dev_draws = {k: (None if v is None else
+                         tuple(t.to(device) for t in v)
+                         if isinstance(v, tuple) else v.to(device))
+                     for k, v in draws.items()}
+        loss, _ = engine.forward_backward(
+            {k: v.to(device) for k, v in cpu_batch.items()}, draws=dev_draws)
+        out[device] = {
+            'loss': loss.item(), 'before': before,
+            'grads': {k: v.grad.detach().cpu().clone()
+                      for k, v in model.named_parameters()},
+            'state': {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+    card, cpu = out['cuda'], out['cpu']
+    checks = []
+    loss_rel = abs(card['loss'] - cpu['loss']) / abs(cpu['loss'])
+    if not loss_rel <= 1e-5:
+        checks.append('loss {} vs {}'.format(card['loss'], cpu['loss']))
+    num = den = 0.0
+    worst_grad = 0.0
+    for k, g in cpu['grads'].items():
+        d = card['grads'][k] - g
+        num += float((d.double() ** 2).sum())
+        den += float((g.double() ** 2).sum())
+        scale = g.abs().max().item()
+        if scale > 1e-6:
+            worst_grad = max(worst_grad, d.abs().max().item() / scale)
+    grad_rel_l2 = (num / den) ** 0.5
+    if not (grad_rel_l2 <= 4e-2 and worst_grad <= 0.3):
+        checks.append('gradients differ: rel L2 {}, worst tensor {}'.format(
+            grad_rel_l2, worst_grad))
+    worst_param = worst_bn = 0.0
+    for k, w in cpu['state'].items():
+        got = card['state'][k]
+        diff = (got - w).abs()
+        if k.endswith(('running_mean', 'running_var')):
+            worst_bn = max(worst_bn, diff.max().item()
+                           / (1 + w.abs().max().item()))
+            continue
+        if k not in cpu['grads']:
+            continue
+        p0 = cpu['before'][k]
+        u = [(g + WEIGHT_DECAY * p0) / ((g + WEIGHT_DECAY * p0).abs() + 1e-8)
+             for g in (card['grads'][k], cpu['grads'][k])]
+        worst_param = max(worst_param, (diff - LR * (u[0] - u[1]).abs())
+                          .abs().max().item())
+    if not worst_bn <= 1e-4:
+        checks.append('BN running statistics differ by {}'.format(worst_bn))
+    if not worst_param <= 1e-6:
+        checks.append('parameters differ from the Adam update by {}'
+                      .format(worst_param))
+    small = {'loss_card': card['loss'], 'loss_cpu': cpu['loss'],
+             'grad_rel_l2': grad_rel_l2, 'grad_worst_tensor': worst_grad,
+             'bn_stats_worst': worst_bn, 'param_worst': worst_param}
+    log('small_f32_train_card_vs_cpu', json.dumps(small))
+    results['small_train_card_vs_cpu'] = small
+    if checks:
+        raise AssertionError('; '.join(checks))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -405,12 +773,20 @@ def main():
     log('phase 2: kernels vs plain versions')
     k2_rows = phase_kernels(torch)
     results['k2'] = k2_rows
+    k3_rows = phase_k3(torch)
+    results['k3'] = k3_rows
     log('phase 3: serving run')
     model, engine, query, feats, vis, mAP = phase_serving(torch, results)
     log('phase 4: plain pooling and multires paths')
     phase_paths(torch, model, engine, query, feats, vis, mAP, results)
     log('phase 5: small f32 model, card vs CPU')
     phase_small_reference(torch, results)
+    del model, engine, query, feats, vis
+    torch.cuda.empty_cache()
+    log('phase 6: train run')
+    phase_train(torch, results)
+    log('phase 7: small f32 train step, card vs CPU')
+    phase_small_train_reference(torch, results)
 
     main_row = k2_rows[0]       # main-path shape and dtypes
     kernels = [{
@@ -423,15 +799,28 @@ def main():
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
         'library_ms': main_row['library_ms'],
     }]
+    k3_row = next(r for r in k3_rows
+                  if (tuple(r['shape']), r['dtype']) == K3_REPORT)
+    for name, pre in (('bn_stats', 'fwd'), ('bn_grad_stats', 'bwd')):
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': K3_SOURCE,
+            'replaces': K3_REPLACES,
+            'launches': results['train_launches'].get(name, 0),
+            'max_abs_err': k3_row[pre + '_max_abs_err'],
+            'ms': k3_row[pre + '_ms'], 'plain_ms': k3_row[pre + '_plain_ms'],
+            'bound_ms': k3_row[pre + '_bound_ms'],
+            'bound_by': k3_row[pre + '_bound_by'],
+            'library_ms': k3_row[pre + '_library_ms']})
     results['kernels'] = kernels
     with open('chiprun_out/chip_smoke.json', 'w') as f:
         json.dump(results, f, indent=1)
-    s = results['serving']
+    s, t = results['serving'], results['train']
     log(gpu)
     log('throughput: {:.1f} images/s forward (batch {}, bf16), retrieval '
-        '{:.3f} s for {} images, on {}'.format(
-            s['forward_images_per_s'], BATCH, s['retrieval_s'],
-            s['retrieval_images'], gpu))
+        '{:.3f} s for {} images; train step {:.1f} ms ({:.1f} images/s), '
+        'on {}'.format(s['forward_images_per_s'], BATCH, s['retrieval_s'],
+                       s['retrieval_images'], t['step_ms_median'],
+                       t['images_per_s'], gpu))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
