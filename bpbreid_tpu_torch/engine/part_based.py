@@ -8,9 +8,14 @@ forward (``_train_step_impl`` :196, ``_loss_fn`` :173).
 
 ``eval_step``: preprocess -> forward -> the configured test embedding
 streams concatenated to ``[N, P+2, D]`` + visibility + pixel-accuracy
-counts (``_eval_step_impl`` :284). ``evaluate``: features of the query
-and gallery loaders, L2-normalize, visibility-masked part distance and
-CMC/mAP on the host (the small-gallery branch of ``_evaluate`` :609).
+counts (``_eval_step_impl`` :284). ``evaluate`` (``_evaluate`` :609):
+features of the query and gallery loaders, L2-normalize, then either
+the visibility-masked part distance and CMC/mAP on the host, or, once
+``Nq * Ng`` exceeds ``device_ranking_threshold``, the query-chunked
+device pipeline (``_chunked_device_eval`` :818): per chunk the part
+distances, the sort-free counting ranker (``ops/ranking.py``) and the
+pair-distance moments of an exact SSMD, all on the device. With
+``detailed_ranking`` on, each part's mAP and rank-1 are reported too.
 
 A loader is any iterable of batch dicts holding numpy arrays: ``image``
 ``[B, H, W, 3]`` uint8, optional ``mask`` ``[B, h, w, C]`` float
@@ -23,7 +28,8 @@ import numpy as np
 import torch
 
 from bpbreid_tpu_torch import resolve_device
-from bpbreid_tpu_torch.constants import PIXELS, bn_correspondants
+from bpbreid_tpu_torch.constants import (PIXELS, bn_correspondants,
+                                         get_test_embeddings_names)
 from bpbreid_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
                                             eval_preprocess,
                                             sample_train_draws, train_augment)
@@ -32,7 +38,10 @@ from bpbreid_tpu_torch.losses.gilt import GiLtLoss
 from bpbreid_tpu_torch.metrics.distance import \
     compute_distance_matrix_using_bp_features
 from bpbreid_tpu_torch.metrics.rank import evaluate_rank
+from bpbreid_tpu_torch.ops.ranking import cmc_map, cmc_map_counting
 from bpbreid_tpu_torch.ops.resize import resize_bilinear_align_corners
+from bpbreid_tpu_torch.utils.distribution import (
+    compute_ssmd, plot_pairs_distance_distribution)
 
 __all__ = ['ImagePartBasedEngine', 'normalize']
 
@@ -61,6 +70,9 @@ class ImagePartBasedEngine:
             settings (``config.data.transforms``, ``config.data.cj``).
         open_layers: names whose parameters train while the base is
             frozen (``set_freeze_base``).
+        detailed_ranking: also rank each test embedding stream alone
+            (``config.test.detailed_ranking``); ``parts_names`` name the
+            part streams in that table.
         seed: seed of the engine's ``torch.Generator`` for the
             augmentation draws.
         device: torch device; ``None`` means ``'cuda'``.
@@ -76,7 +88,7 @@ class ImagePartBasedEngine:
                  margin=0.3, loss_name='part_averaged_triplet_loss',
                  mask_filtering_training=False, ppl='cl',
                  transforms=('rc', 're'), cj=None, open_layers=('classifier',),
-                 seed=0, device=None):
+                 detailed_ranking=False, parts_names=(), seed=0, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.optimizer = optimizer
@@ -101,6 +113,10 @@ class ImagePartBasedEngine:
         self.testing_binary_visibility_score = testing_binary_visibility_score
         self.dist_combine_strat = dist_combine_strat
         self.batch_size_pairwise_dist_matrix = batch_size_pairwise_dist_matrix
+        self.detailed_ranking = detailed_ranking
+        self.parts_names = list(parts_names)
+        # above Nq * Ng of this, evaluate takes the query-chunked path
+        self.device_ranking_threshold = int(2e8)
 
     @classmethod
     def from_config(cls, config, model, mask_kwargs=None, device=None,
@@ -131,6 +147,8 @@ class ImagePartBasedEngine:
                        'cj_saturation': cj.saturation, 'cj_hue': cj.hue,
                        'cj_p': cj.p},
                    open_layers=config.train.open_layers,
+                   detailed_ranking=config.test.detailed_ranking,
+                   parts_names=config.model.bpbreid.masks.parts_names,
                    seed=config.train.seed, device=device)
 
     # ------------------------------------------------------------------
@@ -278,9 +296,18 @@ class ImagePartBasedEngine:
                 np.concatenate(camids_), acc)
 
     def evaluate(self, query_loader, gallery_loader, normalize_feature=True,
-                 dist_metric='euclidean', max_rank=50):
-        """Query-gallery retrieval: returns ``{'cmc', 'mAP',
-        'pixel_accuracy', 'distmat'}`` (numpy / floats)."""
+                 dist_metric='euclidean', max_rank=50, eval_metric='default',
+                 use_metric_cuhk03=False):
+        """Query-gallery retrieval.
+
+        Returns ``{'cmc', 'mAP', 'ssmd', 'pixel_accuracy', 'distmat',
+        'parts_ranking'}`` (numpy / floats). ``distmat`` is the whole
+        distance matrix on the host path; on the chunked path the first
+        query chunk over a subsample of the gallery columns, which CMC,
+        mAP, SSMD and the per-part table do not use there: they are
+        exact over the whole run. ``parts_ranking`` holds ``(name, mAP %,
+        rank-1 %)`` per stream with ``detailed_ranking``, else None.
+        """
         qf, q_vis, q_pids, q_camids, q_acc = \
             self.feature_extraction(query_loader)
         gf, g_vis, g_pids, g_camids, g_acc = \
@@ -294,11 +321,208 @@ class ImagePartBasedEngine:
         g_vis_arr = g_vis if self.mask_filtering_testing else None
         if q_vis_arr is not None and self.testing_binary_visibility_score:
             q_vis_arr, g_vis_arr = q_vis_arr.bool(), g_vis_arr.bool()
-        distmat, _ = compute_distance_matrix_using_bp_features(
-            qf, gf, q_vis_arr, g_vis_arr, self.dist_combine_strat,
-            self.batch_size_pairwise_dist_matrix, metric=dist_metric)
-        distmat = distmat.cpu().numpy()
-        metrics = evaluate_rank(distmat, q_pids, g_pids, q_camids, g_camids,
-                                max_rank=max_rank)
-        return {'cmc': metrics['cmc'], 'mAP': metrics['mAP'],
-                'pixel_accuracy': pxl_acc, 'distmat': distmat}
+        if use_metric_cuhk03:
+            eval_metric = 'cuhk03'
+
+        big_gallery = (n_q * n_g > self.device_ranking_threshold
+                       and eval_metric == 'default')
+        part_rows = None
+        if big_gallery:
+            (cmc, mAP, distmat, body_parts_distmat, n_q_host, g_pids_host,
+             g_camids_host, part_rows, pair_stats) = \
+                self._chunked_device_eval(qf, gf, q_vis_arr, g_vis_arr,
+                                          q_pids, g_pids, q_camids, g_camids,
+                                          dist_metric, max_rank=max_rank)
+            q_pids_host = q_pids[:n_q_host]
+            q_camids_host = q_camids[:n_q_host]
+        else:
+            distmat, body_parts_distmat = \
+                compute_distance_matrix_using_bp_features(
+                    qf, gf, q_vis_arr, g_vis_arr, self.dist_combine_strat,
+                    self.batch_size_pairwise_dist_matrix, metric=dist_metric)
+            distmat = distmat.cpu().numpy()
+            body_parts_distmat = body_parts_distmat.cpu().numpy() \
+                if self.detailed_ranking else None
+            g_pids_host, g_camids_host = g_pids, g_camids
+            q_pids_host, q_camids_host = q_pids, q_camids
+            metrics = evaluate_rank(distmat, q_pids, g_pids, q_camids,
+                                    g_camids, max_rank=max_rank,
+                                    eval_metric=eval_metric)
+            cmc, mAP = metrics['cmc'], metrics['mAP']
+
+        parts_ranking = None
+        if self.detailed_ranking:
+            parts_ranking = self.display_individual_parts_ranking_performances(
+                body_parts_distmat, g_camids_host, g_pids_host,
+                q_camids_host, q_pids_host, eval_metric,
+                precomputed_rows=part_rows)
+        if big_gallery and pair_stats is not None:
+            # exact moments of the whole run, accumulated per chunk
+            ssmd = compute_ssmd(*pair_stats)
+        else:
+            ssmd = plot_pairs_distance_distribution(distmat, q_pids_host,
+                                                    g_pids_host)[-1]
+        return {'cmc': cmc, 'mAP': mAP, 'ssmd': ssmd,
+                'pixel_accuracy': pxl_acc, 'distmat': distmat,
+                'parts_ranking': parts_ranking}
+
+    def _chunked_device_eval(self, qf, gf, q_vis_arr, g_vis_arr, q_pids,
+                             g_pids, q_camids, g_camids,
+                             dist_metric='euclidean', max_rank=50,
+                             part_bytes_budget=2 << 30):
+        """Distractor-scale evaluation: query chunks through the device
+        distance and the counting ranker.
+
+        Each chunk of ``c = max(16, min(Nq, part_bytes_budget // (4 K
+        Ng)))`` queries computes its own part distances (so the ``max + 1``
+        sentinel is the chunk's maximum, as in JAX); the last chunk is
+        padded to ``c`` with pid -1 queries, which never match and drop
+        out as invalid. Chunk CMC/mAP partials combine weighted by their
+        valid-query counts; a chunk where a query has more true matches
+        than the counting ranker holds falls back to the full sort. The
+        positive/negative pair-distance moments are f32 sums within a
+        chunk and f64 across chunks (padded queries in neither set). With
+        ``detailed_ranking`` the per-part CMC/mAP accumulate the same way.
+
+        Args:
+            qf, gf: ``[Nq, K, D]`` / ``[Ng, K, D]`` features on the device;
+            q_vis_arr, g_vis_arr: ``[Nq, K]`` / ``[Ng, K]`` or None;
+            q_pids, g_pids, q_camids, g_camids: numpy ids.
+        Returns:
+            ``(cmc, mAP, sub_distmat, sub_bp_distmat, n_q_host, sub_g_pids,
+            sub_g_camids, part_rows, pair_stats)``: the ``sub_*`` arrays
+            are the first chunk over up to 20,000 evenly spaced gallery
+            columns; ``part_rows`` ``[(mAP_p, rank1_p)] * K`` or None;
+            ``pair_stats`` ``(pos_mean, pos_std, neg_mean, neg_std)`` or
+            None.
+        """
+        device = gf.device
+        nq, ngal = len(q_pids), len(g_pids)
+        k_streams = qf.shape[1]
+        c = int(part_bytes_budget // max(1, 4 * k_streams * ngal))
+        c = max(16, min(nq, c))
+        max_rank = min(max_rank, ngal)
+        g_pids_d = torch.as_tensor(g_pids, device=device)
+        g_camids_d = torch.as_tensor(g_camids, device=device)
+
+        cmc_sum = np.zeros(max_rank, np.float64)
+        map_sum, n_valid_total = 0.0, 0
+        part_r1_sum = np.zeros(k_streams, np.float64)
+        part_map_sum = np.zeros(k_streams, np.float64)
+        pair_acc = np.zeros(6, np.float64)   # pos: sum, sq, n; neg: ...
+
+        def ranking(d, args):
+            out = cmc_map_counting(d, *args, max_rank=max_rank)
+            if int(out[3]):                  # exact full-sort fallback
+                return cmc_map(d, *args, max_rank=max_rank)
+            return out[:3]
+
+        sub = sub_dist = sub_bp = None
+        for start in range(0, nq, c):
+            qf_c = qf[start:start + c]
+            qv_c = q_vis_arr[start:start + c] \
+                if q_vis_arr is not None else None
+            qp_c = np.asarray(q_pids[start:start + c])
+            qc_c = np.asarray(q_camids[start:start + c])
+            if len(qp_c) < c:          # pad to the chunk size: pid -1
+                pad = c - len(qp_c)
+                qf_c = torch.cat([qf_c, qf_c.new_zeros(
+                    (pad,) + tuple(qf_c.shape[1:]))])
+                if qv_c is not None:   # all visible; never matches anyway
+                    qv_c = torch.cat([qv_c, qv_c.new_ones(
+                        (pad,) + tuple(qv_c.shape[1:]))])
+                qp_c = np.concatenate([qp_c, -np.ones(pad, qp_c.dtype)])
+                qc_c = np.concatenate([qc_c, np.zeros(pad, qc_c.dtype)])
+            d_c, bp_c = compute_distance_matrix_using_bp_features(
+                qf_c, gf, qv_c, g_vis_arr, self.dist_combine_strat,
+                self.batch_size_pairwise_dist_matrix, metric=dist_metric)
+            args = (torch.as_tensor(qp_c, device=device), g_pids_d,
+                    torch.as_tensor(qc_c, device=device), g_camids_d)
+            pair_acc += _pair_moments(d_c, args[0], g_pids_d) \
+                .cpu().numpy().astype(np.float64)
+            cmc_c, map_c, nv_c = ranking(d_c, args)
+            nv = int(nv_c)
+            cmc_sum += cmc_c.cpu().numpy().astype(np.float64) * nv
+            map_sum += float(map_c) * nv
+            n_valid_total += nv
+            if self.detailed_ranking:
+                # query validity depends on pids and camids only: the same
+                # nv weights every part
+                for p in range(k_streams):
+                    pc, pm, _ = ranking(bp_c[p], args)
+                    part_r1_sum[p] += float(pc[0]) * nv
+                    part_map_sum[p] += float(pm) * nv
+            if sub is None:            # host statistics: the first chunk
+                sub = np.unique(np.linspace(
+                    0, ngal - 1, min(20_000, ngal)).astype(np.int64))
+                n_real = min(c, nq - start)
+                sub_d = torch.as_tensor(sub, device=device)
+                sub_dist = d_c[:n_real, sub_d].cpu().numpy()
+                sub_bp = bp_c[:, :n_real][..., sub_d].cpu().numpy()
+            del d_c, bp_c
+        if n_valid_total == 0:
+            raise RuntimeError(
+                'Error: all query identities do not appear in gallery')
+        cmc = (cmc_sum / n_valid_total).astype(np.float32)
+        mAP = map_sum / n_valid_total
+        part_rows = [(part_map_sum[p] / n_valid_total,
+                      part_r1_sum[p] / n_valid_total)
+                     for p in range(k_streams)] \
+            if self.detailed_ranking else None
+        ps_, pq_, pn_, ns_, nq_, nn_ = pair_acc
+        pair_stats = None
+        if pn_ > 0 and nn_ > 0:
+            pmean, nmean = ps_ / pn_, ns_ / nn_
+            pair_stats = (pmean,
+                          float(np.sqrt(max(0.0, pq_ / pn_ - pmean ** 2))),
+                          nmean,
+                          float(np.sqrt(max(0.0, nq_ / nn_ - nmean ** 2))))
+        return (cmc, mAP, sub_dist, sub_bp, sub_dist.shape[0],
+                np.asarray(g_pids)[sub], np.asarray(g_camids)[sub],
+                part_rows, pair_stats)
+
+    def display_individual_parts_ranking_performances(
+            self, body_parts_distmat, g_camids, g_pids, q_camids, q_pids,
+            eval_metric, precomputed_rows=None):
+        """Per-stream ranking table (JAX :950): ``[(name, mAP %, rank-1
+        %)]``, printed. At distractor scale the rows come from
+        ``precomputed_rows`` (exact per-part partials of the chunked
+        path), never from a subsample."""
+        names = get_test_embeddings_names(self.parts_names,
+                                          self.test_embeddings)
+
+        def name(p):
+            return names[p] if p < len(names) else 'p{}'.format(p)
+
+        print('Parts embeddings individual rankings :')
+        if precomputed_rows is not None:
+            rows = [(name(p), float(m) * 100, float(r1) * 100)
+                    for p, (m, r1) in enumerate(precomputed_rows)]
+        else:
+            rows = []
+            for p in range(body_parts_distmat.shape[0]):
+                try:
+                    perf = evaluate_rank(body_parts_distmat[p], q_pids,
+                                         g_pids, q_camids, g_camids,
+                                         eval_metric=eval_metric)
+                except (AssertionError, RuntimeError):
+                    continue
+                rows.append((name(p), float(perf['mAP']) * 100,
+                             float(perf['cmc'][0]) * 100))
+        print('{:<20} {:>8} {:>8}'.format('embedding', 'mAP', 'R-1'))
+        for n, m, r1 in rows:
+            print('{:<20} {:>8.2f} {:>8.2f}'.format(n, m, r1))
+        return rows
+
+
+def _pair_moments(d, qp, gp):
+    """f32 ``[sum, sum of squares, count]`` of the positive then the
+    negative pair distances of ``d [Q, G]``; queries with pid < 0 are in
+    neither set."""
+    valid = (qp >= 0)[:, None]
+    same = (qp[:, None] == gp[None, :]) & valid
+    diff = (qp[:, None] != gp[None, :]) & valid
+    d32 = d.float()
+    s, n = same.float(), diff.float()
+    return torch.stack([(d32 * s).sum(), (d32 * d32 * s).sum(), s.sum(),
+                        (d32 * n).sum(), (d32 * d32 * n).sum(), n.sum()])

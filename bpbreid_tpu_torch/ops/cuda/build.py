@@ -39,6 +39,8 @@ KERNELS = {
                  [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     'bn_grad_stats': ('bn_stats', 'bpbreid_bn_grad_stats',
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    'conv_chain': ('conv_chain', 'bpbreid_conv_chain',
+                   [_P] * 7 + [_I] * 10 + [_P]),
 }
 
 launch_counts = collections.Counter()

@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout and
-drives the port's two paths once at full width: BPBReID with an
-HRNet-W32 backbone at 384x128, five parts (five_v), GWAP, 512-d
-after-pooling reduction, 751 classes, bf16, seeded random weights.
-The serving path runs the fused attention-pool kernel (K2,
-``use_pallas_pooling``, multires off); the train step runs the default
-multires pooling with the BN-sum kernels (K3, forward and backward) in
-every train-mode BN. Phases:
+drives the port's paths once at full width: BPBReID with an HRNet-W32
+backbone at 384x128, five parts (five_v), GWAP, 512-d after-pooling
+reduction, 751 classes, bf16, seeded random weights. The serving path
+runs the fused attention-pool kernel (K2, ``use_pallas_pooling``,
+multires off); the train step runs the default multires pooling with the
+BN-sum kernels (K3, forward and backward) in every train-mode BN; the
+BasicBlock-chain kernel (K1), which no model path calls, runs on the
+serving model's 26 HRNet branch chains; retrieval runs at Market-1501
+and Market-1501 + 500k distractors scale. Phases:
 
 1. build every kernel (one nvcc per source, started together);
 2. each kernel against its plain PyTorch version on the card, at the
@@ -19,10 +21,17 @@ every train-mode BN. Phases:
    normalize -> part-based distance -> CMC/mAP over seeded query and
    gallery batches of 64, with the kernels' launch counts, the forward's
    throughput and a torch.profiler breakdown of three eval steps;
+   3b. forward hooks capture the input and output of the serving model's
+   26 branch chains on one query batch; each chain, folded
+   (``fold_basicblock_chain``), goes through K1 and is held against the
+   chain's output, with K1's launch count;
 4. the same weights on the plain pooling path and on the default
    multires path, held against phase 3;
+   8a. phase 3's ``evaluate`` above ``device_ranking_threshold`` (forced
+   to 1: the query-chunked device path) against its host path, on the
+   same features;
 5. the same port model in f32 on the card and on the CPU at a small
-   input (TF32 off);
+   input (TF32 off), and K1 on that model's 9 branch chains;
 6. the train run: ``engine.forward_backward`` (augment -> train-mode
    forward -> GiLt + BPA -> backward -> Adam) on a batch of 16
    identities x 4 instances, 3 warm-up and 10 timed steps with fresh
@@ -30,7 +39,14 @@ every train-mode BN. Phases:
    batch with one set of draws, whose loss must fall; and a
    torch.profiler breakdown of three steps;
 7. one small f32 train step on the card and on the CPU (TF32 off):
-   loss, gradients, updated parameters and BN statistics.
+   loss, gradients, updated parameters and BN statistics;
+8. large-gallery retrieval on seeded features ``[N, 6, 512]`` with
+   planted identities, made on the card: (b) 3,368 queries against
+   19,732 gallery images, the chunked path (threshold 1) against the
+   host ranking, per-part table on; (c) the same queries against 515,913
+   gallery images (496,181 distractors), the chunked path on its own,
+   its first chunk's counting ranker against the full sort, with the
+   seconds, the seconds per chunk and the peak memory.
 
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
@@ -71,6 +87,21 @@ K3_RAGGED_SHAPES = [((3, 33, 7, 5), 1), ((1, 32, 96, 32), 1),
 # the row of the kernels line: the largest BN input of the step
 K3_REPORT = ((BATCH, 256, 96, 32), 'torch.bfloat16')
 K3_SOURCE = 'bpbreid_tpu_torch/ops/cuda/bn_stats.cu'
+# K1 at HRNet-W32's branch chains at 384x128 (4 BasicBlocks each) and
+# ragged maps: ((N, H, W, C), blocks)
+K1_MAIN_SHAPES = [((BATCH, 96, 32, 32), 4), ((BATCH, 48, 16, 64), 4),
+                  ((BATCH, 24, 8, 128), 4), ((BATCH, 12, 4, 256), 4)]
+K1_RAGGED_SHAPES = [((1, 5, 3, 8), 1), ((2, 1, 1, 32), 2),
+                    ((2, 2, 1, 32), 3), ((3, 7, 5, 33), 2)]
+K1_REPORT = ((BATCH, 96, 32, 32), 'torch.bfloat16')
+K1_SOURCE = 'bpbreid_tpu_torch/ops/cuda/conv_chain.cu'
+K1_REPLACES = 'bpbreid_tpu/ops/pallas/conv_chain.py:86'
+# HRNet-W32 has 2 + 4 x 3 + 3 x 4 branch chains (models/hrnet.py)
+HRNET_W32_CHAINS = 26
+# phase 8: Market-1501 test split (3,368 queries, 19,732 gallery images,
+# 750 identities) and Market-1501 + 500k distractors (515,913 gallery)
+MARKET_QUERY, MARKET_GALLERY, MARKET_IDS = 3368, 19732, 750
+MARKET_500K_GALLERY = 515913
 K3_KERNEL_NAMES = ('rows_partial_kernel', 'cols_partial_kernel',
                    'finalize_kernel')
 K3_REPLACES = ('experiments/pallas_bn_v2.py:55 (K3a); '
@@ -283,6 +314,180 @@ def phase_k3(torch):
     return rows
 
 
+def _k1_inputs(torch, gen, shape, blocks, dtype):
+    n, h, w, c = shape
+    x = torch.randn(shape, device='cuda', generator=gen).to(dtype)
+    weights = torch.randn((2 * blocks, 3, 3, c, c), device='cuda',
+                          generator=gen) / (3.0 * c ** 0.5)
+    scales = 1.0 + 0.1 * torch.randn((2 * blocks, c), device='cuda',
+                                     generator=gen)
+    biases = 0.1 * torch.randn((2 * blocks, c), device='cuda', generator=gen)
+    return x, weights, scales, biases
+
+
+def _k1_error(torch, got, want):
+    """Largest |kernel - plain| and whether it is inside the tolerance:
+    f32 sums in another order, 1e-4 of the largest |output|; a bf16
+    output within 2 bf16 ulps of each value plus that f32 term."""
+    err = (got.float() - want.float()).abs()
+    f32_tol = 1e-4 * want.float().abs().max().item() + 1e-6
+    if got.dtype == torch.float32:
+        ok = err.max().item() <= f32_tol
+    else:
+        ok = bool((err <= 2 * 2.0 ** -7 * want.float().abs()
+                   + f32_tol).all())
+    return err.max().item(), ok and bool(torch.isfinite(got.float()).all())
+
+
+def conv_chain_library(torch, x, weights, scales, biases):
+    """The same chain as eager cuDNN: ``F.conv2d`` on channels_last maps
+    in the input's type, then the folded affine, ReLU and residual.
+    ``x`` is NCHW channels_last, ``weights`` a list of OIHW kernels in
+    ``x.dtype``."""
+    import torch.nn.functional as F
+    s, b = scales[:, None, :, None, None], biases[:, None, :, None, None]
+    for i in range(len(weights) // 2):
+        y = torch.relu(F.conv2d(x, weights[2 * i], padding=1) * s[2 * i]
+                       + b[2 * i])
+        y = F.conv2d(y, weights[2 * i + 1], padding=1)
+        x = torch.relu(x + (y * s[2 * i + 1] + b[2 * i + 1]))
+    return x
+
+
+def conv_chain_bound_ms(x, weights):
+    """Operations over the peak for x's type (bf16 on the tensor cores,
+    f32 on the CUDA cores) against x read once, the output, the weights
+    (f32) and the affine written or read once."""
+    n, h, w, c = x.shape
+    flops = 2.0 * n * h * w * 9 * c * c * weights.shape[0]
+    nbytes = 2 * x.numel() * x.element_size() + weights.numel() * 4 \
+        + 2 * weights.shape[0] * c * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).replace('torch.', '')] * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+def phase_k1(torch):
+    """K1 against its plain version at the main-path and ragged shapes,
+    f32 and bf16; times of the main-path shapes."""
+    from bpbreid_tpu_torch.ops.conv_chain import (basicblock_chain_reference,
+                                                  fused_basicblock_chain)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 4)
+    cases = [(sh, bl, dt, True) for sh, bl in K1_MAIN_SHAPES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(sh, bl, dt, False) for sh, bl in K1_RAGGED_SHAPES
+              for dt in (torch.float32, torch.bfloat16)]
+    rows, failures = [], []
+    for shape, blocks, dt, timed in cases:
+        x, w, s, b = _k1_inputs(torch, gen, shape, blocks, dt)
+        got = fused_basicblock_chain(x, w, s, b)
+        torch.cuda.synchronize()
+        want = basicblock_chain_reference(x, w, s, b)
+        err, ok = _k1_error(torch, got, want)
+        row = {'shape': list(shape), 'blocks': blocks, 'dtype': str(dt),
+               'max_abs_err': err}
+        if not ok:
+            failures.append('K1 at {} {} x{}: err {}'.format(
+                shape, dt, blocks, err))
+        if timed:
+            t = lambda fn: time_ms(fn, torch, warmup=2, iters=5,  # noqa: E731
+                                   repeats=3)
+            row['ms'] = t(lambda: fused_basicblock_chain(x, w, s, b))
+            row['plain_ms'] = t(lambda: basicblock_chain_reference(x, w, s, b))
+            x_cl = x.permute(0, 3, 1, 2)            # channels_last NCHW
+            w_lib = [wi.contiguous(memory_format=torch.channels_last)
+                     for wi in w.permute(0, 4, 3, 1, 2).to(dt)]
+            s_l, b_l = s.to(dt), b.to(dt)
+            row['library_ms'] = t(lambda: conv_chain_library(
+                torch, x_cl, w_lib, s_l, b_l))
+            row['bound_ms'], row['bound_by'] = conv_chain_bound_ms(x, w)
+            row['gflop_per_s'] = 2.0 * x.numel() * 9 * shape[3] \
+                * 2 * blocks / row['ms'] / 1e6
+            del x_cl, w_lib
+        log('K1', json.dumps(row))
+        rows.append(row)
+        del x, w, s, b, got, want
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError('\n'.join(failures))
+    return rows
+
+
+def _branch_chains(torch, model):
+    """The BasicBlock ResLayers of every HighResolutionModule's branches."""
+    from bpbreid_tpu_torch.models.hrnet import HighResolutionModule
+    return [(name + '.branches.{}'.format(i), branch)
+            for name, mod in model.named_modules()
+            if isinstance(mod, HighResolutionModule)
+            for i, branch in enumerate(mod.branches)]
+
+
+def k1_on_model_chains(torch, model, inputs, rtol):
+    """Forward hooks capture the input and output of every branch chain
+    of ``model(*inputs)``; then fold each chain and run it through K1 on the
+    captured input. Returns the rows, the wrapper calls and the launch
+    count of the K1 run (counts reset just before it)."""
+    from bpbreid_tpu_torch.ops.conv_chain import (fold_basicblock_chain,
+                                                  fused_basicblock_chain)
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    chains = _branch_chains(torch, model)
+    captured, hooks = {}, []
+    for name, branch in chains:
+        hooks.append(branch.register_forward_hook(
+            lambda mod, inp, out, name=name: captured.__setitem__(
+                name, (inp[0].detach(), out.detach()))))
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    folded = {name: fold_basicblock_chain(branch) for name, branch in chains}
+    torch.cuda.synchronize()
+    rows, failures = [], []
+    reset_launch_counts()
+    for name, _ in chains:
+        inp, out = captured[name]
+        got = fused_basicblock_chain(inp.permute(0, 2, 3, 1).contiguous(),
+                                     *folded[name])
+        err = relative_errors(got.permute(0, 3, 1, 2), out).max().item()
+        rows.append({'chain': name, 'shape': list(inp.shape),
+                     'dtype': str(inp.dtype), 'max_rel_err': err})
+        if not err <= rtol:
+            failures.append('K1 on {}: rel err {} > {}'.format(name, err,
+                                                              rtol))
+    torch.cuda.synchronize()
+    launches = launch_counts.get('conv_chain', 0)
+    per_call = sum(w.shape[0] // 2 for w, _, _ in folded.values())
+    if launches != per_call or len(chains) == 0:
+        failures.append('K1 launches {} != {} blocks of {} chains'.format(
+            launches, per_call, len(chains)))
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return rows, len(chains), launches
+
+
+def phase_k1_serving(torch, model, engine, query, results):
+    """K1 on the 26 branch chains of the bf16 serving model, one query
+    batch; rel. L2 3e-2 per sample (the model rounds each conv, BN and
+    residual to bf16, K1 once at the end), as phase 4."""
+    from bpbreid_tpu_torch.data.augment import eval_preprocess
+    imgs = torch.as_tensor(query[0]['image'], device='cuda')
+    masks = torch.as_tensor(query[0]['mask'], device='cuda')
+    x, m = eval_preprocess(imgs, masks, mask_kwargs=engine.mask_kwargs)
+    rows, calls, launches = k1_on_model_chains(torch, model, (x, m), 3e-2)
+    if calls != HRNET_W32_CHAINS:
+        raise AssertionError('{} branch chains, expected {}'.format(
+            calls, HRNET_W32_CHAINS))
+    out = {'calls': calls, 'launches': launches,
+           'max_rel_err': max(r['max_rel_err'] for r in rows)}
+    log('K1 on serving chains', json.dumps(out))
+    results['k1_serving_chains'] = {**out, 'rows': rows}
+    return launches
+
+
 def make_batches(n_batches, rng, base_images, camid_offset):
     """Seeded uint8 images (identity template + noise), 36-channel
     confidence fields at 1/8 of the image grid, pids and camids."""
@@ -453,7 +658,7 @@ def phase_serving(torch, results):
                                                   row['name']))
     results['profile'] = profile_out
     results['launches'] = launches
-    return model, engine, query, feats, vis, mAP
+    return model, engine, query, gallery, feats, vis, mAP
 
 
 def phase_paths(torch, model, engine, query, feats, vis, mAP_fused,
@@ -515,6 +720,14 @@ def phase_small_reference(torch, results):
         with torch.inference_mode():
             emb = model(x.to(device))[0]
         outs[device] = {k: v.float().cpu() for k, v in emb.items()}
+        if device == 'cuda':
+            # K1 on this model's 9 branch chains of 2 blocks, f32
+            rows, calls, launches = k1_on_model_chains(
+                torch, model, (x.to(device),), 1e-4)
+            k1 = {'calls': calls, 'launches': launches,
+                  'max_rel_err': max(r['max_rel_err'] for r in rows)}
+            log('K1 on small f32 chains', json.dumps(k1))
+            results['k1_small_f32_chains'] = k1
     err = max((outs['cuda'][k] - outs['cpu'][k]).abs().max().item()
               for k in outs['cpu'])
     log('small_f32_card_vs_cpu max_abs_err', err)
@@ -523,6 +736,220 @@ def phase_small_reference(torch, results):
     if not err <= 1e-3:
         raise AssertionError('card vs CPU f32 embeddings differ by {}'
                              .format(err))
+
+
+def _cached_features(engine):
+    """Make ``engine.feature_extraction`` compute each loader's features
+    once, so two ``evaluate`` calls rank the same features."""
+    cache, extract = {}, engine.feature_extraction
+
+    def cached(loader):
+        if id(loader) not in cache:
+            cache[id(loader)] = extract(loader)
+        return cache[id(loader)]
+    engine.feature_extraction = cached
+
+
+def _compare_evals(got, want, what, ssmd_tol=1e-4):
+    """CMC and mAP within 1e-5, SSMD within ``ssmd_tol``, per-part rows
+    (percent) within 1e-3 (1e-5 of 1)."""
+    checks = []
+    n = min(len(got['cmc']), len(want['cmc']))
+    cmc_err = float(np.abs(got['cmc'][:n] - want['cmc'][:n]).max())
+    map_err = abs(got['mAP'] - want['mAP'])
+    ssmd_err = abs(got['ssmd'] - want['ssmd'])
+    if not (cmc_err <= 1e-5 and map_err <= 1e-5):
+        checks.append('{}: CMC err {} mAP err {}'.format(what, cmc_err,
+                                                         map_err))
+    if not ssmd_err <= ssmd_tol:
+        checks.append('{}: SSMD {} vs {}'.format(what, got['ssmd'],
+                                                 want['ssmd']))
+    part_err = 0.0
+    if got['parts_ranking'] is not None:
+        part_err = float(np.abs(
+            np.array([r[1:] for r in got['parts_ranking']])
+            - np.array([r[1:] for r in want['parts_ranking']])).max())
+        if not part_err <= 1e-3:
+            checks.append('{}: per-part rows differ by {} %'.format(
+                what, part_err))
+    if checks:
+        raise AssertionError('; '.join(checks))
+    return {'cmc_err': cmc_err, 'map_err': map_err, 'ssmd_err': ssmd_err,
+            'part_rows_err_percent': part_err}
+
+
+def phase_large_gallery_serving(torch, engine, query, gallery, results):
+    """Phase 8a: the serving engine's ``evaluate`` above
+    ``device_ranking_threshold`` (forced to 1) against its host path, on
+    the same features."""
+    _cached_features(engine)
+    host = engine.evaluate(query, gallery, normalize_feature=True)
+    engine.device_ranking_threshold = 1
+    try:
+        dev = engine.evaluate(query, gallery, normalize_feature=True)
+    finally:
+        engine.device_ranking_threshold = int(2e8)
+    out = _compare_evals(dev, host, 'serving chunked vs host')
+    out.update(mAP=dev['mAP'], rank1=float(dev['cmc'][0]), ssmd=dev['ssmd'])
+    log('phase 8a', json.dumps(out))
+    results['large_gallery'] = {'serving_chunked_vs_host': out}
+
+
+def _synthetic_features(torch, gen, pids, centers, noise=3.0,
+                        chunk=1 << 16):
+    """``[len(pids), K, D]`` f32 features, L2-normalized per part: the
+    identity's center plus Gaussian noise; pids without a center (>=
+    len(centers)) are noise alone. Made on the card, in chunks."""
+    n = len(pids)
+    k, d = centers.shape[1:]
+    out = torch.empty((n, k, d), device='cuda')
+    for s in range(0, n, chunk):
+        p = pids[s:s + chunk]
+        f = noise * torch.randn((len(p), k, d), device='cuda', generator=gen)
+        has = p < len(centers)
+        f[has] += centers[p[has]]
+        out[s:s + chunk] = f / f.norm(dim=-1, keepdim=True)
+        del f
+    return out
+
+
+def _synthetic_split(torch, gen, pids, centers):
+    """(features, visibility [N, K] f32 with about 20 % of the part
+    streams invisible, pids, camids) of one split."""
+    feats = _synthetic_features(torch, gen, pids, centers)
+    vis = torch.rand((len(pids), centers.shape[1]), device='cuda',
+                     generator=gen) > 0.2
+    vis[:, 0] = True                     # the foreground stream
+    camids = torch.randint(0, 6, (len(pids),), device='cuda', generator=gen)
+    return feats, vis.float(), pids.cpu().numpy(), camids.cpu().numpy()
+
+
+def phase_large_gallery(torch, results):
+    """Phase 8b and 8c: Market-1501-sized and Market-1501 + 500k retrieval
+    on seeded features [N, 6, 512] with planted identities."""
+    from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+    from bpbreid_tpu_torch.metrics.distance import \
+        compute_distance_matrix_using_bp_features
+    from bpbreid_tpu_torch.ops.ranking import cmc_map, cmc_map_counting
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
+    k, d = 6, 512
+    centers = torch.randn((2 * MARKET_IDS, k, d), device='cuda',
+                          generator=gen)
+    q_pids = torch.arange(MARKET_QUERY, device='cuda') % MARKET_IDS
+    # half of the gallery's identities are the queries', half are not
+    g_pids = torch.randint(0, 2 * MARKET_IDS, (MARKET_GALLERY,),
+                           device='cuda', generator=gen)
+    query = _synthetic_split(torch, gen, q_pids, centers)
+    gallery = _synthetic_split(torch, gen, g_pids, centers)
+    engine = ImagePartBasedEngine(
+        torch.nn.Identity(), device='cuda', detailed_ranking=True,
+        parts_names=['head', 'torso', 'arms', 'legs', 'feet'])
+    splits = {'query': query + (0.0,), 'gallery': gallery + (0.0,)}
+    engine.feature_extraction = splits.__getitem__
+    out = {}
+
+    # 8b: Market-1501 size, chunked (threshold 1) vs host ranking
+    t0 = time.perf_counter()
+    host = engine.evaluate('query', 'gallery', normalize_feature=False)
+    host_s = time.perf_counter() - t0
+    engine.device_ranking_threshold = 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = engine.evaluate('query', 'gallery', normalize_feature=False)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    engine.device_ranking_threshold = int(2e8)
+    # SSMD: the chunked path sums the pair moments in f32 (as JAX), and
+    # std = sqrt(E[d^2] - E[d]^2) cancels: unit 512-d features put the
+    # negative-pair variance near 1e-4 of E[d^2], so f32 rounding moves
+    # the SSMD by about 1e-3 of itself; 1e-2 of it is the tolerance
+    out['market1501'] = {
+        'queries': MARKET_QUERY, 'gallery': MARKET_GALLERY,
+        'host_path_s': host_s, 'chunked_path_s': dev_s,
+        'mAP': dev['mAP'], 'rank1': float(dev['cmc'][0]),
+        'ssmd': dev['ssmd'], 'host_ssmd': host['ssmd'],
+        **_compare_evals(dev, host, 'market1501',
+                         ssmd_tol=1e-2 * abs(host['ssmd']))}
+    log('phase 8b', json.dumps(out['market1501']))
+    del host, dev
+
+    # 8c: + 496,181 distractors, whose pids no query has
+    n_big = MARKET_500K_GALLERY
+    big_pids = torch.cat([g_pids, 10 ** 6 + torch.arange(
+        n_big - MARKET_GALLERY, device='cuda')])
+    gf = torch.empty((n_big, k, d), device='cuda')
+    gf[:MARKET_GALLERY] = gallery[0]
+    gf[MARKET_GALLERY:] = _synthetic_features(torch, gen,
+                                              big_pids[MARKET_GALLERY:],
+                                              centers)
+    gv = torch.cat([gallery[1], (torch.rand(
+        (n_big - MARKET_GALLERY, k), device='cuda', generator=gen) > 0.2)
+        .float()])
+    gv[:, 0] = 1.0
+    g_camids = np.concatenate([gallery[3], torch.randint(
+        0, 6, (n_big - MARKET_GALLERY,), device='cuda',
+        generator=gen).cpu().numpy()])
+    splits['gallery'] = (gf, gv, big_pids.cpu().numpy(), g_camids, 0.0)
+    del gallery
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    big = engine.evaluate('query', 'gallery', normalize_feature=False)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    chunk = max(16, min(MARKET_QUERY, (2 << 30) // (4 * k * n_big)))
+    n_chunks = -(-MARKET_QUERY // chunk)
+
+    # the first chunk: the counting ranker against the full sort
+    qf, qv = query[0][:chunk], query[1][:chunk].bool()
+    t0 = time.perf_counter()
+    d_c, _ = compute_distance_matrix_using_bp_features(
+        qf, gf, qv, gv.bool(), engine.dist_combine_strat,
+        engine.batch_size_pairwise_dist_matrix)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    args = (q_pids[:chunk], torch.as_tensor(big_pids, device='cuda'),
+            torch.as_tensor(query[3][:chunk], device='cuda'),
+            torch.as_tensor(g_camids, device='cuda'))
+    t0 = time.perf_counter()
+    counted = cmc_map_counting(d_c, *args, max_rank=50)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = cmc_map(d_c, *args, max_rank=50)
+    torch.cuda.synchronize()
+    sort_s = time.perf_counter() - t0
+    cmc_err = (counted[0] - full[0]).abs().max().item()
+    map_err = abs(counted[1].item() - full[1].item())
+    out['market1501_500k'] = {
+        'queries': MARKET_QUERY, 'gallery': n_big,
+        'gallery_gb': gf.numel() * 4 / 1e9, 'chunk_queries': chunk,
+        'chunks': n_chunks, 'whole_s': big_s, 's_per_chunk': big_s / n_chunks,
+        'peak_memory_gb': peak_gb, 'mAP': big['mAP'],
+        'rank1': float(big['cmc'][0]), 'ssmd': big['ssmd'],
+        'parts_ranking': big['parts_ranking'],
+        'first_chunk': {'distance_s': dist_s, 'counting_s': count_s,
+                        'full_sort_s': sort_s, 'cmc_err': cmc_err,
+                        'map_err': map_err,
+                        'overflow': int(counted[3]),
+                        'n_valid': [int(counted[2]), int(full[2])]}}
+    log('phase 8c', json.dumps(out['market1501_500k']))
+    results['large_gallery'].update(out)
+    checks = []
+    if not (cmc_err <= 1e-6 and map_err <= 1e-6
+            and int(counted[2]) == int(full[2]) and int(counted[3]) == 0):
+        checks.append('first chunk: counting vs full sort: {}'.format(
+            out['market1501_500k']['first_chunk']))
+    m = out['market1501']['mAP']
+    if not (np.isfinite(big['mAP']) and 0.0 <= big['mAP'] <= m + 1e-6):
+        checks.append('500k mAP {} not in [0, {}] (distractors cannot '
+                      'raise it)'.format(big['mAP'], m))
+    if checks:
+        raise AssertionError('; '.join(checks))
+    del gf, gv, d_c, splits, engine
+    torch.cuda.empty_cache()
 
 
 def train_config(height=HEIGHT, width=WIDTH, dtype='bfloat16',
@@ -775,18 +1202,27 @@ def main():
     results['k2'] = k2_rows
     k3_rows = phase_k3(torch)
     results['k3'] = k3_rows
+    k1_rows = phase_k1(torch)
+    results['k1'] = k1_rows
     log('phase 3: serving run')
-    model, engine, query, feats, vis, mAP = phase_serving(torch, results)
+    model, engine, query, gallery, feats, vis, mAP = phase_serving(torch,
+                                                                   results)
+    log('phase 3b: K1 on the serving model\'s branch chains')
+    k1_launches = phase_k1_serving(torch, model, engine, query, results)
     log('phase 4: plain pooling and multires paths')
     phase_paths(torch, model, engine, query, feats, vis, mAP, results)
+    log('phase 8a: serving evaluate, chunked vs host')
+    phase_large_gallery_serving(torch, engine, query, gallery, results)
     log('phase 5: small f32 model, card vs CPU')
     phase_small_reference(torch, results)
-    del model, engine, query, feats, vis
+    del model, engine, query, gallery, feats, vis
     torch.cuda.empty_cache()
     log('phase 6: train run')
     phase_train(torch, results)
     log('phase 7: small f32 train step, card vs CPU')
     phase_small_train_reference(torch, results)
+    log('phase 8b, 8c: Market-1501 and Market-1501 + 500k retrieval')
+    phase_large_gallery(torch, results)
 
     main_row = k2_rows[0]       # main-path shape and dtypes
     kernels = [{
@@ -811,6 +1247,14 @@ def main():
             'bound_ms': k3_row[pre + '_bound_ms'],
             'bound_by': k3_row[pre + '_bound_by'],
             'library_ms': k3_row[pre + '_library_ms']})
+    k1_row = next(r for r in k1_rows
+                  if (tuple(r['shape']), r['dtype']) == K1_REPORT)
+    kernels.append({
+        'name': 'conv_chain', 'route': 'cuda', 'source': K1_SOURCE,
+        'replaces': K1_REPLACES, 'launches': k1_launches,
+        'max_abs_err': k1_row['max_abs_err'], 'ms': k1_row['ms'],
+        'plain_ms': k1_row['plain_ms'], 'bound_ms': k1_row['bound_ms'],
+        'bound_by': k1_row['bound_by'], 'library_ms': k1_row['library_ms']})
     results['kernels'] = kernels
     with open('chiprun_out/chip_smoke.json', 'w') as f:
         json.dump(results, f, indent=1)

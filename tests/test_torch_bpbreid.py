@@ -20,7 +20,9 @@ from bpbreid_tpu_torch.models.bpbreid import BPBreID as TBPBreID
 from bpbreid_tpu_torch.utils.weights import (jax_variables_to_state_dict,
                                              load_jax_variables)
 from tests.torch_port_helpers import (SMALL_W32, nchw, randomize_variables,
-                                      to_nhwc, to_np)
+                                      to_nhwc, to_np, limit_torch_threads)
+
+limit_torch_threads()
 
 KW = dict(num_classes=7, parts_num=5, backbone='hrnet32',
           backbone_stages=SMALL_W32, dim_reduce_output=32)

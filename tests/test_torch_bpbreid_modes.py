@@ -12,7 +12,9 @@ import torch
 
 from bpbreid_tpu_torch.constants import BN_FOREGROUND, PARTS
 from tests.test_torch_bpbreid import assert_outputs_match, inputs, run_both
-from tests.torch_port_helpers import to_np
+from tests.torch_port_helpers import to_np, limit_torch_threads
+
+limit_torch_threads()
 
 __all__ = ['inputs']
 

@@ -154,3 +154,70 @@ def test_train_batch_norm_on_the_card_matches_the_cpu(cuda):
             bn.running_var)]
     for a, b in zip(out['cuda'], out['cpu']):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# K1: the main path's branch chains (N=64 at 384x128) and ragged shapes
+K1_SHAPES = [((64, 96, 32, 32), 4), ((64, 12, 4, 256), 4), ((1, 5, 3, 8), 1),
+             ((2, 1, 1, 32), 2), ((2, 2, 1, 32), 3), ((3, 7, 5, 33), 2)]
+
+
+def _k1_inputs(device, shape, blocks, seed):
+    n, h, w, c = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, device=device, generator=gen)
+    weights = torch.randn((2 * blocks, 3, 3, c, c), device=device,
+                          generator=gen) / (3.0 * c ** 0.5)
+    scales = 1.0 + 0.1 * torch.randn((2 * blocks, c), device=device,
+                                     generator=gen)
+    biases = 0.1 * torch.randn((2 * blocks, c), device=device, generator=gen)
+    return x, weights, scales, biases
+
+
+@pytest.mark.parametrize('shape,blocks', K1_SHAPES)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_conv_chain_kernel_matches_plain(cuda, monkeypatch, shape, blocks,
+                                         dtype):
+    """K1 against its plain version (f32 cuDNN convs, TF32 off): f32 sums
+    in another order, 1e-4 of the output's largest magnitude; a bf16
+    output within 2 bf16 ulps of the plain one plus that f32 term (values
+    near a ReLU's zero or a rounding boundary move by the f32 noise)."""
+    from bpbreid_tpu_torch.ops.conv_chain import (basicblock_chain_reference,
+                                                  fused_basicblock_chain)
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    x, w, s, b = _k1_inputs(cuda, shape, blocks, 0)
+    x = x.to(dtype)
+    before = launch_counts['conv_chain']
+    got = fused_basicblock_chain(x, w, s, b)
+    torch.cuda.synchronize()
+    assert launch_counts['conv_chain'] == before + blocks
+    want = basicblock_chain_reference(x, w, s, b)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    f32_tol = 1e-4 * want.float().abs().max().item() + 1e-6
+    if dtype == torch.float32:
+        assert err.max().item() <= f32_tol
+    else:
+        assert (err <= 2 * 2.0 ** -7 * want.float().abs() + f32_tol).all()
+
+
+def test_counting_ranker_on_the_card_matches_the_cpu(cuda):
+    """``cmc_map_counting`` and ``cmc_map`` on the card against the same
+    functions on the CPU: tied distances included, CMC and mAP 1e-6,
+    counts equal."""
+    import numpy as np
+    from bpbreid_tpu_torch.ops.ranking import cmc_map, cmc_map_counting
+    rng = np.random.default_rng(0)
+    d = np.round(rng.random((173, 5000)) * 64).astype(np.float32) / 64
+    ids = [rng.integers(0, 60, 173), rng.integers(0, 120, 5000),
+           rng.integers(0, 6, 173), rng.integers(0, 6, 5000)]
+    for fn in (cmc_map_counting, cmc_map):
+        outs = [fn(torch.from_numpy(d).to(dev),
+                   *(torch.from_numpy(i).to(dev) for i in ids), max_rank=50)
+                for dev in (cuda, torch.device('cpu'))]
+        for a, b in zip(*outs):
+            assert a.device.type == 'cuda'
+            if b.dtype == torch.int32:
+                assert int(a) == int(b)
+            else:
+                torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=0)

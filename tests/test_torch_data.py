@@ -17,7 +17,9 @@ from bpbreid_tpu.ops import masks as jmasks
 from bpbreid_tpu_torch.config import get_default_config
 from bpbreid_tpu_torch.data import augment as taug
 from bpbreid_tpu_torch.ops import masks as tmasks
-from tests.torch_port_helpers import nchw, to_nhwc
+from tests.torch_port_helpers import nchw, to_nhwc, limit_torch_threads
+
+limit_torch_threads()
 
 
 def _fields(shape, seed):

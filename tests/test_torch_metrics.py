@@ -16,6 +16,9 @@ from bpbreid_tpu_torch.metrics.distance import \
     compute_distance_matrix_using_bp_features as t_distance
 from bpbreid_tpu_torch.metrics.rank import evaluate_rank as t_evaluate_rank
 from tests.rank_oracles import eval_market1501_loop
+from tests.torch_port_helpers import limit_torch_threads
+
+limit_torch_threads()
 
 
 def _features(nq, ng, k, d, seed):
@@ -95,5 +98,12 @@ def test_evaluate_rank_matches_jax_and_oracle(seed, ties):
 
 
 def test_evaluate_rank_rejects_unported_protocol():
-    with pytest.raises(NotImplementedError):
-        t_evaluate_rank(*_rank_case(0), eval_metric='cuhk03')
+    """An unknown protocol raises as in JAX; 'cuhk03' is ported and equals
+    JAX's to the bit (same default sort and fixed-seed stream)."""
+    case = _rank_case(0, ties=False)
+    with pytest.raises(ValueError):
+        t_evaluate_rank(*case, eval_metric='viper')
+    got = t_evaluate_rank(*case, max_rank=10, eval_metric='cuhk03')
+    want = j_evaluate_rank(*case, max_rank=10, eval_metric='cuhk03')
+    np.testing.assert_array_equal(got['cmc'], want['cmc'])
+    assert got['mAP'] == want['mAP']

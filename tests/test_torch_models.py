@@ -17,7 +17,9 @@ from bpbreid_tpu_torch.models import common as tcommon
 from bpbreid_tpu_torch.models.hrnet import hrnet32 as t_hrnet32
 from bpbreid_tpu_torch.utils.weights import load_jax_variables
 from tests.torch_port_helpers import (SMALL_W32, nchw, randomize_variables,
-                                      to_nhwc)
+                                      to_nhwc, limit_torch_threads)
+
+limit_torch_threads()
 
 
 def _run_pair(jmod, tmod, x, seed, jdtype=jnp.float32,

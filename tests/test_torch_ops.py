@@ -16,7 +16,9 @@ from bpbreid_tpu_torch.ops import pooling as tpool
 from bpbreid_tpu_torch.ops import resize as tresize
 from bpbreid_tpu_torch.ops import tensortools as ttt
 from bpbreid_tpu_torch.ops.cuda import pooling as tcuda
-from tests.torch_port_helpers import nchw, to_nhwc, to_np
+from tests.torch_port_helpers import nchw, to_nhwc, to_np, limit_torch_threads
+
+limit_torch_threads()
 
 
 @pytest.mark.parametrize('in_hw,out_hw', [((16, 8), (4, 2)), ((6, 5), (13, 7)),

@@ -13,7 +13,9 @@ import bpbreid_tpu_torch
 from bpbreid_tpu_torch.config import get_default_config
 from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
 from bpbreid_tpu_torch.models import build_model
-from tests.torch_port_helpers import SMALL_W32
+from tests.torch_port_helpers import SMALL_W32, limit_torch_threads
+
+limit_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -1,8 +1,10 @@
 """The whole eval + retrieval slice of bpbreid_tpu_torch vs the JAX
 engine: seeded uint8 images and 36-channel confidence fields ->
 eval_preprocess -> BPBReID (fused-pool path) -> test embeddings ->
-normalize -> part-based distance -> CMC/mAP. f32, equal mAP and CMC
-(1e-6)."""
+normalize -> part-based distance -> CMC/mAP and SSMD. f32, equal mAP and
+CMC (1e-6); SSMD 1e-4 (a ratio of the pair distances' mean gap to their
+spread, it moves by about 1e-5 with the 1e-6 differences of the two
+frameworks' distances)."""
 import types
 
 import jax
@@ -19,7 +21,10 @@ from bpbreid_tpu_torch.data.augment import mask_chain_kwargs
 from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
 from bpbreid_tpu_torch.models.bpbreid import BPBreID as TBPBreID
 from bpbreid_tpu_torch.utils.weights import load_jax_variables
-from tests.torch_port_helpers import SMALL_W32, randomize_variables
+from tests.torch_port_helpers import (SMALL_W32, randomize_variables,
+                                      limit_torch_threads)
+
+limit_torch_threads()
 
 KW = dict(num_classes=7, parts_num=5, backbone='hrnet32',
           backbone_stages=SMALL_W32, dim_reduce_output=32,
@@ -66,7 +71,7 @@ def test_eval_and_retrieval_slice_matches_jax_engine():
     jengine = JEngine(jcfg, dm, jmodel, build_optimizer(optim='adam'),
                       detailed_ranking=False)
     jengine.load_variables(variables)
-    j_cmc, j_map, _ssmd, j_acc = jengine._evaluate(
+    j_cmc, j_map, j_ssmd, j_acc = jengine._evaluate(
         0, query_loader=query, gallery_loader=gallery,
         normalize_feature=True)
 
@@ -79,3 +84,4 @@ def test_eval_and_retrieval_slice_matches_jax_engine():
     assert out['pixel_accuracy'] == pytest.approx(j_acc, abs=1e-6)
     assert out['mAP'] == pytest.approx(j_map, abs=1e-6)
     np.testing.assert_allclose(out['cmc'][:len(j_cmc)], j_cmc, atol=1e-6)
+    assert out['ssmd'] == pytest.approx(j_ssmd, abs=1e-4)

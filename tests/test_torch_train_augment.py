@@ -16,7 +16,9 @@ from bpbreid_tpu.data import augment as jaug
 from bpbreid_tpu_torch.config import get_default_config
 from bpbreid_tpu_torch.data import augment as taug
 from bpbreid_tpu_torch.data.augment import mask_chain_kwargs
-from tests.torch_port_helpers import to_nhwc
+from tests.torch_port_helpers import to_nhwc, limit_torch_threads
+
+limit_torch_threads()
 
 CJ = dict(cj_brightness=0.2, cj_contrast=0.15, cj_saturation=0.3,
           cj_hue=0.1, cj_p=0.5)

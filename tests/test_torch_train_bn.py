@@ -20,7 +20,9 @@ from bpbreid_tpu.models.common import _bn_channel_sums, _bn_train
 from bpbreid_tpu_torch.models.common import FastBatchNorm
 from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_grad_stats, bn_stats,
                                                   channel_view, num_splits)
-from tests.torch_port_helpers import nchw, to_nhwc
+from tests.torch_port_helpers import nchw, to_nhwc, limit_torch_threads
+
+limit_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -24,6 +24,9 @@ from bpbreid_tpu_torch.losses import (BodyPartAttentionLoss, GiLtLoss,
                                       init_part_based_triplet_loss)
 from bpbreid_tpu_torch.losses.triplet import TripletLoss
 from bpbreid_tpu_torch.optim import build_lr_scheduler, build_optimizer
+from tests.torch_port_helpers import limit_torch_threads
+
+limit_torch_threads()
 
 TOL = dict(atol=1e-6, rtol=1e-5)
 LABELS = np.repeat(np.arange(2), 4)         # 2 identities x 4 instances
@@ -260,3 +263,32 @@ def test_lr_schedule_matches_jax(kind):
         [got(5), 0.1 * got(5)])
     with pytest.raises(NotImplementedError, match='not ported'):
         build_optimizer(model, optim='radam')
+
+
+def test_staged_lr_schedule_divergence_kept_on_purpose():
+    """With ``staged_lr`` the JAX schedule never reaches the base group:
+    ``LRSchedule.set_in_opt_state`` does not enter the ``optax.chain``
+    around the base group's injected hyperparameters, so the base layers
+    keep ``lr * base_lr_mult`` in every epoch. The port scales each group
+    by its ``lr_mult``, as torchreid does. lr 1e-3, base_lr_mult 0.1,
+    multi_step at epoch 1 with gamma 0.1, read at epoch 1: new group 1e-4
+    on both sides; base group 1e-4 in JAX, 1e-5 in the port."""
+    kw = dict(lr=1e-3, lr_scheduler='multi_step', stepsize=[1], gamma=0.1)
+    params = {'backbone': {'w': np.zeros(2, np.float32)},
+              'classifier': {'w': np.zeros(2, np.float32)}}
+    opt_kw = dict(optim='adam', lr=1e-3, staged_lr=True,
+                  new_layers=['classifier'], base_lr_mult=0.1)
+    jopt = j_build_optimizer(params, **opt_kw)
+    jstate = j_build_lr_scheduler(**kw).set_in_opt_state(
+        jopt.init(jax.tree_util.tree_map(jnp.asarray, params)), 1)
+    j_new = jstate.inner_states['new'].inner_state.hyperparams
+    j_base = jstate.inner_states['base'].inner_state[0].hyperparams
+    assert float(j_new['learning_rate']) == pytest.approx(1e-4)
+    assert float(j_base['learning_rate']) == pytest.approx(1e-4)
+
+    model = _Two(params['backbone'], params['classifier'])
+    opt = build_optimizer(model, **opt_kw)
+    build_lr_scheduler(**kw).set_in_optimizer(opt, 1)
+    new, base = opt.param_groups
+    assert new['lr'] == pytest.approx(1e-4)
+    assert base['lr'] == pytest.approx(1e-5)
