@@ -9,16 +9,25 @@ Per block i of ``len(weights) // 2``:
 
 on an ``[N, H, W, C]`` map (an NCHW map in ``torch.channels_last`` memory
 format gives that view with ``x.permute(0, 2, 3, 1)``, no copy), HWIO
-weights ``[2B, 3, 3, C, C]`` and f32 ``[2B, C]`` scales and biases. f32
-products and sums; x stays f32 across the blocks and is cast to
-``x.dtype`` after the last one.
+weights ``[2B, 3, 3, C, C]`` and f32 ``[2B, C]`` scales and biases. x
+stays f32 across the blocks and is cast to ``x.dtype`` after the last one.
 
-``fused_basicblock_chain`` launches the CUDA kernel (``cuda/conv_chain.cu``,
-one launch per block) for CUDA tensors and raises if it cannot; it runs
-the plain version ``basicblock_chain_reference`` only for tensors that lie
-on the CPU. ``fold_basicblock_chain`` turns an eval ``ResLayer`` of
-``BasicBlock``s into the kernel's operands. No model path calls the chain:
-the JAX package exposes it as an op and wires it into no model.
+Two contracts, by the input's type:
+- float32: f32 products and sums (``basicblock_chain_reference``, the
+  JAX package's semantics);
+- bfloat16: each conv's operands are rounded to bf16 (the block's input
+  x, the weights and y1) and its sums, the affine and the residual stream
+  stay f32 (``basicblock_chain_bf16_reference``), as the bf16 model's own
+  convs do. The JAX reference computes the convs of a bf16 input in f32,
+  so this is a divergence (ROADMAP, "Divergences kept on purpose").
+
+``fused_basicblock_chain`` launches the CUDA kernels (``cuda/conv_chain.cu``:
+for f32 one CUDA-core launch per block, for bf16 two tensor-core
+implicit-GEMM launches per block) for CUDA tensors and raises if it
+cannot; it runs the plain version of the input's type only for tensors
+that lie on the CPU. ``fold_basicblock_chain`` turns an eval ``ResLayer``
+of ``BasicBlock``s into the kernel's operands. No model path calls the
+chain: the JAX package exposes it as an op and wires it into no model.
 """
 import torch
 import torch.nn.functional as F
@@ -28,18 +37,26 @@ from bpbreid_tpu_torch.ops.cuda.build import (check_cuda_error, launch_counts,
                                               load_kernel)
 
 __all__ = ['fused_basicblock_chain', 'basicblock_chain_reference',
-           'fold_basicblock_chain', 'plan_tiles']
+           'basicblock_chain_bf16_reference', 'fold_basicblock_chain',
+           'plan_tiles', 'plan_mma_tiles', 'repack_weights_bf16']
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# shared memory a block may take (H100: 227 KB) and the share the tile
+# shared memory a block may take (H100: 227 KB) and the share the f32 tile
 # planner aims at, so that two blocks fit on one SM
 SMEM_LIMIT = 232448
 SMEM_TARGET = 112 * 1024
 _MIN_BLOCKS = 264          # two per SM of an H100
+# bf16 kernel: CTA tiles (pixels, output channels) in the planner's order
+# of preference, the stages of its shared-memory ring (kStages in
+# cuda/conv_chain.cu), and the CTAs a launch should have (one per SM of an
+# H100)
+MMA_TILES = ((128, 64), (64, 64), (128, 32), (64, 32))
+MMA_STAGES = 3
+MMA_MIN_CTAS = 132
 
 
 def basicblock_chain_reference(x, weights, scales, biases):
-    """Plain PyTorch version of the kernel (f32 convolutions)."""
+    """Plain PyTorch version of the f32 kernel, the f32 contract (JAX's
+    semantics): f32 convolutions, x cast to ``x.dtype`` at the end."""
     xf = x.float().permute(0, 3, 1, 2)                       # NCHW f32
     w = weights.float().permute(0, 4, 3, 1, 2)        # [2B, O, I, 3, 3]
     s = scales.float()[:, :, None, None]
@@ -47,6 +64,27 @@ def basicblock_chain_reference(x, weights, scales, biases):
     for i in range(weights.shape[0] // 2):
         y = F.conv2d(xf, w[2 * i], padding=1)
         y = torch.relu(y * s[2 * i] + b[2 * i])
+        y = F.conv2d(y, w[2 * i + 1], padding=1)
+        xf = torch.relu(xf + (y * s[2 * i + 1] + b[2 * i + 1]))
+    return xf.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def basicblock_chain_bf16_reference(x, weights, scales, biases):
+    """Plain PyTorch version of the bf16 kernel: the operands it rounds to
+    bf16 (each block's input, the weights, y1) rounded the same way, each
+    conv in f32 on those values; the affine, the ReLUs and the residual
+    stream in f32; the output rounded to ``x.dtype``."""
+    xf = x.float().permute(0, 3, 1, 2)                       # NCHW f32
+    w = _bf16(weights).permute(0, 4, 3, 1, 2)         # [2B, O, I, 3, 3]
+    s = scales.float()[:, :, None, None]
+    b = biases.float()[:, :, None, None]
+    for i in range(weights.shape[0] // 2):
+        y = F.conv2d(_bf16(xf), w[2 * i], padding=1)
+        y = _bf16(torch.relu(y * s[2 * i] + b[2 * i]))
         y = F.conv2d(y, w[2 * i + 1], padding=1)
         xf = torch.relu(xf + (y * s[2 * i + 1] + b[2 * i + 1]))
     return xf.permute(0, 2, 3, 1).to(x.dtype)
@@ -83,7 +121,7 @@ def _smem_bytes(th, tw, cp):
 
 
 def plan_tiles(n, h, w, cp):
-    """Tile ``(rows, cols)`` of one kernel block: the whole width and as
+    """Tile ``(rows, cols)`` of one f32-kernel block: the whole width and as
     many rows as fit in ``SMEM_TARGET`` bytes of shared memory, then fewer
     rows while the grid has under ``_MIN_BLOCKS`` blocks (down to 4 rows).
     Raises when even one pixel's halo does not fit in ``SMEM_LIMIT``."""
@@ -103,6 +141,41 @@ def plan_tiles(n, h, w, cp):
     while th > 4 and blocks(th) < _MIN_BLOCKS:
         th = -(-th // 2)
     return th, tw
+
+
+def mma_smem_bytes(bm, bn, kc):
+    """Shared memory of a bf16-kernel CTA: the ring of A (bm x kc) and B
+    (bn x kc) tiles, rows padded by 8 bf16."""
+    return MMA_STAGES * (bm + bn) * (kc + 8) * 2
+
+
+def plan_mma_tiles(m, cp, cop):
+    """``(BM, BN, KC)`` of the bf16 kernel for ``m`` pixels, ``cp`` input
+    and ``cop`` output channels (padded): the k-chunk KC is the largest of
+    64, 32, 16 that divides ``cp``; the CTA tile is the first of
+    ``MMA_TILES`` no wider than ``cop`` needs (32 or 64 channels) whose
+    grid has at least ``MMA_MIN_CTAS`` CTAs, else the smallest."""
+    kc = next(k for k in (64, 32, 16) if cp % k == 0)
+    bn_max = 32 if cop <= 32 else 64
+    tiles = [t for t in MMA_TILES if t[1] <= bn_max]
+    for bm, bn in tiles:
+        if -(-m // bm) * -(-cop // bn) >= MMA_MIN_CTAS:
+            return bm, bn, kc
+    return tiles[-1] + (kc,)
+
+
+def repack_weights_bf16(weights, cp, cop):
+    """HWIO ``[2B, 3, 3, C, C]`` -> bf16 ``[2B, cop, 9 * cp]``: row ``co``
+    holds ``k = (3 * dy + dx) * cp + ci``, zero for ``ci >= C`` and for
+    ``co >= C``."""
+    n, _, _, c, _ = weights.shape
+    shape = (n, cop, 9, cp)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=weights.device) \
+        if (cp, cop) == (c, c) else \
+        torch.zeros(shape, dtype=torch.bfloat16, device=weights.device)
+    # one pass: [2B, tap, ci, co] read as [2B, co, tap, ci], rounded to bf16
+    out[:, :c, :, :c] = weights.reshape(n, 9, c, c).permute(0, 3, 1, 2)
+    return out.reshape(n, cop, 9 * cp)
 
 
 def _check(x, weights, scales, biases):
@@ -132,19 +205,29 @@ def fused_basicblock_chain(x, weights, scales, biases):
         weights: ``[2B, 3, 3, C, C]`` HWIO conv kernels.
         scales, biases: ``[2B, C]`` folded-BN affine parameters.
     Returns:
-        ``[N, H, W, C]`` of ``x.dtype``.
+        ``[N, H, W, C]`` of ``x.dtype``: f32 products for a float32 input,
+        bf16 operands with f32 sums for a bfloat16 one (module docstring).
     """
     _check(x, weights, scales, biases)
     if x.device.type == 'cpu':
+        if x.dtype == torch.bfloat16:
+            return basicblock_chain_bf16_reference(x, weights, scales, biases)
         return basicblock_chain_reference(x, weights, scales, biases)
     if x.device.type != 'cuda':
         raise ValueError('unsupported device {}'.format(x.device))
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError('x must be float32 or bfloat16, got {}'.format(
             x.dtype))
     if not x.is_contiguous():
         raise ValueError('x must be contiguous as [N, H, W, C] (an NCHW map '
                          'in channels_last memory format, permuted)')
+    with torch.cuda.device(x.device):
+        if x.dtype == torch.bfloat16:
+            return _chain_bf16(x, weights, scales, biases)
+        return _chain_f32(x, weights, scales, biases)
+
+
+def _chain_f32(x, weights, scales, biases):
     n, h, w, c = x.shape
     n_blocks = weights.shape[0] // 2
     cp = -(-c // 4) * 4
@@ -161,12 +244,38 @@ def fused_basicblock_chain(x, weights, scales, biases):
     bufs = [torch.empty((n, h, w, c), dtype=torch.float32, device=x.device)
             if n_blocks > k + 1 else None for k in range(2)]
     lib, fn = load_kernel('conv_chain')
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), out.data_ptr(),
-                  *(0 if t is None else t.data_ptr() for t in bufs),
-                  wm.data_ptr(), sp.data_ptr(), bp.data_ptr(), n, h, w, c, cp,
-                  n_blocks, th, tw, tc, _DTYPE_CODES[x.dtype],
-                  torch.cuda.current_stream().cuda_stream)
+    code = fn(x.data_ptr(), out.data_ptr(),
+              *(0 if t is None else t.data_ptr() for t in bufs),
+              wm.data_ptr(), sp.data_ptr(), bp.data_ptr(), n, h, w, c, cp,
+              n_blocks, th, tw, tc, torch.cuda.current_stream().cuda_stream)
     check_cuda_error(lib, code, 'conv_chain kernel')
     launch_counts['conv_chain'] += n_blocks
+    return out
+
+
+def _chain_bf16(x, weights, scales, biases):
+    n, h, w, c = x.shape
+    n_blocks = weights.shape[0] // 2
+    cp, cop = -(-c // 16) * 16, -(-c // 8) * 8
+    bm, bn, kc = plan_mma_tiles(n * h * w, cp, cop)
+    wq = repack_weights_bf16(weights, cp, cop)
+    sp = F.pad(scales.float(), (0, cp - c)).contiguous()
+    bp = F.pad(biases.float(), (0, cp - c)).contiguous()
+    # the first operand: x in place when its rows are 16-byte chunks
+    a0 = x if cp == c and x.data_ptr() % 16 == 0 else \
+        F.pad(x, (0, cp - c)).contiguous()
+    out = torch.empty_like(x)
+    y1 = torch.empty((n, h, w, cp), dtype=torch.bfloat16, device=x.device)
+    abuf = sbuf = None
+    if n_blocks > 1:
+        abuf = torch.empty_like(y1)
+        sbuf = torch.empty((n, h, w, c), dtype=torch.float32, device=x.device)
+    lib, fn = load_kernel('conv_chain_bf16')
+    code = fn(a0.data_ptr(), x.data_ptr(), out.data_ptr(), y1.data_ptr(),
+              *(0 if t is None else t.data_ptr() for t in (abuf, sbuf)),
+              wq.data_ptr(), sp.data_ptr(), bp.data_ptr(), n, h, w, c, cp,
+              cop, n_blocks, bm, bn, kc,
+              torch.cuda.current_stream().cuda_stream)
+    check_cuda_error(lib, code, 'conv_chain bf16 kernel')
+    launch_counts['conv_chain'] += 2 * n_blocks
     return out

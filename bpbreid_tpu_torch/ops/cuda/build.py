@@ -22,7 +22,7 @@ import threading
 from pathlib import Path
 
 __all__ = ['KERNELS', 'build_kernels', 'load_kernel', 'launch_counts',
-           'reset_launch_counts', 'check_cuda_error']
+           'reset_launch_counts', 'check_cuda_error', 'library_path']
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[1] / '_build'
@@ -40,7 +40,9 @@ KERNELS = {
     'bn_grad_stats': ('bn_stats', 'bpbreid_bn_grad_stats',
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     'conv_chain': ('conv_chain', 'bpbreid_conv_chain',
-                   [_P] * 7 + [_I] * 10 + [_P]),
+                   [_P] * 7 + [_I] * 9 + [_P]),
+    'conv_chain_bf16': ('conv_chain', 'bpbreid_conv_chain_bf16',
+                        [_P] * 9 + [_I] * 10 + [_P]),
 }
 
 launch_counts = collections.Counter()
@@ -67,6 +69,11 @@ def _library_path(source):
     digest = hashlib.sha256(src.read_bytes()
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / 'lib{}-{}.so'.format(source, digest)
+
+
+def library_path(source):
+    """Path of the shared library built from ``<source>.cu``."""
+    return _library_path(source)[1]
 
 
 def build_kernels(names=None):

@@ -157,7 +157,8 @@ def test_train_batch_norm_on_the_card_matches_the_cpu(cuda):
 
 
 # K1: the main path's branch chains (N=64 at 384x128) and ragged shapes
-K1_SHAPES = [((64, 96, 32, 32), 4), ((64, 12, 4, 256), 4), ((1, 5, 3, 8), 1),
+K1_SHAPES = [((64, 96, 32, 32), 4), ((64, 48, 16, 64), 4),
+             ((64, 24, 8, 128), 4), ((64, 12, 4, 256), 4), ((1, 5, 3, 8), 1),
              ((2, 1, 1, 32), 2), ((2, 2, 1, 32), 3), ((3, 7, 5, 33), 2)]
 
 
@@ -177,28 +178,44 @@ def _k1_inputs(device, shape, blocks, seed):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_conv_chain_kernel_matches_plain(cuda, monkeypatch, shape, blocks,
                                          dtype):
-    """K1 against its plain version (f32 cuDNN convs, TF32 off): f32 sums
-    in another order, 1e-4 of the output's largest magnitude; a bf16
-    output within 2 bf16 ulps of the plain one plus that f32 term (values
-    near a ReLU's zero or a rounding boundary move by the f32 noise)."""
-    from bpbreid_tpu_torch.ops.conv_chain import (basicblock_chain_reference,
-                                                  fused_basicblock_chain)
+    """K1 against its plain version of the input's type (f32 cuDNN convs,
+    TF32 off). f32: sums in another order, 1e-4 of the output's largest
+    magnitude; one launch per block. bf16 (two launches per block): against
+    ``basicblock_chain_bf16_reference``, within 2 bf16 ulps of each value
+    plus 3e-3 of the largest (f32 sums in another order move some y1 and
+    block-input values across a bf16 rounding boundary, and the later
+    blocks carry that ulp: 1.1-1.5e-3 of the largest at the main shapes,
+    none at the ragged ones, on an H100); against the f32 contract
+    ``basicblock_chain_reference``, rel. L2 1e-2 (bf16 operands; 3-4e-3
+    measured)."""
+    from bpbreid_tpu_torch.ops.conv_chain import (
+        basicblock_chain_bf16_reference, basicblock_chain_reference,
+        fused_basicblock_chain)
     from bpbreid_tpu_torch.ops.cuda.build import launch_counts
     monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
     x, w, s, b = _k1_inputs(cuda, shape, blocks, 0)
     x = x.to(dtype)
+    x_before = x.clone()
     before = launch_counts['conv_chain']
     got = fused_basicblock_chain(x, w, s, b)
     torch.cuda.synchronize()
-    assert launch_counts['conv_chain'] == before + blocks
-    want = basicblock_chain_reference(x, w, s, b)
-    assert got.dtype == dtype and got.shape == want.shape
-    err = (got.float() - want.float()).abs()
-    f32_tol = 1e-4 * want.float().abs().max().item() + 1e-6
+    assert torch.equal(x, x_before)
+    want_f32 = basicblock_chain_reference(x, w, s, b)
+    assert got.dtype == dtype and got.shape == want_f32.shape
+    assert torch.isfinite(got.float()).all()
     if dtype == torch.float32:
-        assert err.max().item() <= f32_tol
-    else:
-        assert (err <= 2 * 2.0 ** -7 * want.float().abs() + f32_tol).all()
+        assert launch_counts['conv_chain'] == before + blocks
+        err = (got - want_f32).abs().max().item()
+        assert err <= 1e-4 * want_f32.abs().max().item() + 1e-6
+        return
+    assert launch_counts['conv_chain'] == before + 2 * blocks
+    want = basicblock_chain_bf16_reference(x, w, s, b).float()
+    err = (got.float() - want).abs()
+    tol = 2 * 2.0 ** -7 * want.abs() + 3e-3 * want.abs().max().item() + 1e-6
+    assert (err <= tol).all(), err.max().item()
+    want_f32 = want_f32.float()
+    rel_l2 = ((got.float() - want_f32).norm() / want_f32.norm()).item()
+    assert rel_l2 <= 1e-2, rel_l2
 
 
 def test_counting_ranker_on_the_card_matches_the_cpu(cuda):

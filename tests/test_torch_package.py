@@ -63,8 +63,9 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax():
     roots = [os.path.join(REPO, 'bpbreid_tpu_torch'),
-             os.path.join(REPO, 'chip_smoke.py')]
-    files = [roots[1]] + [os.path.join(d, f)
+             os.path.join(REPO, 'chip_smoke.py'),
+             os.path.join(REPO, 'k1_bench.py')]
+    files = roots[1:] + [os.path.join(d, f)
                           for d, _, fs in os.walk(roots[0]) for f in fs
                           if f.endswith('.py')]
     for path in files:
@@ -88,3 +89,10 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_k1_bench_fails_without_cuda():
+    proc = subprocess.run([sys.executable, 'k1_bench.py'], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1 and proc.stdout == ''
+    assert 'CUDA is not available' in proc.stderr
