@@ -9,9 +9,10 @@ module casts to its compute ``dtype`` where the JAX module does:
   added in ``dtype`` (flax ``nn.Conv``/``nn.Dense``);
 - ``FastBatchNorm``: normalize in f32, then cast to ``dtype`` (flax
   ``nn.BatchNorm`` and ``FastBatchNorm``), with the running statistics in
-  eval mode and the batch statistics in train mode, where the per-channel
-  sums of the forward and the backward are the K3 kernel
-  (``ops/cuda/batchnorm.py``).
+  eval mode and the batch statistics in train mode. On the card it is the
+  BN kernels of ``ops/cuda/batchnorm.py`` and nothing else: in train mode
+  ``bn_stats`` (K3a) and ``bn_apply`` forward, ``bn_grad_stats`` (K3b) and
+  ``bn_dx`` backward; in eval mode ``bn_apply``.
 """
 import math
 
@@ -19,14 +20,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_grad_stats, bn_stats,
+from bpbreid_tpu_torch.ops.cuda.batchnorm import MOMENTUM as BN_MOMENTUM
+from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_apply, bn_dx,
+                                                  bn_grad_stats, bn_stats,
                                                   channel_view)
 
 __all__ = ['BN_EPS', 'BN_MOMENTUM', 'PConv', 'Dense', 'FastBatchNorm',
            'BasicBlock', 'Bottleneck', 'ResLayer', 'init_parameters']
 
 BN_EPS = 1e-5
-BN_MOMENTUM = 0.9   # flax: running = 0.9 * running + 0.1 * batch
 # flax lecun_normal: truncated normal in [-2, 2] rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
 
@@ -85,48 +87,66 @@ class _BatchNormTrain(torch.autograd.Function):
     clipped as in flax), y = (x - mean) * rstd * scale + bias in f32, cast
     to ``dtype``. Backward: dx = rstd*scale * (dy - sum(dy)/m
     - xhat * sum(dy*xhat)/m), dscale = sum(dy*xhat), dbias = sum(dy).
-    The sums are ``bn_stats``/``bn_grad_stats``; mean and var are
-    returned without gradient, for the running update.
+    Forward ``bn_stats`` (which also updates the running statistics in
+    place, flax's ``0.9 * running + 0.1 * batch`` with the biased batch
+    variance) and ``bn_apply``; backward ``bn_grad_stats`` and ``bn_dx``.
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, channel_dim, dtype):
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps,
+                channel_dim, dtype):
         x = x.contiguous()
-        a, c, b = channel_view(x.shape, channel_dim)
-        m = a * b
-        s1, s2 = bn_stats(x, channel_dim)
-        mean = s1 / m
-        var = torch.clamp(s2 / m - mean * mean, min=0.0)
-        rstd = torch.rsqrt(var + eps)
-        y = (x.view(a, c, b).float() - mean.view(1, c, 1)) \
-            * (rstd * weight).view(1, c, 1)
-        if bias is not None:
-            y = y + bias.view(1, c, 1)
-        ctx.save_for_backward(x, weight, mean, rstd)
+        mean, _, rstd, scale = bn_stats(x, weight, eps, channel_dim,
+                                        running_mean, running_var)
+        ctx.save_for_backward(x, mean, rstd, scale)
         ctx.channel_dim = channel_dim
-        ctx.mark_non_differentiable(mean, var)
-        return y.to(dtype).view(x.shape), mean, var
+        return bn_apply(x, mean, rstd, weight, bias, channel_dim, dtype)
 
     @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
-        x, weight, mean, rstd = ctx.saved_tensors
-        a, c, b = channel_view(x.shape, ctx.channel_dim)
-        m = a * b
-        # autograd may hand over a strided gradient: the kernel reads a
+    def backward(ctx, dy):
+        x, mean, rstd, scale = ctx.saved_tensors
+        # autograd may hand over a strided gradient: the kernels read a
         # contiguous one
         dy = dy.contiguous()
         sum_dy, sum_dy_xhat = bn_grad_stats(dy, x, mean, rstd,
                                             ctx.channel_dim)
         dx = None
         if ctx.needs_input_grad[0]:
-            xhat = (x.view(a, c, b).float() - mean.view(1, c, 1)) \
-                * rstd.view(1, c, 1)
-            dx = (rstd * weight).view(1, c, 1) * (
-                dy.view(a, c, b).float() - (sum_dy / m).view(1, c, 1)
-                - xhat * (sum_dy_xhat / m).view(1, c, 1))
-            dx = dx.to(x.dtype).view(x.shape)
+            dx = bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat,
+                       ctx.channel_dim)
         dbias = sum_dy if ctx.needs_input_grad[2] else None
-        return dx, sum_dy_xhat, dbias, None, None, None
+        return dx, sum_dy_xhat, dbias, None, None, None, None, None
+
+
+class _BatchNormEval(torch.autograd.Function):
+    """Batch norm with given statistics: ``bn_apply`` forward. No model
+    path differentiates an eval-mode BN; the backward keeps it
+    differentiable, in plain ops: dx = dy * rstd * scale, dscale =
+    sum(dy * xhat), dbias = sum(dy)."""
+
+    @staticmethod
+    def forward(ctx, x, mean, rstd, weight, bias, channel_dim, dtype):
+        x = x.contiguous()
+        ctx.save_for_backward(x, mean, rstd, weight)
+        ctx.channel_dim = channel_dim
+        return bn_apply(x, mean, rstd, weight, bias, channel_dim, dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, rstd, weight = ctx.saved_tensors
+        a, c, b = channel_view(x.shape, ctx.channel_dim)
+        g = dy.reshape(a, c, b).float()
+        dx = dweight = dbias = None
+        if ctx.needs_input_grad[0]:
+            dx = (g * (rstd * weight).view(1, c, 1)).to(x.dtype) \
+                .view(x.shape)
+        if ctx.needs_input_grad[3]:
+            xhat = (x.reshape(a, c, b).float() - mean.view(1, c, 1)) \
+                * rstd.view(1, c, 1)
+            dweight = (g * xhat).sum(dim=(0, 2))
+        if ctx.needs_input_grad[4]:
+            dbias = g.sum(dim=(0, 2))
+        return dx, None, None, dweight, dbias, None, None
 
 
 class FastBatchNorm(nn.Module):
@@ -134,10 +154,10 @@ class FastBatchNorm(nn.Module):
     ``channel_dim`` is 1 for NCHW maps and -1 for feature-last
     embeddings (flax ``nn.BatchNorm`` on ``[N, D]`` and ``[N, K, D]``).
 
-    Eval mode uses the running statistics. Train mode uses the batch
-    statistics (``_BatchNormTrain``) and updates the running ones as
-    flax does: ``0.9 * running + 0.1 * batch``, with the biased batch
-    variance.
+    Eval mode uses the running statistics (``_BatchNormEval``). Train
+    mode uses the batch statistics (``_BatchNormTrain``) and updates the
+    running ones as flax does: ``0.9 * running + 0.1 * batch``, with the
+    biased batch variance.
     """
 
     def __init__(self, num_features, eps=BN_EPS, bias=True, channel_dim=1,
@@ -149,28 +169,14 @@ class FastBatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
 
-    def _shape(self, x):
-        shape = [1] * x.dim()
-        shape[self.channel_dim] = -1
-        return shape
-
     def forward(self, x):
         if self.training:
-            y, mean, var = _BatchNormTrain.apply(
-                x, self.weight, self.bias, self.eps, self.channel_dim,
-                self.dtype)
-            with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
-                                        + (1.0 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var
-                                       + (1.0 - BN_MOMENTUM) * var)
-            return y
-        shape = self._shape(x)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
-        if self.bias is not None:
-            y = y + self.bias.view(shape)
-        return y.to(self.dtype)
+            return _BatchNormTrain.apply(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.eps, self.channel_dim, self.dtype)
+        rstd = torch.rsqrt(self.running_var + self.eps)
+        return _BatchNormEval.apply(x, self.running_mean, rstd, self.weight,
+                                    self.bias, self.channel_dim, self.dtype)
 
 
 def _conv_bn(cin, cout, kernel, stride, dtype):

@@ -31,14 +31,16 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-Xptxas', '-v')
 
 # kernel name -> (source, C function, ctypes argtypes)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     'attention_pool': ('attention_pool', 'bpbreid_attention_pool',
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     'bn_stats': ('bn_stats', 'bpbreid_bn_stats',
-                 [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                 [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
+    'bn_apply': ('bn_stats', 'bpbreid_bn_apply', [_P] * 6 + [_I] * 6 + [_P]),
     'bn_grad_stats': ('bn_stats', 'bpbreid_bn_grad_stats',
-                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                      [_P] * 5 + [_I] * 6 + [_P]),
+    'bn_dx': ('bn_stats', 'bpbreid_bn_dx', [_P] * 8 + [_I] * 6 + [_P]),
     'conv_chain': ('conv_chain', 'bpbreid_conv_chain',
                    [_P] * 7 + [_I] * 9 + [_P]),
     'conv_chain_bf16': ('conv_chain', 'bpbreid_conv_chain_bf16',

@@ -61,15 +61,23 @@ def load_jax_variables(module, variables):
 
     Raises if any parameter or buffer of ``module`` is left unfilled,
     if a JAX variable has no place in ``module``, or on a shape mismatch.
+    The one exception: a BPBReID with ``learnable_attention_enabled``
+    False keeps its ``pixel_classifier`` (as the torch reference does),
+    which JAX never creates in that mode; those keys keep their values.
     """
     sd = jax_variables_to_state_dict(variables)
     own = module.state_dict()
-    missing = sorted(set(own) - set(sd))
+    unused = set()
+    if getattr(module, 'learnable_attention_enabled', True) is False:
+        unused = {k for k in own if k.startswith('pixel_classifier.')}
+    missing = sorted(set(own) - set(sd) - unused)
     unexpected = sorted(set(sd) - set(own))
     if missing or unexpected:
         raise KeyError('JAX variables do not cover the module: missing {}, '
                        'unexpected {}'.format(missing[:10], unexpected[:10]))
     for key, target in own.items():
+        if key not in sd:
+            continue
         src = torch.from_numpy(np.ascontiguousarray(sd[key]))
         if tuple(src.shape) != tuple(target.shape):
             raise ValueError('shape mismatch for {}: jax {} vs port {}'.format(

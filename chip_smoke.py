@@ -8,8 +8,10 @@ drives the port's paths once at full width: BPBReID with an HRNet-W32
 backbone at 384x128, five parts (five_v), GWAP, 512-d after-pooling
 reduction, 751 classes, bf16, seeded random weights. The serving path
 runs the fused attention-pool kernel (K2, ``use_pallas_pooling``,
-multires off); the train step runs the default multires pooling with the
-BN-sum kernels (K3, forward and backward) in every train-mode BN; the
+multires off), with ``bn_apply`` in every eval-mode BN; the train step
+runs the default multires pooling with the BN kernels in every
+train-mode BN (forward ``bn_stats`` = K3a and ``bn_apply``, backward
+``bn_grad_stats`` = K3b and ``bn_dx``); the
 BasicBlock-chain kernel (K1), which no model path calls, runs on the
 serving model's 26 HRNet branch chains (bf16: an implicit-GEMM conv on
 the tensor cores, two launches a block); retrieval runs at Market-1501
@@ -21,8 +23,9 @@ and Market-1501 + 500k distractors scale. Phases:
    main-path shapes and at ragged shapes, with timings (CUDA events);
 3. the serving run: eval_preprocess -> model -> test embeddings ->
    normalize -> part-based distance -> CMC/mAP over seeded query and
-   gallery batches of 64, with the kernels' launch counts, the forward's
-   throughput and a torch.profiler breakdown of three eval steps;
+   gallery batches of 64, with the kernels' launch counts (one bn_apply
+   for each eval-mode BN of a step), the forward's throughput and a
+   torch.profiler breakdown of three eval steps;
    3b. forward hooks capture the input and output of the serving model's
    26 branch chains on one query batch; each chain, folded
    (``fold_basicblock_chain``), goes through K1 and is held against the
@@ -37,9 +40,14 @@ and Market-1501 + 500k distractors scale. Phases:
 6. the train run: ``engine.forward_backward`` (augment -> train-mode
    forward -> GiLt + BPA -> backward -> Adam) on a batch of 16
    identities x 4 instances, 3 warm-up and 10 timed steps with fresh
-   augmentation draws and the K3 launch counts; then 20 steps on the one
-   batch with one set of draws, whose loss must fall; and a
-   torch.profiler breakdown of three steps;
+   augmentation draws and the BN kernels' launch counts (two forward and
+   two backward for each train-mode BN); then 20 steps on the one batch
+   with one set of draws, whose loss must fall; and a torch.profiler
+   breakdown of three steps;
+   6b. the BN kernels at each distinct BN input of the train step
+   (recorded by forward hooks in phase 6), with their launches a step,
+   bounds and library calls, and the whole BN forward and backward
+   against ``F.batch_norm``;
 7. one small f32 train step on the card and on the CPU (TF32 off):
    loss, gradients, updated parameters and BN statistics;
 8. large-gallery retrieval on seeded features ``[N, 6, 512]`` with
@@ -105,10 +113,21 @@ HRNET_W32_CHAINS = 26
 # 750 identities) and Market-1501 + 500k distractors (515,913 gallery)
 MARKET_QUERY, MARKET_GALLERY, MARKET_IDS = 3368, 19732, 750
 MARKET_500K_GALLERY = 515913
-K3_KERNEL_NAMES = ('rows_partial_kernel', 'cols_partial_kernel',
-                   'finalize_kernel')
-K3_REPLACES = ('experiments/pallas_bn_v2.py:55 (K3a); '
-               'experiments/pallas_bn_bench.py:82 (K3b)')
+BN_KERNELS = ('bn_stats', 'bn_apply', 'bn_grad_stats', 'bn_dx')
+# the CUDA kernels of bn_stats.cu, for the profiles' BN device time
+BN_KERNEL_SYMBOLS = ('reduce_rows_kernel', 'reduce_cols_kernel',
+                     'ewise_rows_kernel', 'ewise_cols_kernel')
+# K3 alone: the reductions of bn_stats and bn_grad_stats
+K3_KERNEL_SYMBOLS = BN_KERNEL_SYMBOLS[:2]
+# bn_apply and bn_dx take the elementwise code that XLA fused around the
+# sums on the TPU (bpbreid_tpu/models/common.py)
+K3_REPLACES = {
+    'bn_stats': 'experiments/pallas_bn_v2.py:55 (K3a)',
+    'bn_apply': 'experiments/pallas_bn_v2.py:55 (K3a, second pass; '
+                'bpbreid_tpu/models/common.py:191)',
+    'bn_grad_stats': 'experiments/pallas_bn_bench.py:82 (K3b)',
+    'bn_dx': 'experiments/pallas_bn_bench.py:82 (K3b, second pass; '
+             'bpbreid_tpu/models/common.py:211)'}
 
 
 def log(*args):
@@ -229,26 +248,114 @@ def phase_kernels(torch):
     return rows
 
 
-def _bn_library_stats(torch, x):
-    """``torch.batch_norm_stats``: one CUDA call that reads ``x`` (NCHW or
-    [M, C]) once; it returns mean and inverse std, not the two sums."""
-    return torch.batch_norm_stats(x, 1e-5)
+def _nc(x, cd):
+    """``x`` in the ``[N, C, ...]`` layout that torch's batch-norm calls
+    read (feature-last ``[..., C]`` as ``[M, C]``)."""
+    return x if cd == 1 else x.view(-1, x.shape[-1])
 
 
-def _bn_library_grad_stats(torch, dy, x, mean, rstd):
-    """``torch.batch_norm_backward_reduce``: sum(dy) and
-    sum(dy * (x - mean)) in one CUDA call."""
-    return torch.batch_norm_backward_reduce(dy, x, mean, rstd, None, True,
-                                            False, False)
+def _bn_operands(torch, x, dy, cd, gen):
+    """Weight, bias and running statistics for one BN input, and the
+    statistics and backward sums that the later kernels read, from the
+    kernels themselves."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_grad_stats,
+                                                      bn_stats, channel_view)
+    a, c, b = channel_view(x.shape, cd)
+    o = {'a': a, 'c': c, 'b': b,
+         'w': 1 + 0.2 * torch.randn(c, device='cuda', generator=gen),
+         'bias': 0.3 * torch.randn(c, device='cuda', generator=gen),
+         'rm': 0.1 * torch.randn(c, device='cuda', generator=gen),
+         'rv': 0.5 + torch.rand(c, device='cuda', generator=gen)}
+    o['st'] = bn_stats(x, o['w'], 1e-5, cd, sums=True)
+    o['g'] = bn_grad_stats(dy, x, o['st'][0], o['st'][2], cd)
+    return o
+
+
+def _bn_calls(torch, x, dy, cd, o):
+    """Per BN kernel: (kernel call, plain call, the one PyTorch call that
+    computes the same function, bytes it must move, f32 operations)."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (
+        bn_apply, bn_apply_reference, bn_dx, bn_dx_reference, bn_grad_stats,
+        bn_grad_stats_reference, bn_stats, bn_stats_reference)
+    mean, _, rstd, scale = o['st'][:4]
+    sum_dy, sum_dy_xhat = o['g']
+    w, bias, c, n = o['w'], o['bias'], o['c'], x.numel()
+    rm, rv = o['rm'].clone(), o['rv'].clone()
+    nx, ndy = n * x.element_size(), n * dy.element_size()
+    xl, dyl = _nc(x, cd), _nc(dy, cd)
+    count = torch.full((1,), o['a'] * o['b'], dtype=torch.int32,
+                       device='cuda')
+    sum_dy_xmu = sum_dy_xhat / rstd
+    return {
+        'bn_stats': (
+            lambda: bn_stats(x, w, 1e-5, cd, rm, rv),
+            lambda: bn_stats_reference(x, w, 1e-5, cd, rm, rv),
+            lambda: torch.batch_norm_stats(xl, 1e-5),
+            nx + 9 * c * 4, 3.0 * n),
+        'bn_apply': (
+            lambda: bn_apply(x, mean, rstd, w, bias, cd),
+            lambda: bn_apply_reference(x, mean, rstd, w, bias, cd),
+            lambda: torch.batch_norm_elemt(xl, w, bias, mean, rstd, 1e-5),
+            2 * nx + 4 * c * 4, 3.0 * n),
+        'bn_grad_stats': (
+            lambda: bn_grad_stats(dy, x, mean, rstd, cd),
+            lambda: bn_grad_stats_reference(dy, x, mean, rstd, cd),
+            lambda: torch.batch_norm_backward_reduce(dyl, xl, mean, rstd,
+                                                     None, True, False,
+                                                     False),
+            nx + ndy + 4 * c * 4, 5.0 * n),
+        'bn_dx': (
+            lambda: bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, cd),
+            lambda: bn_dx_reference(dy, x, mean, rstd, scale, sum_dy,
+                                    sum_dy_xhat, cd),
+            lambda: torch.batch_norm_backward_elemt(
+                dyl, xl, mean, rstd, w, sum_dy, sum_dy_xmu, count),
+            2 * nx + ndy + 5 * c * 4, 6.0 * n)}
 
 
 def _k3_bound_ms(nbytes, flops):
     """Bytes over the memory rate against f32 operations over the f32
-    rate (the sums run outside the tensor cores)."""
+    rate (BN runs outside the tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS['float32'] * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                  else 'operations')
+
+
+def _time_bn_calls(torch, calls, plain=True, iters=5):
+    """``{kernel}_ms``, ``_plain_ms``, ``_library_ms``, ``_bound_ms`` and
+    ``_bound_by`` of each BN kernel (CUDA events). ``_library_ms`` is null
+    where torch's call refuses the operands' types."""
+    t = lambda fn: time_ms(fn, torch, warmup=2, iters=iters,  # noqa: E731
+                           repeats=3)
+    row = {}
+    for name, (kernel, ref, lib, nbytes, flops) in calls.items():
+        row[name + '_ms'] = t(kernel)
+        if plain:
+            row[name + '_plain_ms'] = t(ref)
+        try:
+            row[name + '_library_ms'] = t(lib)
+        except RuntimeError as e:
+            row[name + '_library_ms'] = None
+            row[name + '_library_error'] = str(e).splitlines()[0][:200]
+        row[name + '_bound_ms'], row[name + '_bound_by'] = _k3_bound_ms(
+            nbytes, flops)
+    return row
+
+
+def graph_ms(torch, fn, calls=20):
+    """Device time per call of ``fn``, from a CUDA graph of ``calls``
+    calls: launches back to back, no host time between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, torch, warmup=1, iters=3, repeats=3) / calls
 
 
 def _k3_errors(torch, got, want, scales):
@@ -264,13 +371,87 @@ def _k3_errors(torch, got, want, scales):
     return err, ok
 
 
-def phase_k3(torch):
-    """K3 forward (bn_stats) and backward (bn_grad_stats) against their
-    plain versions, at the train path's BN inputs in bf16 and f32 and at
-    ragged shapes; times at the main-path shapes."""
+def _ew_errors(torch, got, want, terms):
+    """bn_apply and bn_dx against their plain versions on the same
+    constants: within one ulp of the output type plus 1e-6 of the
+    magnitude of the terms summed (f32 alone: 1e-6 of the terms)."""
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    d = (got.float() - want.float()).abs()
+    ok = bool((d <= ulp * want.float().abs() + 1e-6 * terms + 1e-30).all())
+    return d.max().item(), ok and got.dtype == want.dtype \
+        and bool(torch.isfinite(got.float()).all())
+
+
+def _check_bn_kernels(torch, x, dy, cd, o):
+    """The four BN kernels against their plain versions at one input:
+    errors, and the names of the checks that failed. bn_stats: the sums,
+    then the epilogue and the running update against the plain epilogue
+    on the kernel's own sums (1e-6 relative); two calls of each
+    reduction give the same bits."""
     from bpbreid_tpu_torch.ops.cuda.batchnorm import (
-        bn_grad_stats, bn_grad_stats_reference, bn_stats, bn_stats_reference,
-        channel_view)
+        bn_apply, bn_apply_reference, bn_dx, bn_dx_reference,
+        bn_finalize_reference, bn_grad_stats, bn_grad_stats_reference,
+        bn_stats, bn_stats_reference)
+    a, c, b, w, bias = o['a'], o['c'], o['b'], o['w'], o['bias']
+    m = a * b
+    st, (sum_dy, sum_dy_xhat) = o['st'], o['g']
+    mean, _, rstd, scale = st[:4]
+    x3, dy3 = x.reshape(a, c, b).float(), dy.reshape(a, c, b).float()
+    errs, failed = {}, []
+    err, ok = _k3_errors(torch, st[4:], bn_stats_reference(
+        x, w, 1e-5, cd, sums=True)[4:], (x3.abs().sum((0, 2)),
+                                         (x3 * x3).sum((0, 2))))
+    rm_k, rv_k, rm_p, rv_p = (v.clone() for v in (o['rm'], o['rv'],
+                                                  o['rm'], o['rv']))
+    again = bn_stats(x, w, 1e-5, cd, rm_k, rv_k, sums=True)
+    want = bn_finalize_reference(st[4], st[5], m, w, 1e-5, rm_p, rv_p)
+    epi = 0.0
+    for g, v in zip(again[:4] + (rm_k, rv_k), want + (rm_p, rv_p)):
+        d = (g - v).abs()
+        epi = max(epi, d.max().item())
+        ok = ok and bool((d <= 1e-6 * v.abs() + 1e-7).all())
+    errs['bn_stats_max_abs_err'], errs['bn_stats_epilogue_err'] = err, epi
+    bits = all(torch.equal(p, q) for p, q in zip(st, again))
+    if not ok:
+        failed.append('bn_stats')
+
+    y = bn_apply(x, mean, rstd, w, bias, cd)
+    terms = ((x3 - mean.view(1, c, 1)).abs() * scale.abs().view(1, c, 1)
+             + bias.abs().view(1, c, 1)).view(x.shape)
+    errs['bn_apply_max_abs_err'], ok = _ew_errors(
+        torch, y, bn_apply_reference(x, mean, rstd, w, bias, cd), terms)
+    if not ok:
+        failed.append('bn_apply')
+
+    xhat = (x3 - mean.view(1, c, 1)) * rstd.view(1, c, 1)
+    errs['bn_grad_stats_max_abs_err'], ok = _k3_errors(
+        torch, o['g'], bn_grad_stats_reference(dy, x, mean, rstd, cd),
+        (dy3.abs().sum((0, 2)), (dy3 * xhat).abs().sum((0, 2))))
+    bits = bits and all(torch.equal(p, q) for p, q in zip(
+        o['g'], bn_grad_stats(dy, x, mean, rstd, cd)))
+    if not ok:
+        failed.append('bn_grad_stats')
+
+    dx = bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, cd)
+    terms = scale.abs().view(1, c, 1) * (
+        dy3.abs() + (sum_dy.abs() / m).view(1, c, 1)
+        + (xhat * sum_dy_xhat.view(1, c, 1)).abs() / m)
+    errs['bn_dx_max_abs_err'], ok = _ew_errors(
+        torch, dx, bn_dx_reference(dy, x, mean, rstd, scale, sum_dy,
+                                   sum_dy_xhat, cd), terms.view(x.shape))
+    if not ok:
+        failed.append('bn_dx')
+    errs['bits_identical_over_two_calls'] = bits
+    if not bits:
+        failed.append('bits differ between two calls')
+    return errs, failed
+
+
+def phase_k3(torch):
+    """The BN kernels (bn_stats = K3a, bn_apply, bn_grad_stats = K3b,
+    bn_dx) against their plain versions, at the train path's BN inputs
+    in bf16 and f32 and at ragged shapes; times at the main-path
+    shapes."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
     rows, failures = [], []
     cases = [(sh, cd, dt, True) for sh, cd in K3_MAIN_SHAPES
@@ -280,51 +461,18 @@ def phase_k3(torch):
     for shape, cd, dt, timed in cases:
         x = (0.5 + torch.randn(shape, device='cuda', generator=gen)).to(dt)
         dy = torch.randn(shape, device='cuda', generator=gen).to(dt)
-        a, c, b = channel_view(x.shape, cd)
-        m = a * b
-        x3, dy3 = x.reshape(a, c, b).float(), dy.reshape(a, c, b).float()
-        got = bn_stats(x, cd)
+        o = _bn_operands(torch, x, dy, cd, gen)
         torch.cuda.synchronize()
-        err_f, ok_f = _k3_errors(torch, got, bn_stats_reference(x, cd),
-                                 (x3.abs().sum((0, 2)),
-                                  (x3 * x3).sum((0, 2))))
-        mean = got[0] / m
-        rstd = torch.rsqrt((got[1] / m - mean * mean).clamp(min=0) + 1e-5)
-        got_g = bn_grad_stats(dy, x, mean, rstd, cd)
+        errs, failed = _check_bn_kernels(torch, x, dy, cd, o)
         torch.cuda.synchronize()
-        xhat = (x3 - mean.view(1, c, 1)) * rstd.view(1, c, 1)
-        err_b, ok_b = _k3_errors(
-            torch, got_g, bn_grad_stats_reference(dy, x, mean, rstd, cd),
-            (dy3.abs().sum((0, 2)), (dy3 * xhat).abs().sum((0, 2))))
-        del x3, dy3, xhat
         row = {'shape': list(shape), 'channel_dim': cd, 'dtype': str(dt),
-               'view': [a, c, b], 'fwd_max_abs_err': err_f,
-               'bwd_max_abs_err': err_b}
-        if not ok_f:
-            failures.append('K3 bn_stats at {} {}: err {}'.format(
-                shape, dt, err_f))
-        if not ok_b:
-            failures.append('K3 bn_grad_stats at {} {}: err {}'.format(
-                shape, dt, err_b))
+               'view': [o['a'], o['c'], o['b']], **errs}
+        failures += ['{} at {} {}'.format(f, shape, dt) for f in failed]
         if timed:
-            t = lambda fn: time_ms(fn, torch, warmup=2, iters=5,  # noqa: E731
-                                   repeats=3)
-            nx = x.numel() * x.element_size()
-            row['fwd_ms'] = t(lambda: bn_stats(x, cd))
-            row['fwd_plain_ms'] = t(lambda: bn_stats_reference(x, cd))
-            row['fwd_library_ms'] = t(lambda: _bn_library_stats(torch, x))
-            row['fwd_bound_ms'], row['fwd_bound_by'] = _k3_bound_ms(
-                nx + 2 * c * 4, 3.0 * x.numel())
-            row['bwd_ms'] = t(lambda: bn_grad_stats(dy, x, mean, rstd, cd))
-            row['bwd_plain_ms'] = t(
-                lambda: bn_grad_stats_reference(dy, x, mean, rstd, cd))
-            row['bwd_library_ms'] = t(lambda: _bn_library_grad_stats(
-                torch, dy, x, mean, rstd))
-            row['bwd_bound_ms'], row['bwd_bound_by'] = _k3_bound_ms(
-                2 * nx + 4 * c * 4, 5.0 * x.numel())
+            row.update(_time_bn_calls(torch, _bn_calls(torch, x, dy, cd, o)))
         log('K3', json.dumps(row))
         rows.append(row)
-        del x, dy, got, got_g
+        del x, dy, o
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError('\n'.join(failures))
@@ -586,12 +734,16 @@ def profile_steps(torch, step, steps=3):
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     host = sorted(prof.key_averages(), key=lambda k: -k.self_cpu_time_total)
-    k3_ms = sum(ms for name, (ms, _) in by_name.items()
-                if any(k in name for k in K3_KERNEL_NAMES))
+    def device_ms(symbols):
+        return sum(ms for name, (ms, _) in by_name.items()
+                   if any(k in name for k in symbols))
     return {'steps': steps, 'wall_ms': wall_ms,
             'device_busy_ms': busy_ms if by_name else 'not measured',
             'busy_share': busy_ms / wall_ms if by_name else 'not measured',
-            'k3_device_ms': k3_ms if by_name else 'not measured',
+            'bn_kernels_device_ms': (device_ms(BN_KERNEL_SYMBOLS)
+                                     if by_name else 'not measured'),
+            'k3_device_ms': (device_ms(K3_KERNEL_SYMBOLS) if by_name
+                             else 'not measured'),
             'device_kernel_launches': sum(c for _, c in by_name.values()),
             'top_kernels': [{'name': name[:100], 'ms': ms, 'calls': calls}
                             for name, (ms, calls) in top],
@@ -612,6 +764,7 @@ def phase_serving(torch, results):
         mask_chain_kwargs
     from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
     from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
     from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
                                                   reset_launch_counts)
     cfg = serving_config()
@@ -665,6 +818,24 @@ def phase_serving(torch, results):
     if checks:
         raise AssertionError('; '.join(checks))
 
+    # every eval-mode BN of a step is one bn_apply launch, and nothing
+    # else of the BN kernels runs
+    calls = []
+    hooks = [mod.register_forward_hook(lambda *_: calls.append(1))
+             for mod in model.modules() if isinstance(mod, FastBatchNorm)]
+    reset_launch_counts()
+    try:
+        engine.eval_step(imgs, masks)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    eval_bn = {k: launch_counts.get(k, 0) for k in BN_KERNELS}
+    if eval_bn != {'bn_stats': 0, 'bn_apply': len(calls),
+                   'bn_grad_stats': 0, 'bn_dx': 0} or not calls:
+        raise AssertionError('eval step: {} BN calls, BN launches {}'.format(
+            len(calls), eval_bn))
+
     # throughput of the model forward alone at batch 64 (CUDA events)
     x, m = eval_preprocess(imgs, masks, mask_kwargs=engine.mask_kwargs)
     with torch.inference_mode():
@@ -681,6 +852,7 @@ def phase_serving(torch, results):
                'retrieval_s': eval_s,
                'retrieval_images': n_q + n_g,
                'n_batches': n_batches,
+               'eval_bn_calls_per_step': len(calls),
                'peak_memory_gb': peak_gb,
                'mAP': mAP, 'rank1': float(cmc[0]),
                'pixel_accuracy': acc}
@@ -1064,7 +1236,22 @@ def phase_train(torch, results):
         losses.append(loss.item())          # waits for the step
         return (time.perf_counter() - t0) * 1e3
 
-    for _ in range(TRAIN_WARMUP):
+    # the first warm-up step records every K3-backed BN's input
+    inputs = {}
+
+    def record(name):
+        def hook(mod, inp):
+            inputs.setdefault(name, (tuple(inp[0].shape), inp[0].dtype,
+                                     mod.channel_dim))
+        return hook
+    modules = dict(model.named_modules())
+    hooks = [modules[n].register_forward_pre_hook(record(n)) for n in bn]
+    try:
+        step()
+    finally:
+        for h in hooks:
+            h.remove()
+    for _ in range(TRAIN_WARMUP - 1):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1087,7 +1274,7 @@ def phase_train(torch, results):
              'step_ms': step_ms, 'images_per_s': BATCH / median_ms * 1e3,
              'peak_memory_gb': peak_gb, 'losses': timed_losses,
              'learning_losses': losses,
-             'k3_launches_per_step': per_step,
+             'bn_launches_per_step': per_step,
              'bn_modules_through_k3': len(bn),
              'bn_modules_without_backward': len(no_grad)}
     log('train', json.dumps({k: v for k, v in train.items()
@@ -1096,12 +1283,13 @@ def phase_train(torch, results):
     log('train losses', ' '.join('{:.4f}'.format(v) for v in timed_losses))
     log('learning losses', ' '.join('{:.4f}'.format(v) for v in losses))
     checks = []
-    if per_step.get('bn_stats') != len(bn):
-        checks.append('bn_stats launches per step {} != {} BN modules'
-                      .format(per_step.get('bn_stats'), len(bn)))
-    if per_step.get('bn_grad_stats') != len(bn) - len(no_grad):
-        checks.append('bn_grad_stats launches per step {} != {}'.format(
-            per_step.get('bn_grad_stats'), len(bn) - len(no_grad)))
+    # two launches forward and two backward for each train-mode BN
+    for name, want in (('bn_stats', len(bn)), ('bn_apply', len(bn)),
+                       ('bn_grad_stats', len(bn) - len(no_grad)),
+                       ('bn_dx', len(bn) - len(no_grad))):
+        if per_step.get(name) != want:
+            checks.append('{} launches per step {} != {}'.format(
+                name, per_step.get(name), want))
     if not all(np.isfinite(timed_losses + losses)):
         checks.append('non-finite loss {} {}'.format(timed_losses, losses))
     if not np.mean(losses[-3:]) < np.mean(losses[:3]):
@@ -1122,8 +1310,102 @@ def phase_train(torch, results):
     train['profile'] = profile_out
     results['train'] = train
     results['train_launches'] = launches
+    # the step's distinct BN inputs: (shape, dtype, channel_dim) ->
+    # [forward calls, backward calls] a step
+    shapes = {}
+    for name, key in inputs.items():
+        counts = shapes.setdefault(key, [0, 0])
+        counts[0] += 1
+        counts[1] += name not in no_grad
     del model, engine, batch
     torch.cuda.empty_cache()
+    return sorted(shapes.items(), key=lambda kv: -np.prod(kv[0][0]))
+
+
+def _whole_bn_ms(torch, x, dy, cd):
+    """Train-mode BN forward alone and forward + backward (x, weight and
+    bias gradients): the port's ``FastBatchNorm`` against
+    ``F.batch_norm(training=True)`` with autograd, the library
+    yardstick (the port never calls it)."""
+    import torch.nn.functional as F
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    c = x.shape[cd]
+    bn = FastBatchNorm(c, channel_dim=cd, dtype=x.dtype).cuda().train()
+    with torch.no_grad():
+        bn.weight.fill_(1.0)
+        bn.bias.zero_()
+    xg = x.detach().requires_grad_(True)
+    params = (xg, bn.weight, bn.bias)
+    w = torch.ones(c, device='cuda', requires_grad=True)
+    b = torch.zeros(c, device='cuda', requires_grad=True)
+    rm, rv = torch.zeros(c, device='cuda'), torch.ones(c, device='cuda')
+    x2, dy2 = _nc(xg, cd), _nc(dy, cd)
+
+    def lib():
+        return F.batch_norm(x2, rm, rv, w, b, True, 0.1, 1e-5)
+
+    t = lambda fn: time_ms(fn, torch, warmup=2, iters=5,  # noqa: E731
+                           repeats=3)
+    with torch.no_grad():
+        out = {'bn_fwd_ms': t(lambda: bn(xg)),
+               'library_bn_fwd_ms': t(lib)}
+    out['bn_fwd_bwd_ms'] = t(lambda: torch.autograd.grad(bn(xg), params, dy))
+    out['library_bn_fwd_bwd_ms'] = t(lambda: torch.autograd.grad(
+        lib(), (xg, w, b), dy2))
+    return out
+
+
+def phase_k3_step_shapes(torch, shapes, results):
+    """The BN kernels at each distinct BN input of the train step (the
+    shapes that phase 6's forward hooks recorded), with their launches a
+    step: times (CUDA events over back-to-back calls, which at the small
+    shapes is the host's rate; and the device time from a CUDA graph)
+    against their bounds and library calls, and the whole BN against
+    ``F.batch_norm``. Per step: launches x ms, launches x bound
+    and launches x (ms - bound), for K3 (bn_stats, bn_grad_stats) and for
+    all four kernels."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
+    rows = []
+    for (shape, dt, cd), (n_fwd, n_bwd) in shapes:
+        x = (0.5 + torch.randn(shape, device='cuda', generator=gen)).to(dt)
+        dy = torch.randn(shape, device='cuda', generator=gen).to(dt)
+        o = _bn_operands(torch, x, dy, cd, gen)
+        row = {'shape': list(shape), 'dtype': str(dt), 'channel_dim': cd,
+               'view': [o['a'], o['c'], o['b']], 'fwd_launches': n_fwd,
+               'bwd_launches': n_bwd}
+        calls = _bn_calls(torch, x, dy, cd, o)
+        row.update(_time_bn_calls(torch, calls, plain=False, iters=10))
+        for name, (kernel, *_) in calls.items():
+            row[name + '_graph_ms'] = graph_ms(torch, kernel)
+        row.update(_whole_bn_ms(torch, x, dy, cd))
+        log('K3 step shape', json.dumps(row))
+        rows.append(row)
+        del x, dy, o
+    torch.cuda.empty_cache()
+
+    def per_step(names, key):
+        return sum(r[('fwd' if n in ('bn_stats', 'bn_apply') else 'bwd')
+                     + '_launches'] * r[n + key] for r in rows for n in names)
+    summary = {'shapes': len(rows),
+               'fwd_bn_calls': sum(r['fwd_launches'] for r in rows),
+               'bwd_bn_calls': sum(r['bwd_launches'] for r in rows)}
+    for what, names in (('k3', ('bn_stats', 'bn_grad_stats')),
+                        ('bn_kernels', BN_KERNELS)):
+        ms, bound = per_step(names, '_ms'), per_step(names, '_bound_ms')
+        summary.update({what + '_ms_per_step': ms,
+                        what + '_bound_ms_per_step': bound,
+                        what + '_lost_ms_per_step': ms - bound,
+                        what + '_graph_ms_per_step': per_step(names,
+                                                              '_graph_ms')})
+    nf = lambda r: r['fwd_launches'] - r['bwd_launches']  # noqa: E731
+    summary['bn_fwd_bwd_ms_per_step'] = sum(
+        r['bwd_launches'] * r['bn_fwd_bwd_ms'] + nf(r) * r['bn_fwd_ms']
+        for r in rows)
+    summary['library_bn_fwd_bwd_ms_per_step'] = sum(
+        r['bwd_launches'] * r['library_bn_fwd_bwd_ms']
+        + nf(r) * r['library_bn_fwd_ms'] for r in rows)
+    log('K3 step summary', json.dumps(summary))
+    results['k3_step_shapes'] = {'rows': rows, 'summary': summary}
 
 
 def phase_small_train_reference(torch, results):
@@ -1257,7 +1539,9 @@ def main():
     del model, engine, query, gallery, feats, vis
     torch.cuda.empty_cache()
     log('phase 6: train run')
-    phase_train(torch, results)
+    bn_shapes = phase_train(torch, results)
+    log('phase 6b: K3 at the train step\'s BN inputs')
+    phase_k3_step_shapes(torch, bn_shapes, results)
     log('phase 7: small f32 train step, card vs CPU')
     phase_small_train_reference(torch, results)
     log('phase 8b, 8c: Market-1501 and Market-1501 + 500k retrieval')
@@ -1276,16 +1560,16 @@ def main():
     }]
     k3_row = next(r for r in k3_rows
                   if (tuple(r['shape']), r['dtype']) == K3_REPORT)
-    for name, pre in (('bn_stats', 'fwd'), ('bn_grad_stats', 'bwd')):
+    for name in BN_KERNELS:
         kernels.append({
             'name': name, 'route': 'cuda', 'source': K3_SOURCE,
-            'replaces': K3_REPLACES,
+            'replaces': K3_REPLACES[name],
             'launches': results['train_launches'].get(name, 0),
-            'max_abs_err': k3_row[pre + '_max_abs_err'],
-            'ms': k3_row[pre + '_ms'], 'plain_ms': k3_row[pre + '_plain_ms'],
-            'bound_ms': k3_row[pre + '_bound_ms'],
-            'bound_by': k3_row[pre + '_bound_by'],
-            'library_ms': k3_row[pre + '_library_ms']})
+            'max_abs_err': k3_row[name + '_max_abs_err'],
+            'ms': k3_row[name + '_ms'], 'plain_ms': k3_row[name + '_plain_ms'],
+            'bound_ms': k3_row[name + '_bound_ms'],
+            'bound_by': k3_row[name + '_bound_by'],
+            'library_ms': k3_row[name + '_library_ms']})
     k1_row = next(r for r in k1_rows
                   if (tuple(r['shape']), r['dtype']) == K1_REPORT)
     kernels.append({

@@ -72,8 +72,11 @@ def assert_outputs_match(want, got, atol=1e-3):
         np.testing.assert_allclose(_spatial(got[masks][k]),
                                    to_np(want[masks][k]), atol=atol,
                                    err_msg=k)
-    np.testing.assert_allclose(to_nhwc(got[pix]), to_np(want[pix]),
-                               atol=atol, rtol=atol)
+    if want[pix] is None:              # learnable attention off
+        assert got[pix] is None
+    else:
+        np.testing.assert_allclose(to_nhwc(got[pix]), to_np(want[pix]),
+                                   atol=atol, rtol=atol)
     if got[spatial] is not None:
         np.testing.assert_allclose(to_nhwc(got[spatial]),
                                    to_np(want[spatial]), atol=atol)

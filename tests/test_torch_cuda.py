@@ -6,7 +6,10 @@ The attention-pool kernel (K2) is held against its plain version on the
 same CUDA inputs: f32 sums over the pixels in another order, so the
 tolerance is 2e-5 of the largest output magnitude. The BN-sum kernels
 (K3, forward and backward) sum in f64 and the plain version in f32: 1e-5
-of the per-channel sum of magnitudes."""
+of the per-channel sum of magnitudes; bn_stats's epilogue on its own
+sums 1e-6 relative. The BN elementwise passes (bn_apply, bn_dx) round as
+their plain versions do: one ulp of the output type plus 1e-6 of the
+terms' magnitude. Only the K3 and BN tests: ``-k bn``."""
 import pytest
 import torch
 
@@ -66,11 +69,12 @@ def test_attention_pool_refuses_inputs_that_require_grad(cuda):
         fused_attention_pool(feats, logits)
 
 
-# K3: [A, C, B] views of the main path's shapes (NCHW and [M, C]) and
-# ragged ones (odd C, odd H*W, A = 1)
+# K3 and the BN elementwise passes: [A, C, B] views of the main path's
+# shapes (NCHW and [M, C]) and ragged ones (odd C, C = 3, B = 7, odd H*W,
+# A = 1, B = 1)
 K3_SHAPES = [((64, 32, 96, 32), 1), ((64, 256, 12, 4), 1), ((64, 512), -1),
              ((320, 512), -1), ((3, 7, 5, 3), 1), ((1, 33, 9, 7), 1),
-             ((1, 5), -1), ((5, 3, 6), -1)]
+             ((2, 3, 7, 1), 1), ((1, 5), -1), ((5, 3, 6), -1)]
 
 
 def _k3_inputs(cuda, shape, dtype, seed):
@@ -88,50 +92,147 @@ def _k3_close(got, want, scales):
         assert ((a - b).abs() <= 1e-5 * s + 1e-6).all()
 
 
+def _ew_close(got, want, terms):
+    """bn_apply and bn_dx against their plain versions on the same
+    constants: one ulp of the output type, plus 1e-6 of the magnitude of
+    the terms summed (``terms``, f32)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    err = (got.float() - want.float()).abs()
+    assert (err <= ulp * want.float().abs() + 1e-6 * terms + 1e-30).all()
+
+
+def _stats(cuda, x, channel_dim, seed=3):
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import bn_stats, channel_view
+    c = channel_view(x.shape, channel_dim)[1]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    weight = 1 + 0.2 * torch.randn(c, device=cuda, generator=gen)
+    bias = 0.3 * torch.randn(c, device=cuda, generator=gen)
+    return weight, bias, bn_stats(x, weight, 1e-5, channel_dim, sums=True)
+
+
 @pytest.mark.parametrize('shape,channel_dim', K3_SHAPES)
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_bn_stats_kernels_match_plain(cuda, shape, channel_dim, dtype):
+    """bn_stats (sums, epilogue, running update) and bn_grad_stats."""
     from bpbreid_tpu_torch.ops.cuda.batchnorm import (
-        bn_grad_stats, bn_grad_stats_reference, bn_stats, bn_stats_reference,
-        channel_view)
+        bn_finalize_reference, bn_grad_stats, bn_grad_stats_reference,
+        bn_stats, bn_stats_reference, channel_view)
     from bpbreid_tpu_torch.ops.cuda.build import launch_counts
     x, dy = _k3_inputs(cuda, shape, dtype, 0)
     a, c, b = channel_view(x.shape, channel_dim)
     x3, dy3 = x.reshape(a, c, b).float(), dy.reshape(a, c, b).float()
     before = dict(launch_counts)
-    got = bn_stats(x, channel_dim)
+    weight, _, got = _stats(cuda, x, channel_dim)
     torch.cuda.synchronize()
-    _k3_close(got, bn_stats_reference(x, channel_dim),
+    _k3_close(got[4:], bn_stats_reference(x, weight, 1e-5, channel_dim,
+                                          sums=True)[4:],
               (x3.abs().sum((0, 2)), (x3 * x3).sum((0, 2))))
-    mean = got[0] / (a * b)
-    rstd = torch.rsqrt((got[1] / (a * b) - mean * mean).clamp(min=0) + 1e-5)
+    # the epilogue on the kernel's own sums, and the running update
+    rm = torch.linspace(-1, 1, c, device=cuda)
+    rv = torch.linspace(0.5, 2, c, device=cuda)
+    rm_k, rv_k = rm.clone(), rv.clone()
+    got = bn_stats(x, weight, 1e-5, channel_dim, rm_k, rv_k, sums=True)
+    want = bn_finalize_reference(got[4], got[5], a * b, weight, 1e-5, rm, rv)
+    for g, w in zip(got[:4] + (rm_k, rv_k), want + (rm, rv)):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+    mean, rstd = got[0], got[2]
     got = bn_grad_stats(dy, x, mean, rstd, channel_dim)
     torch.cuda.synchronize()
     xhat = (x3 - mean.view(1, c, 1)) * rstd.view(1, c, 1)
     _k3_close(got, bn_grad_stats_reference(dy, x, mean, rstd, channel_dim),
               (dy3.abs().sum((0, 2)), (dy3 * xhat).abs().sum((0, 2))))
-    assert launch_counts['bn_stats'] == before.get('bn_stats', 0) + 1
+    assert launch_counts['bn_stats'] == before.get('bn_stats', 0) + 2
     assert launch_counts['bn_grad_stats'] == before.get('bn_grad_stats', 0) + 1
 
 
+@pytest.mark.parametrize('shape,channel_dim', K3_SHAPES)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('other', [torch.float32, torch.bfloat16])
+def test_bn_apply_and_dx_kernels_match_plain(cuda, shape, channel_dim,
+                                             dtype, other):
+    """bn_apply (x of ``dtype``, y of ``other``, with and without bias)
+    and bn_dx (x of ``dtype``, dy of ``other``) on the same constants."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (
+        bn_apply, bn_apply_reference, bn_dx, bn_dx_reference, bn_grad_stats,
+        channel_view)
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    x, dy = _k3_inputs(cuda, shape, dtype, 1)
+    dy = dy.to(other)
+    a, c, b = channel_view(x.shape, channel_dim)
+    weight, bias, (mean, _, rstd, scale, _, _) = _stats(cuda, x, channel_dim)
+    x3 = x.reshape(a, c, b).float()
+    before = dict(launch_counts)
+    for bi in (bias, None):
+        got = bn_apply(x, mean, rstd, weight, bi, channel_dim, other)
+        want = bn_apply_reference(x, mean, rstd, weight, bi, channel_dim,
+                                  other)
+        terms = ((x3 - mean.view(1, c, 1)).abs()
+                 * scale.abs().view(1, c, 1)).view(x.shape)
+        if bi is not None:
+            terms = terms + bi.abs().view(1, c, 1).expand(a, c, b) \
+                .reshape(x.shape)
+        _ew_close(got, want, terms)
+    sum_dy, sum_dy_xhat = bn_grad_stats(dy, x, mean, rstd, channel_dim)
+    got = bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, channel_dim)
+    want = bn_dx_reference(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat,
+                           channel_dim)
+    xhat = (x3 - mean.view(1, c, 1)) * rstd.view(1, c, 1)
+    terms = scale.abs().view(1, c, 1) * (
+        dy.reshape(a, c, b).float().abs() + (sum_dy.abs() / (a * b)).view(
+            1, c, 1) + (xhat * sum_dy_xhat.view(1, c, 1) / (a * b)).abs())
+    _ew_close(got, want, terms.view(x.shape))
+    assert got.dtype == x.dtype
+    assert launch_counts['bn_apply'] == before.get('bn_apply', 0) + 2
+    assert launch_counts['bn_dx'] == before.get('bn_dx', 0) + 1
+
+
+def test_bn_kernels_are_bit_identical_across_calls(cuda):
+    """The cluster reduction sums in a fixed order: two calls give the
+    same bits, at the step's largest input and at a [M, C] feature."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import bn_dx, bn_grad_stats
+    for shape, cd in (((64, 64, 192, 64), 1), ((320, 512), -1)):
+        x, dy = _k3_inputs(cuda, shape, torch.bfloat16, 2)
+        runs = []
+        for _ in range(2):
+            _, _, st = _stats(cuda, x, cd)
+            g = bn_grad_stats(dy, x, st[0], st[2], cd)
+            runs.append(st + g + (bn_dx(dy, x, st[0], st[2], st[3], *g,
+                                        channel_dim=cd),))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
 def test_bn_stats_kernels_refuse_bad_cuda_inputs(cuda):
-    from bpbreid_tpu_torch.ops.cuda.batchnorm import bn_grad_stats, bn_stats
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_apply, bn_dx,
+                                                      bn_grad_stats, bn_stats)
     x = torch.zeros(2, 8, 4, 4, device=cuda)
+    w = torch.ones(8, device=cuda)
     with pytest.raises(ValueError):          # not contiguous: no copy made
-        bn_stats(x.transpose(2, 3))
+        bn_stats(x.transpose(2, 3), w, 1e-5)
     with pytest.raises(TypeError):
-        bn_stats(x.half())
-    mean = torch.zeros(8, device=cuda)
+        bn_stats(x.half(), w, 1e-5)
     with pytest.raises(ValueError):
-        bn_grad_stats(x.transpose(2, 3), x, mean, mean)
+        bn_stats(x, w[:4], 1e-5)
+    with pytest.raises(ValueError):          # one running buffer alone
+        bn_stats(x, w, 1e-5, running_mean=w.clone())
     with pytest.raises(ValueError):
-        bn_grad_stats(x, x, mean[:4], mean)
+        bn_grad_stats(x.transpose(2, 3), x, w, w)
+    with pytest.raises(ValueError):
+        bn_grad_stats(x, x, w[:4], w)
+    with pytest.raises(ValueError):
+        bn_apply(x, w, w, w.double())
+    with pytest.raises(TypeError):
+        bn_apply(x, w, w, w, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        bn_dx(x, x[:1], w, w, w, w, w)
 
 
 def test_train_batch_norm_on_the_card_matches_the_cpu(cuda):
-    """FastBatchNorm in train mode on the card (both K3 entry points)
-    against the same module on the CPU: y, dx, dscale, dbias and the
-    running statistics, f32, 1e-4 (sums in another order)."""
+    """FastBatchNorm in train mode on the card (2 launches forward:
+    bn_stats, bn_apply; 2 backward: bn_grad_stats, bn_dx) against the same
+    module on the CPU: y, dx, dscale, dbias and the running statistics,
+    f32, 1e-4 (sums in another order)."""
     from bpbreid_tpu_torch.models.common import FastBatchNorm
     from bpbreid_tpu_torch.ops.cuda.build import launch_counts
     x, dy = _k3_inputs(cuda, (8, 16, 12, 5), torch.float32, 1)
@@ -143,17 +244,47 @@ def test_train_batch_norm_on_the_card_matches_the_cpu(cuda):
             bn.bias.fill_(0.1)
         xi = x.detach().clone().to(dev).requires_grad_(True)
         before = dict(launch_counts)
-        bn(xi).backward(dy.to(dev))
+        y = bn(xi)
+        y.backward(dy.to(dev))
         if dev.type == 'cuda':
             torch.cuda.synchronize()
-            assert launch_counts['bn_stats'] == before.get('bn_stats', 0) + 1
-            assert launch_counts['bn_grad_stats'] == \
-                before.get('bn_grad_stats', 0) + 1
+            for name in ('bn_stats', 'bn_apply', 'bn_grad_stats', 'bn_dx'):
+                assert launch_counts[name] == before.get(name, 0) + 1, name
+            assert sum(launch_counts.values()) == sum(before.values()) + 4
         out[dev.type] = [t.detach().cpu() for t in (
-            xi.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+            y, xi.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
             bn.running_var)]
     for a, b in zip(out['cuda'], out['cpu']):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize('shape,channel_dim,dtype', [
+    ((4, 16, 12, 8), 1, torch.bfloat16), ((6, 5, 32), -1, torch.float32)])
+def test_eval_batch_norm_on_the_card_is_one_launch(cuda, shape, channel_dim,
+                                                   dtype):
+    """FastBatchNorm in eval mode: one bn_apply launch, and the CPU's
+    output (f32 1e-5; bf16 one ulp)."""
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    x, _ = _k3_inputs(cuda, shape, torch.float32, 4)
+    c = shape[channel_dim]
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        bn = FastBatchNorm(c, channel_dim=channel_dim, dtype=dtype).eval() \
+            .to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, c))
+            bn.bias.fill_(0.1)
+            bn.running_mean.copy_(torch.linspace(-0.5, 0.5, c))
+            bn.running_var.copy_(torch.linspace(0.5, 2.0, c))
+        before = dict(launch_counts)
+        with torch.inference_mode():
+            out[dev.type] = bn(x.to(dev)).float().cpu()
+        if dev.type == 'cuda':
+            assert launch_counts['bn_apply'] == before.get('bn_apply', 0) + 1
+            assert sum(launch_counts.values()) == sum(before.values()) + 1
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out['cuda'], out['cpu'], atol=1e-5, rtol=tol)
 
 
 # K1: the main path's branch chains (N=64 at 384x128) and ragged shapes
