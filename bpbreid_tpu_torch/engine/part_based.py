@@ -20,9 +20,14 @@ pair-distance moments of an exact SSMD, all on the device. With
 A loader is any iterable of batch dicts holding numpy arrays: ``image``
 ``[B, H, W, 3]`` uint8, optional ``mask`` ``[B, h, w, C]`` float
 confidence fields, ``pid``, ``camid`` and optional ``valid`` (bool,
-padding rows False). Batches are processed one after another on
-``device``; features stay on the device until the distance matrix is
-read back for ranking.
+padding rows False). Batches go to ``device`` through
+``engine.device_prefetch`` and are processed one after another; features
+stay on the device until the distance matrix is read back for ranking.
+
+As an ``Engine`` (``engine/engine.py``) built with a config and a data
+manager, ``run`` trains and tests it (``_evaluate`` :609 over the data
+manager's loaders) and ``save_model`` (:149) writes the port's
+checkpoints (``utils/checkpoint.py``).
 """
 import numpy as np
 import torch
@@ -33,6 +38,7 @@ from bpbreid_tpu_torch.constants import (PIXELS, bn_correspondants,
 from bpbreid_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
                                             eval_preprocess,
                                             sample_train_draws, train_augment)
+from bpbreid_tpu_torch.engine.engine import Engine, device_prefetch
 from bpbreid_tpu_torch.losses.bpa import BodyPartAttentionLoss
 from bpbreid_tpu_torch.losses.gilt import GiLtLoss
 from bpbreid_tpu_torch.metrics.distance import \
@@ -40,10 +46,11 @@ from bpbreid_tpu_torch.metrics.distance import \
 from bpbreid_tpu_torch.metrics.rank import evaluate_rank
 from bpbreid_tpu_torch.ops.ranking import cmc_map, cmc_map_counting
 from bpbreid_tpu_torch.ops.resize import resize_bilinear_align_corners
+from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
 from bpbreid_tpu_torch.utils.distribution import (
     compute_ssmd, plot_pairs_distance_distribution)
 
-__all__ = ['ImagePartBasedEngine', 'normalize']
+__all__ = ['ImagePartBasedEngine', 'normalize', 'refuse_unported_test_options']
 
 
 def normalize(features, dim=-1):
@@ -52,7 +59,20 @@ def normalize(features, dim=-1):
     return f / f.norm(dim=dim, keepdim=True).clamp(min=1e-12)
 
 
-class ImagePartBasedEngine:
+def refuse_unported_test_options(visrank=False, rerank=False,
+                                 save_features=False,
+                                 vis_embedding_projection=False):
+    """Raise for the test options the port does not have yet."""
+    for flag, name, item in (
+            (visrank, 'test.visrank', 4), (rerank, 'test.rerank', 4),
+            (save_features, 'test.save_features', 4),
+            (vis_embedding_projection, 'test.vis_embedding_projection', 11)):
+        if flag:
+            raise NotImplementedError('{} is not ported yet (ROADMAP Queue 1 '
+                                      'item {})'.format(name, item))
+
+
+class ImagePartBasedEngine(Engine):
     """Part-based engine.
 
     Args:
@@ -76,6 +96,9 @@ class ImagePartBasedEngine:
         seed: seed of the engine's ``torch.Generator`` for the
             augmentation draws.
         device: torch device; ``None`` means ``'cuda'``.
+        config, datamanager, writer, engine_state: what ``run`` needs
+            (``Engine``); None for an engine driven step by step.
+        save_model_flag: write a checkpoint after each test of ``run``.
     """
 
     def __init__(self, model, optimizer=None, scheduler=None,
@@ -88,11 +111,15 @@ class ImagePartBasedEngine:
                  margin=0.3, loss_name='part_averaged_triplet_loss',
                  mask_filtering_training=False, ppl='cl',
                  transforms=('rc', 're'), cj=None, open_layers=('classifier',),
-                 detailed_ranking=False, parts_names=(), seed=0, device=None):
+                 detailed_ranking=False, parts_names=(), seed=0, device=None,
+                 config=None, datamanager=None, writer=None,
+                 engine_state=None, save_model_flag=False):
         self.device = resolve_device(device)
+        super().__init__(config, datamanager, writer, engine_state)
         self.model = model
         self.optimizer = optimizer
         self.scheduler = scheduler
+        self.save_model_flag = save_model_flag
         weights = losses_weights or {**GiLtLoss.default_losses_weights,
                                      PIXELS: {'ce': 0.35}}
         self.losses_weights = weights
@@ -120,8 +147,13 @@ class ImagePartBasedEngine:
 
     @classmethod
     def from_config(cls, config, model, mask_kwargs=None, device=None,
-                    optimizer=None, scheduler=None):
+                    optimizer=None, scheduler=None, datamanager=None,
+                    writer=None, engine_state=None, save_model_flag=False):
+        """The engine ``config`` describes; without ``mask_kwargs`` those
+        of ``datamanager``, when one is given."""
         cj = config.data.cj
+        if mask_kwargs is None and datamanager is not None:
+            mask_kwargs = datamanager.mask_chain_kwargs()
         return cls(model, optimizer=optimizer, scheduler=scheduler,
                    test_embeddings=config.model.bpbreid.test_embeddings,
                    mask_kwargs=mask_kwargs,
@@ -149,7 +181,10 @@ class ImagePartBasedEngine:
                    open_layers=config.train.open_layers,
                    detailed_ranking=config.test.detailed_ranking,
                    parts_names=config.model.bpbreid.masks.parts_names,
-                   seed=config.train.seed, device=device)
+                   seed=config.train.seed, device=device, config=config,
+                   datamanager=datamanager, writer=writer,
+                   engine_state=engine_state,
+                   save_model_flag=save_model_flag)
 
     # ------------------------------------------------------------------
     # train step
@@ -164,6 +199,23 @@ class ImagePartBasedEngine:
         """Set the optimizer's learning rate for ``epoch``."""
         if self.scheduler is not None and self.optimizer is not None:
             self.scheduler.set_in_optimizer(self.optimizer, epoch)
+
+    def save_model(self, epoch, save_dir, cmc=None, mAP=None, ssmd=None,
+                   is_best=False, force=False):
+        """Write a checkpoint (``utils/checkpoint.py``) when
+        ``save_model_flag`` or ``force`` (preemption) is set; returns its
+        path or None."""
+        if not self.save_model_flag and not force:
+            return None
+        meta = {'epoch': epoch,
+                'rank1': float(cmc[0]) if cmc is not None else None,
+                'mAP': float(mAP) if mAP is not None else None,
+                'ssmd': float(ssmd) if ssmd is not None else None,
+                'config': (self.config.to_dict()
+                           if self.config is not None else None)}
+        job_id = self.config.project.job_id if self.config is not None else 0
+        return save_checkpoint(self.model, self.optimizer, meta, save_dir,
+                               job_id=job_id, epoch=epoch, is_best=is_best)
 
     def loss_fn(self, outputs, masks, pids):
         """GiLt + bpa_w * BPA of the train-mode model outputs; the BPA
@@ -275,10 +327,9 @@ class ImagePartBasedEngine:
         """
         f_, vis_, pids_, camids_ = [], [], [], []
         pxl_correct = pxl_total = 0.0
-        for batch in loader:
-            imgs = torch.as_tensor(batch['image']).to(self.device)
-            masks = torch.as_tensor(batch['mask']).to(self.device) \
-                if batch.get('mask') is not None else None
+        for batch in device_prefetch(loader, self.device,
+                                     keys=('image', 'mask')):
+            imgs, masks = batch['image'], batch.get('mask')
             valid = np.asarray(batch.get(
                 'valid', np.ones(len(batch['pid']), bool)), bool)
             feats, vis, _m, _pxl, _masks, corr, tot = self.eval_step(imgs,
@@ -365,6 +416,39 @@ class ImagePartBasedEngine:
         return {'cmc': cmc, 'mAP': mAP, 'ssmd': ssmd,
                 'pixel_accuracy': pxl_acc, 'distmat': distmat,
                 'parts_ranking': parts_ranking}
+
+    def _evaluate(self, epoch, dataset_name='', query_loader=None,
+                  gallery_loader=None, dist_metric='euclidean',
+                  normalize_feature=False, visrank=False, visrank_topk=10,
+                  visrank_q_idx_list=None, visrank_count=10, save_dir='',
+                  use_metric_cuhk03=False, ranks=(1, 5, 10, 20), rerank=False,
+                  save_features=False, **kwargs):
+        """``evaluate`` on one target's loaders, printed and reported as
+        the JAX engine does; returns ``(cmc, mAP, ssmd,
+        pixel_accuracy)``."""
+        refuse_unported_test_options(visrank, rerank, save_features)
+        entry = (getattr(self.datamanager, 'test_dataset', None)
+                 or {}).get(dataset_name)
+        eval_metric = getattr(entry['query'], 'eval_metric', 'default') \
+            if entry else 'default'
+        res = self.evaluate(query_loader, gallery_loader,
+                            normalize_feature=normalize_feature,
+                            dist_metric=dist_metric, eval_metric=eval_metric,
+                            use_metric_cuhk03=use_metric_cuhk03)
+        cmc, mAP, ssmd = res['cmc'], res['mAP'], res['ssmd']
+        if res['pixel_accuracy']:
+            print('Pixel prediction accuracy: {:.2%}'.format(
+                res['pixel_accuracy']))
+        print('** Results **')
+        print('mAP: {:.2%}'.format(mAP))
+        print('CMC curve')
+        for r in ranks:
+            if r <= len(cmc):
+                print('Rank-{:<3}: {:.2%}'.format(r, cmc[r - 1]))
+        print('SSMD = {:.4f}'.format(ssmd))
+        if self.writer is not None:
+            self.writer.report_eval(dataset_name, cmc, mAP, ssmd)
+        return cmc, mAP, ssmd, res['pixel_accuracy']
 
     def _chunked_device_eval(self, qf, gf, q_vis_arr, g_vis_arr, q_pids,
                              g_pids, q_camids, g_camids,

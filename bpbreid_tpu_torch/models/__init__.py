@@ -1,7 +1,8 @@
 """Model factory (port of bpbreid_tpu/models/__init__.py:118).
 
-Only ``bpbreid`` (HRNet-W32 backbone) and ``hrnet32`` are ported; every
-other registry name raises. ``build_model`` puts the model on
+Ported: ``bpbreid`` (HRNet-W32 or ResNet backbone), ``hrnet32`` and the
+ResNet family (``resnet18`` ... ``resnet50_fc512``); every other
+registry name raises. ``build_model`` puts the model on
 ``device`` (default ``'cuda'``, raising when CUDA is missing) in eval
 mode, with weights drawn from ``seed`` by an explicit
 ``torch.Generator`` (flax's default initializers).
@@ -10,10 +11,11 @@ import torch
 
 from bpbreid_tpu_torch import resolve_device
 from bpbreid_tpu_torch.models.common import init_parameters
+from bpbreid_tpu_torch.models.resnet import RESNETS
 
 __all__ = ['build_model']
 
-PORTED = ('bpbreid', 'hrnet32')
+PORTED = ('bpbreid', 'hrnet32') + tuple(RESNETS)
 
 
 def build_model(name, num_classes, loss='part_based', pretrained=False,
@@ -21,7 +23,7 @@ def build_model(name, num_classes, loss='part_based', pretrained=False,
     """Build a ported model by registry name.
 
     Args:
-        name: 'bpbreid' (needs ``config=``) or 'hrnet32'.
+        name: 'bpbreid' (needs ``config=``), 'hrnet32' or a ResNet.
         device: torch device; ``None`` means ``'cuda'``.
         seed: seed of the ``torch.Generator`` that draws the weights.
     Returns:
@@ -36,9 +38,12 @@ def build_model(name, num_classes, loss='part_based', pretrained=False,
         from bpbreid_tpu_torch.models.bpbreid import bpbreid
         model = bpbreid(num_classes, loss=loss, pretrained=pretrained,
                         **kwargs)
-    else:
+    elif name == 'hrnet32':
         from bpbreid_tpu_torch.models.hrnet import hrnet32
         model = hrnet32(num_classes, loss=loss, pretrained=pretrained,
                         **kwargs)
+    else:
+        model = RESNETS[name](num_classes, loss=loss, pretrained=pretrained,
+                              **kwargs)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -24,7 +24,10 @@ classifier's virtual multires statistics, the binary training
 visibility, and no test-time mask refinement. The fused K2 kernel has no
 backward: on the card it refuses inputs that require grad.
 
-Only the HRNet-W32 backbone is ported.
+Backbones: HRNet-W32 and the ResNet family (``models/resnet.py``). The
+multires path is HRNet's; a ResNet backbone returns one map, which a
+``before_pooling`` dim-reduce (1x1 conv + BN + ReLU) shrinks when its
+width differs from ``dim_reduce_output``.
 """
 import numpy as np
 import torch
@@ -37,6 +40,7 @@ from bpbreid_tpu_torch.constants import (
 from bpbreid_tpu_torch.models.common import (BN_EPS, BN_MOMENTUM, Dense,
                                              FastBatchNorm, PConv)
 from bpbreid_tpu_torch.models.hrnet import hrnet32
+from bpbreid_tpu_torch.models.resnet import RESNETS
 from bpbreid_tpu_torch.ops.cuda.pooling import fused_attention_pool
 from bpbreid_tpu_torch.ops.pooling import parts_pooling
 from bpbreid_tpu_torch.ops.resize import (_linear_matrix_align_corners,
@@ -44,7 +48,7 @@ from bpbreid_tpu_torch.ops.resize import (_linear_matrix_align_corners,
                                           resize_bilinear_align_corners)
 
 __all__ = ['BPBreID', 'BNClassifier', 'PixelToPartClassifier',
-           'AfterPoolingDimReduce', 'bpbreid']
+           'AfterPoolingDimReduce', 'BeforePoolingDimReduce', 'bpbreid']
 
 
 class BNClassifier(nn.Module):
@@ -171,6 +175,19 @@ class AfterPoolingDimReduce(nn.Module):
         return F.relu(self.layers[1](self.layers[0](x)))
 
 
+class BeforePoolingDimReduce(nn.Module):
+    """1x1 conv (with bias) + BN + ReLU over an ``[N, D, H, W]`` map."""
+
+    def __init__(self, in_channels, output_dim, dtype=torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            PConv(in_channels, output_dim, 1, bias=True, dtype=dtype),
+            FastBatchNorm(output_dim, dtype=dtype)])
+
+    def forward(self, x):
+        return F.relu(self.layers[1](self.layers[0](x)))
+
+
 class BPBreID(nn.Module):
     """Part-based re-id network (see module docstring).
 
@@ -191,10 +208,11 @@ class BPBreID(nn.Module):
                  multires_pooling=True, backbone_stages=None,
                  dtype=torch.float32):
         super().__init__()
-        if backbone != 'hrnet32':
+        if backbone != 'hrnet32' and backbone not in RESNETS:
             raise NotImplementedError(
-                "backbone '{}' is not ported yet (only hrnet32)".format(
-                    backbone))
+                "backbone '{}' is not ported yet (ported: hrnet32, {}; "
+                "ROADMAP Queue 1 item 9)".format(backbone,
+                                                 ', '.join(RESNETS)))
         if normalization != 'identity':
             raise NotImplementedError(
                 "pooling normalization '{}' is not supported (the reference "
@@ -204,7 +222,6 @@ class BPBreID(nn.Module):
         if dim_reduce not in ('none', 'after_pooling', 'before_pooling'):
             raise NotImplementedError(
                 "dim_reduce '{}' is not ported yet".format(dim_reduce))
-        del last_stride
         self.parts_num = parts_num
         self.pooling = pooling
         self.learnable_attention_enabled = learnable_attention_enabled
@@ -215,15 +232,31 @@ class BPBreID(nn.Module):
         self.testing_binary_visibility_score = testing_binary_visibility_score
         self.use_pallas_pooling = use_pallas_pooling
         self.dtype = dtype
-        self.multires = (multires_pooling and learnable_attention_enabled
+        self.hrnet = backbone == 'hrnet32'
+        self.multires = (self.hrnet and multires_pooling
+                         and learnable_attention_enabled
                          and pooling in ('gwap', 'gap')
                          and dim_reduce != 'before_pooling')
 
-        self.backbone_appearance_feature_extractor = hrnet32(
-            enable_dim_reduction=(dim_reduce == 'before_pooling'),
-            dim_reduction_channels=dim_reduce_output, stages=backbone_stages,
-            dtype=dtype)
+        if self.hrnet:
+            self.backbone_appearance_feature_extractor = hrnet32(
+                enable_dim_reduction=(dim_reduce == 'before_pooling'),
+                dim_reduction_channels=dim_reduce_output,
+                stages=backbone_stages, dtype=dtype)
+        else:
+            self.backbone_appearance_feature_extractor = RESNETS[backbone](
+                num_classes, loss='part_based', last_stride=last_stride,
+                dtype=dtype)
         spatial_dim = self.backbone_appearance_feature_extractor.feature_dim
+        # the HRNet reduces inside its head (cls_head); a ResNet's map
+        # goes through its own 1x1 conv + BN + ReLU
+        self.use_before_reduce = (not self.hrnet
+                                  and dim_reduce == 'before_pooling'
+                                  and spatial_dim != dim_reduce_output)
+        if self.use_before_reduce:
+            self.before_pooling_dim_reduce = BeforePoolingDimReduce(
+                spatial_dim, dim_reduce_output, dtype)
+            spatial_dim = dim_reduce_output
         self.use_after_reduce = dim_reduce == 'after_pooling'
         out_dim = dim_reduce_output if dim_reduce != 'none' else spatial_dim
         if self.use_after_reduce:
@@ -249,12 +282,19 @@ class BPBreID(nn.Module):
         K = self.parts_num
         train = self.training
         backbone = self.backbone_appearance_feature_extractor
-        branches = backbone.forward_branches(images)
         multires = self.multires and (
             train or self.test_use_target_segmentation == 'none')
         n = images.shape[0]
-        hf, wf = branches[0].shape[-2:]
-        spatial_features = None if multires else backbone.concat(branches)
+        if self.hrnet:
+            branches = backbone.forward_branches(images)
+            hf, wf = branches[0].shape[-2:]
+            spatial_features = None if multires else backbone.concat(branches)
+        else:
+            spatial_features = backbone(images)
+            if self.use_before_reduce:
+                spatial_features = self.before_pooling_dim_reduce(
+                    spatial_features)
+            hf, wf = spatial_features.shape[-2:]
 
         # attention: per-pixel part probabilities [N, K+1, Hf, Wf]
         pixels_cls_scores = None

@@ -190,7 +190,8 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, has_downsample=False,
-                 dtype=torch.float32):
+                 groups=1, base_width=64, dtype=torch.float32):
+        del groups, base_width          # as in JAX: plain 3x3 convs
         super().__init__()
         self.conv1 = PConv(inplanes, planes, 3, stride, 1, bias=False,
                            dtype=dtype)
@@ -210,18 +211,20 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 -> 1x1 bottleneck + residual (expansion 4)."""
+    """1x1 -> 3x3 -> 1x1 bottleneck + residual (expansion 4);
+    ``groups``/``base_width`` give the ResNeXt variants."""
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, has_downsample=False,
-                 dtype=torch.float32):
+                 groups=1, base_width=64, dtype=torch.float32):
         super().__init__()
-        self.conv1 = PConv(inplanes, planes, 1, 1, 0, bias=False, dtype=dtype)
-        self.bn1 = FastBatchNorm(planes, dtype=dtype)
-        self.conv2 = PConv(planes, planes, 3, stride, 1, bias=False,
-                           dtype=dtype)
-        self.bn2 = FastBatchNorm(planes, dtype=dtype)
-        self.conv3 = PConv(planes, planes * 4, 1, 1, 0, bias=False,
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = PConv(inplanes, width, 1, 1, 0, bias=False, dtype=dtype)
+        self.bn1 = FastBatchNorm(width, dtype=dtype)
+        self.conv2 = PConv(width, width, 3, stride, 1, bias=False,
+                           groups=groups, dtype=dtype)
+        self.bn2 = FastBatchNorm(width, dtype=dtype)
+        self.conv3 = PConv(width, planes * 4, 1, 1, 0, bias=False,
                            dtype=dtype)
         self.bn3 = FastBatchNorm(planes * 4, dtype=dtype)
         self.downsample = _conv_bn(inplanes, planes * 4, 1, stride, dtype) \
@@ -242,11 +245,12 @@ class ResLayer(nn.Sequential):
     reference's ``nn.Sequential``."""
 
     def __init__(self, block, inplanes, planes, num_blocks, stride=1,
-                 dtype=torch.float32):
+                 groups=1, base_width=64, dtype=torch.float32):
         needs_ds = stride != 1 or inplanes != planes * block.expansion
-        blocks = [block(inplanes, planes, stride, needs_ds, dtype=dtype)]
-        blocks += [block(planes * block.expansion, planes, 1, False,
-                         dtype=dtype) for _ in range(1, num_blocks)]
+        kw = dict(groups=groups, base_width=base_width, dtype=dtype)
+        blocks = [block(inplanes, planes, stride, needs_ds, **kw)]
+        blocks += [block(planes * block.expansion, planes, 1, False, **kw)
+                   for _ in range(1, num_blocks)]
         super().__init__(*blocks)
 
 

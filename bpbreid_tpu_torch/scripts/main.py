@@ -1,0 +1,227 @@
+"""Train/test CLI of bpbreid_tpu_torch (port of bpbreid_tpu/scripts/main.py).
+
+    python -m bpbreid_tpu_torch.scripts.main --config-file <yaml> [opts]
+
+Config (YAML merge, then ``key value`` overrides, then the parts count
+from the mask grouping) -> data manager -> model -> optimizer and
+schedule -> ``ImagePartBasedEngine`` -> ``engine.run``. The device is
+the config's own ``use_gpu``: True (the default) runs on ``cuda`` and
+raises where CUDA is missing; ``use_gpu False`` runs on the CPU.
+
+``model.load_weights`` takes the port's checkpoints
+(``utils/checkpoint.py``); ``model.resume`` also restores the optimizer
+and the epoch. Not ported, and raising with their ROADMAP Queue 1 item:
+torchreid ``.pth`` weights and the HRNet ImageNet file (5), inference on
+external data (5), data parallelism over several cards (8), the softmax
+and triplet engines and video data (9), and the test options of item 4.
+"""
+import argparse
+import json
+import os
+import os.path as osp
+import random
+
+import numpy as np
+import torch
+
+from bpbreid_tpu_torch import resolve_device
+from bpbreid_tpu_torch.config import (display_config_diff, engine_run_kwargs,
+                                      get_default_config, imagedata_kwargs,
+                                      lr_scheduler_kwargs, optimizer_kwargs)
+from bpbreid_tpu_torch.data.datamanager import ImageDataManager
+from bpbreid_tpu_torch.data.datasets import get_image_dataset
+from bpbreid_tpu_torch.engine.part_based import (ImagePartBasedEngine,
+                                                 refuse_unported_test_options)
+from bpbreid_tpu_torch.models import build_model
+from bpbreid_tpu_torch.ops.masks import compute_parts_num_and_names
+from bpbreid_tpu_torch.optim import build_lr_scheduler, build_optimizer
+from bpbreid_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                resume_from_checkpoint)
+from bpbreid_tpu_torch.utils.engine_state import EngineState
+from bpbreid_tpu_torch.utils.logging import Logger
+from bpbreid_tpu_torch.utils.writer import Writer
+
+__all__ = ['build_config', 'build_model_engine', 'main']
+
+
+def set_random_seed(seed):
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def refuse_unported(cfg):
+    """Raise, before anything is built, for the options of the JAX CLI
+    that the port does not have yet."""
+    if cfg.data.type != 'image':
+        raise NotImplementedError('video data is not ported yet (ROADMAP '
+                                  'Queue 1 item 9)')
+    if cfg.loss.name != 'part_based':
+        raise NotImplementedError(
+            "the '{}' engine is not ported yet (ROADMAP Queue 1 item 9: "
+            "engine/image/{{softmax,triplet}}.py)".format(cfg.loss.name))
+    if cfg.train.n_devices > 1:
+        raise NotImplementedError(
+            'train.n_devices {}: data parallelism is not ported yet (ROADMAP '
+            'Queue 1 item 8)'.format(cfg.train.n_devices))
+    if cfg.inference.enabled:
+        raise NotImplementedError('inference on external data is not ported '
+                                  'yet (ROADMAP Queue 1 item 5)')
+    if cfg.test.int8:
+        raise NotImplementedError('int8 eval is not ported yet (ROADMAP '
+                                  'Queue 1 item 7)')
+    if cfg.train.batch_debug_freq:
+        raise NotImplementedError('train.batch_debug_freq: the debug figures '
+                                  'are not ported yet (ROADMAP Queue 1 item '
+                                  '11)')
+    refuse_unported_test_options(cfg.test.visrank, cfg.test.rerank,
+                                 cfg.test.save_features,
+                                 cfg.test.vis_embedding_projection)
+
+
+def build_config(args=None, config_file=None, config=None, makedirs=True):
+    """Default config <- ``config`` <- ``config_file`` <- the CLI
+    arguments; then the parts count, the model config stored beside
+    ``model.load_weights`` (with ``model.load_config``), and the save dir
+    ``<data.save_dir>/<job_id>``."""
+    cfg = get_default_config()
+    default_cfg_copy = cfg.clone()
+    if config is not None:
+        cfg.merge_from_dict(config if isinstance(config, dict)
+                            else config.to_dict())
+    if config_file:
+        cfg.merge_from_file(config_file)
+        cfg.project.config_file = os.path.basename(config_file)
+    if args is not None:
+        if getattr(args, 'root', ''):
+            cfg.data.root = args.root
+        if getattr(args, 'save_dir', ''):
+            cfg.data.save_dir = args.save_dir
+        if getattr(args, 'inference_enabled', False):
+            cfg.inference.enabled = args.inference_enabled
+        if getattr(args, 'sources', None):
+            cfg.data.sources = args.sources
+        if getattr(args, 'targets', None):
+            cfg.data.targets = args.targets
+        if getattr(args, 'transforms', None):
+            cfg.data.transforms = args.transforms
+        if getattr(args, 'job_id', None):
+            cfg.project.job_id = args.job_id
+        if getattr(args, 'opts', None):
+            cfg.merge_from_list(args.opts)
+    refuse_unported(cfg)
+    ds_cls = get_image_dataset(cfg.data.sources[0])
+    compute_parts_num_and_names(
+        cfg, ds_cls.get_masks_config(cfg.model.bpbreid.masks.dir))
+
+    if cfg.model.load_weights and cfg.model.load_config:
+        ckpt_cfg = None
+        meta_path = cfg.model.load_weights + '.meta.json'
+        if osp.exists(meta_path):
+            with open(meta_path) as f:
+                ckpt_cfg = json.load(f).get('config')
+        if ckpt_cfg:
+            print('Overwriting current config with config loaded from {}'
+                  .format(cfg.model.load_weights))
+            sub = dict(ckpt_cfg['model']['bpbreid'])
+            sub.pop('hrnet_pretrained_path', None)
+            if isinstance(sub.get('masks'), dict):
+                sub['masks'] = {k: v for k, v in sub['masks'].items()
+                                if k != 'dir'}
+            cfg.merge_from_dict({'model': {'bpbreid': sub}})
+        else:
+            print('Could not load config from file {}'.format(
+                cfg.model.load_weights))
+
+    display_config_diff(cfg, default_cfg_copy)
+    cfg.data.save_dir = os.path.join(cfg.data.save_dir,
+                                     str(cfg.project.job_id))
+    if makedirs:
+        os.makedirs(cfg.data.save_dir, exist_ok=True)
+    return cfg
+
+
+def load_pretrained_weights(engine, path):
+    """The model's and the optimizer's state from a port checkpoint; a
+    torchreid ``.pth`` raises (``utils.checkpoint.load_checkpoint``)."""
+    payload, _meta = load_checkpoint(path)
+    engine.model.load_state_dict(payload['model'])
+    if engine.optimizer is not None and payload['optimizer'] is not None:
+        engine.optimizer.load_state_dict(payload['optimizer'])
+    print('Loaded checkpoint from {}'.format(path))
+
+
+def maybe_load_hrnet_imagenet(cfg):
+    path = osp.join(cfg.model.bpbreid.hrnet_pretrained_path,
+                    'hrnetv2_w32_imagenet_pretrained.pth')
+    if osp.isfile(path):
+        raise NotImplementedError(
+            'loading the torchreid HRNet ImageNet weights ({}) is not ported '
+            'yet (ROADMAP Queue 1 item 5)'.format(path))
+    print('HRNet ImageNet weights not found at {}; training from random '
+          'init'.format(path))
+
+
+def build_model_engine(cfg):
+    """Data manager, model, optimizer, schedule and engine of ``cfg`` (from
+    ``build_config``, which refuses the unported options) on the device
+    ``cfg.use_gpu`` names; returns ``(engine, model)``."""
+    device = resolve_device('cuda' if cfg.use_gpu else 'cpu')
+    logger = Logger(cfg)
+    set_random_seed(cfg.train.seed)
+    if cfg.project.debug_mode:
+        torch.autograd.set_detect_anomaly(True)
+    datamanager = ImageDataManager(**imagedata_kwargs(cfg))
+    engine_state = EngineState(cfg.train.start_epoch, cfg.train.max_epoch)
+    writer = Writer(cfg, logger=logger, engine_state=engine_state)
+    print('Building model: {}'.format(cfg.model.name))
+    model = build_model(cfg.model.name, datamanager.num_train_pids,
+                        loss=cfg.loss.name, pretrained=cfg.model.pretrained,
+                        config=cfg, device=device, seed=cfg.train.seed)
+    optimizer = build_optimizer(model, **optimizer_kwargs(cfg))
+    scheduler = build_lr_scheduler(lr=cfg.train.lr, **lr_scheduler_kwargs(cfg))
+    engine = ImagePartBasedEngine.from_config(
+        cfg, model, device=device, optimizer=optimizer, scheduler=scheduler,
+        datamanager=datamanager, writer=writer, engine_state=engine_state,
+        save_model_flag=cfg.model.save_model_flag)
+    if cfg.model.load_weights and osp.isfile(cfg.model.load_weights):
+        load_pretrained_weights(engine, cfg.model.load_weights)
+    elif cfg.model.pretrained and cfg.model.bpbreid.backbone == 'hrnet32':
+        maybe_load_hrnet_imagenet(cfg)
+    if cfg.model.resume and osp.isfile(cfg.model.resume):
+        start_epoch, _meta = resume_from_checkpoint(cfg.model.resume, model,
+                                                    optimizer)
+        cfg.train.start_epoch = start_epoch
+        engine.start_epoch = engine.epoch = start_epoch
+    return engine, model
+
+
+def main(argv=None):
+    """Parse ``argv``, build and run; returns ``(engine, result)`` with
+    ``result`` what ``engine.run`` returns."""
+    parser = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument('--config-file', type=str, default='')
+    parser.add_argument('-s', '--sources', type=str, nargs='+')
+    parser.add_argument('-t', '--targets', type=str, nargs='+')
+    parser.add_argument('--transforms', type=str, nargs='+')
+    parser.add_argument('--root', type=str, default='')
+    parser.add_argument('--save_dir', type=str, default='')
+    parser.add_argument('--job-id', type=int, default=None)
+    parser.add_argument('--inference-enabled', action='store_true')
+    parser.add_argument('opts', default=None, nargs=argparse.REMAINDER)
+    args = parser.parse_args(argv)
+
+    cfg = build_config(args, args.config_file)
+    engine, _model = build_model_engine(cfg)
+    print('Starting experiment {} with job id {}'.format(
+        cfg.project.experiment_id, cfg.project.job_id))
+    result = engine.run(**engine_run_kwargs(cfg),
+                        max_epoch=cfg.train.max_epoch,
+                        eval_freq=cfg.train.eval_freq,
+                        start_eval=cfg.test.start_eval)
+    return engine, result
+
+
+if __name__ == '__main__':
+    main()

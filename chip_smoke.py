@@ -56,11 +56,29 @@ and Market-1501 + 500k distractors scale. Phases:
    host ranking, per-part table on; (c) the same queries against 515,913
    gallery images (496,181 distractors), the chunked path on its own,
    its first chunk's counting ranker against the full sort, with the
-   seconds, the seconds per chunk and the peak memory.
+   seconds, the seconds per chunk and the peak memory;
+9. the train/test CLI, ``scripts.main.main(argv)`` in-process, with the
+   Market-1501 train config (HRNet-W32, 384x128, five_v, bf16, batch 64)
+   on a registered synthetic dataset of 16 identities x 3 cameras x 4
+   images of 128x64, which the loader upsamples (3 steps an epoch, 192
+   query and 384 gallery images); every launch count is set to 0 just
+   before each run and read just after:
+   (a) two epochs and the final test with a checkpoint: every step
+   launches the BN kernels phase 6 counts (and as many as forward hooks
+   count train-mode BNs), the eval batches one bn_apply per eval-mode BN;
+   the first prefetched batch equals the loader's host batch bit for bit
+   and the first loss equals ``forward_backward`` on it (1e-5 relative);
+   (b) a test-only run from (a)'s checkpoint gives (a)'s CMC and mAP
+   (1e-6); (c) a test-only run through K2 (fused pooling, multires off)
+   launches it once per eval batch and no train-mode BN kernel; (d) one
+   epoch and the final test on a ResNet-50 backbone, finite losses and
+   the BN launches of its train-mode BNs.
 
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
-throughput line, the kernels line and the result line
+throughput line, the CLI line (phase 9), the kernels line (launches: the
+BN kernels' in run 9a, K2's in run 9c, K1's in phase 3b) and the result
+line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Needs one CUDA card.
 """
@@ -1494,6 +1512,303 @@ def phase_small_train_reference(torch, results):
         raise AssertionError('; '.join(checks))
 
 
+# phase 9: the CLI (scripts/main.py) on synthetic data at Market-1501's
+# crop size: 16 identities x 3 cameras x 4 images a camera at 128x64,
+# which the loader upsamples to 384x128 (fields 16x8 -> 48x16): 192 train
+# images (3 steps of 16 ids x 4 an epoch), 192 query, 384 gallery
+CLI_DATASET = 'smoke_market_crops'
+CLI_IDS, CLI_CAMS, CLI_IMGS = 16, 3, 4
+CLI_SRC_HW = (128, 64)
+CLI_CONFIG = 'configs/bpbreid/bpbreid_market1501_train.yaml'
+CLI_EPOCHS = 2
+# checkpoints of a full-width model (hundreds of MB with Adam's moments)
+# go to a gitignored directory, deleted at the end of the phase, not to
+# chiprun_out/, which is kept for small result files
+CLI_SAVE_DIR = os.path.join('_scratch', 'chip_smoke_cli')
+CLI_EVAL_BATCHES = 3 + 6            # query, gallery at batch 64
+
+
+def register_cli_dataset():
+    """A ``SyntheticDataset`` with the counts and crop size above, in the
+    port's registry (the dataset's own constructor arguments)."""
+    from bpbreid_tpu_torch.data.datasets import (get_image_dataset,
+                                                 register_image_dataset)
+    from bpbreid_tpu_torch.data.datasets.image_datasets import \
+        SyntheticDataset
+
+    class SmokeMarketCrops(SyntheticDataset):
+        dataset_dir = CLI_DATASET
+
+        def __init__(self, **kwargs):
+            super().__init__(num_pids=CLI_IDS, num_cams=CLI_CAMS,
+                             imgs_per_pid_cam=CLI_IMGS, height=CLI_SRC_HW[0],
+                             width=CLI_SRC_HW[1], seed=SEED, **kwargs)
+    try:
+        get_image_dataset(CLI_DATASET)
+    except ValueError:
+        register_image_dataset(CLI_DATASET, SmokeMarketCrops)
+
+
+def cli_argv(job_id, *opts):
+    """The CLI's argv: the Market-1501 train config (HRNet-W32, 384x128,
+    five_v, bf16, batch 64) on the smoke dataset, without visrank."""
+    return (['--config-file', CLI_CONFIG, '--save_dir', CLI_SAVE_DIR,
+             '--job-id', str(job_id),
+             'data.sources', "['{}']".format(CLI_DATASET),
+             'data.targets', "['{}']".format(CLI_DATASET),
+             'test.visrank', 'False', 'train.eval_freq', '-1']
+            + list(opts))
+
+
+class CliRecorder:
+    """Wraps ``ImagePartBasedEngine.forward_backward`` and ``save_model``
+    for one CLI run: each step's host entry time, loss tensor and BN
+    launches, the train-mode FastBatchNorm calls of each step (forward
+    hooks, set on the first step), the first batch as the prefetch put
+    it on the card, and the checkpoint's path and write seconds. Reads
+    nothing back from the card during the steps."""
+
+    def __init__(self, torch):
+        from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+        self.torch, self.cls = torch, ImagePartBasedEngine
+        self.fb = ImagePartBasedEngine.forward_backward
+        self.save = ImagePartBasedEngine.save_model
+        self.entries, self.losses, self.launches = [], [], []
+        self.bn_calls = {'train': 0, 'eval': 0}
+        self.train_bn_calls = []
+        self.first_batch = self.checkpoint = self.save_s = None
+
+    def _hook(self, mod, inp):
+        self.bn_calls['train' if mod.training else 'eval'] += 1
+
+    def __enter__(self):
+        from bpbreid_tpu_torch.models.common import FastBatchNorm
+        from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+        rec = self
+
+        def forward_backward(engine, batch, draws=None):
+            if rec.first_batch is None:
+                for m in engine.model.modules():
+                    if isinstance(m, FastBatchNorm):
+                        m.register_forward_pre_hook(rec._hook)
+                rec.first_batch = {k: batch[k].cpu().clone()
+                                   for k in ('image', 'mask', 'pid')}
+            rec.entries.append(time.perf_counter())
+            before = dict(launch_counts)
+            calls = rec.bn_calls['train']
+            loss, summary = rec.fb(engine, batch, draws)
+            rec.launches.append({k: launch_counts[k] - before.get(k, 0)
+                                 for k in BN_KERNELS})
+            rec.train_bn_calls.append(rec.bn_calls['train'] - calls)
+            rec.losses.append(loss)
+            return loss, summary
+
+        def save_model(engine, *args, **kwargs):
+            rec.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = rec.save(engine, *args, **kwargs)
+            if path is not None:
+                rec.checkpoint, rec.save_s = path, time.perf_counter() - t0
+            return path
+
+        self.cls.forward_backward = forward_backward
+        self.cls.save_model = save_model
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward_backward, self.cls.save_model = self.fb, self.save
+        return False
+
+
+def drive_cli(torch, what, argv):
+    """``scripts.main.main(argv)`` with every launch count set to 0 just
+    before and read just after. Returns the engine, ``(cmc, mAP, ssmd,
+    pixel accuracy)``, the counts, the recorder and the wall seconds."""
+    from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.scripts.main import main as cli_main
+    clear_dataset_cache()
+    with CliRecorder(torch) as rec:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        engine, result = cli_main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts.items()}
+    log('  {}: {:.1f} s, launches {}'.format(what, wall_s, counts))
+    return engine, result, counts, rec, wall_s
+
+
+def _bn_split(model):
+    """Phase 6's split of a model's FastBatchNorms: those that run the
+    BN kernels in train mode (all but the pixel classifier's, whose
+    statistics are plain ops) and those of them whose stream feeds no
+    loss (no backward)."""
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    bn = [n for n, mod in model.named_modules()
+          if isinstance(mod, FastBatchNorm) and n != 'pixel_classifier.bn']
+    no_grad = [n for n in bn if n.startswith((
+        'background_after_pooling_dim_reduce',
+        'background_identity_classifier', 'parts_identity_classifier'))]
+    return bn, no_grad
+
+
+def _step_launch_checks(rec, bn, no_grad, what):
+    """Every train step launches two forward BN kernels for each
+    train-mode BN call (forward hooks) and two backward ones for each
+    that gets a gradient."""
+    want = {'bn_stats': len(bn), 'bn_apply': len(bn),
+            'bn_grad_stats': len(bn) - len(no_grad),
+            'bn_dx': len(bn) - len(no_grad)}
+    bad = ['{}: BN launches a step {} != {}'.format(what, c, want)
+           for c in rec.launches if c != want][:1]
+    bad += ['{}: {} train-mode BN calls a step by hooks, {} kernel-backed '
+            'BNs'.format(what, n, len(bn))
+            for n in set(rec.train_bn_calls) if n != len(bn)]
+    return want, bad
+
+
+def phase_cli(torch, results):
+    """Phase 9 (see the module docstring). Returns the phase's numbers
+    and the launch counts of 9a (BN kernels) and 9c (K2)."""
+    import shutil
+    from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    from bpbreid_tpu_torch.scripts.main import build_model_engine
+    from bpbreid_tpu_torch.utils.checkpoint import load_checkpoint
+    t_phase = time.perf_counter()
+    register_cli_dataset()
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out, checks = {}, []
+    steps_per_epoch = CLI_IDS * CLI_CAMS * CLI_IMGS // BATCH
+    phase6 = results['train']
+
+    # 9a: two epochs of training, the final test, a checkpoint
+    engine, (cmc, mAP, _, _), counts_a, rec, wall_a = drive_cli(
+        torch, '9a train', cli_argv(91, 'train.max_epoch', str(CLI_EPOCHS),
+                        'model.save_model_flag', 'True'))
+    losses = [float(v) for v in rec.losses]
+    bn, no_grad = _bn_split(engine.model)
+    want, bad = _step_launch_checks(rec, bn, no_grad, '9a')
+    checks += bad
+    if want != {k: phase6['bn_launches_per_step'][k] for k in BN_KERNELS}:
+        checks.append('9a: BN launches a step {} differ from phase 6 {}'
+                      .format(want, phase6['bn_launches_per_step']))
+    steps = len(losses)
+    eval_apply = counts_a.get('bn_apply', 0) - steps * want['bn_apply']
+    if steps != CLI_EPOCHS * steps_per_epoch:
+        checks.append('9a: {} steps'.format(steps))
+    if eval_apply != rec.bn_calls['eval'] \
+            or eval_apply != CLI_EVAL_BATCHES * len(bn):
+        checks.append('9a: eval bn_apply {} != {} eval-mode BN calls, {} x '
+                      '{}'.format(eval_apply, rec.bn_calls['eval'],
+                                  CLI_EVAL_BATCHES, len(bn)))
+    if not all(np.isfinite(losses)):
+        checks.append('9a: non-finite loss {}'.format(losses))
+    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    step_ms = statistics.median(intervals)
+    data_ms = engine.writer.data_loading_timer.meter.avg * 1e3
+    ckpt, save_s = rec.checkpoint, rec.save_s
+    if ckpt is None:
+        raise AssertionError('9a: the run wrote no checkpoint')
+    t0 = time.perf_counter()
+    load_checkpoint(ckpt)
+    read_s = time.perf_counter() - t0
+    # the first step against forward_backward on the loader's first
+    # host batch, with a fresh engine of the same config: the same
+    # seeded weights and generator, so the same draws
+    cfg, first_loss, first_dev = engine.config, losses[0], rec.first_batch
+    del engine, rec
+    torch.cuda.empty_cache()
+    clear_dataset_cache()
+    direct, _ = build_model_engine(cfg)
+    host = next(iter(direct.datamanager.train_loader))
+    batch_equal = all(torch.equal(first_dev[k], torch.as_tensor(host[k]))
+                      for k in ('image', 'mask', 'pid'))
+    if not batch_equal:
+        checks.append('9a: the first prefetched batch differs from the host '
+                      'batch')
+    direct_loss = float(direct.forward_backward(host)[0])
+    first_rel = abs(first_loss - direct_loss) / abs(direct_loss)
+    if not first_rel <= 1e-5:
+        checks.append('9a: first loss {} vs forward_backward {} ({:.2e})'
+                      .format(first_loss, direct_loss, first_rel))
+    del direct
+    torch.cuda.empty_cache()
+    out['9a'] = {
+        'steps': steps, 'losses': losses, 'step_ms_median': step_ms,
+        'step_ms': intervals, 'data_time_ms': data_ms,
+        'images_per_s': BATCH / step_ms * 1e3,
+        'phase6_step_ms_median': phase6['step_ms_median'],
+        'cli_over_phase6_step': step_ms / phase6['step_ms_median'],
+        'rank1': float(cmc[0]), 'mAP': float(mAP),
+        'bn_launches_per_step': want, 'eval_bn_apply': eval_apply,
+        'launches': counts_a, 'first_loss_rel_err': first_rel,
+        'first_batch_bit_equal': batch_equal,
+        'checkpoint_mb': os.path.getsize(ckpt) / 1e6,
+        'checkpoint_write_s': save_s, 'checkpoint_read_s': read_s,
+        'wall_s': wall_a}
+
+    # 9b: test only from 9a's checkpoint
+    engine, (cmc_b, mAP_b, _, _), counts_b, rec, wall_b = drive_cli(
+        torch, '9b test from the checkpoint', cli_argv(92, 'test.evaluate', 'True',
+                        'model.load_weights', ckpt))
+    d_cmc = float(np.abs(np.asarray(cmc_b) - np.asarray(cmc)).max())
+    d_map = abs(float(mAP_b) - float(mAP))
+    if rec.losses or not (d_cmc <= 1e-6 and d_map <= 1e-6):
+        checks.append('9b: CMC {} / mAP {} off 9a by {}, {}'.format(
+            cmc_b[:1], mAP_b, d_cmc, d_map))
+    if counts_b.get('bn_apply') != CLI_EVAL_BATCHES * len(bn) \
+            or counts_b.get('bn_stats', 0):
+        checks.append('9b: BN launches {}'.format(counts_b))
+    out['9b'] = {'cmc_max_abs_diff': d_cmc, 'mAP_abs_diff': d_map,
+                 'launches': counts_b, 'wall_s': wall_b}
+    del engine, rec
+    torch.cuda.empty_cache()
+
+    # 9c: test only through K2 (materialized map, fused pooling)
+    engine, _, counts_c, rec, wall_c = drive_cli(
+        torch, '9c test through K2', cli_argv(93, 'test.evaluate', 'True',
+                        'model.bpbreid.use_pallas_pooling', 'True',
+                        'model.bpbreid.multires_pooling', 'False'))
+    want_c = {'attention_pool': CLI_EVAL_BATCHES,
+              'bn_apply': CLI_EVAL_BATCHES * len(bn)}
+    got_c = {k: v for k, v in counts_c.items() if v}
+    if got_c != want_c:
+        checks.append('9c: launches {} != {}'.format(got_c, want_c))
+    out['9c'] = {'launches': counts_c, 'wall_s': wall_c}
+    del engine, rec
+    torch.cuda.empty_cache()
+
+    # 9d: the ResNet-50 backbone, one epoch and the final test
+    engine, (cmc_d, mAP_d, _, _), counts_d, rec, wall_d = drive_cli(
+        torch, '9d resnet50', cli_argv(94, 'train.max_epoch', '1',
+                        'model.bpbreid.backbone', 'resnet50'))
+    losses_d = [float(v) for v in rec.losses]
+    bn_d, no_grad_d = _bn_split(engine.model)
+    want_d, bad = _step_launch_checks(rec, bn_d, no_grad_d, '9d')
+    checks += bad
+    if len(losses_d) != steps_per_epoch or not all(np.isfinite(losses_d)):
+        checks.append('9d: losses {}'.format(losses_d))
+    d_ms = statistics.median((np.diff(rec.entries) * 1e3).tolist())
+    out['9d'] = {'steps': len(losses_d), 'losses': losses_d,
+                 'step_ms_median': d_ms,
+                 'bn_launches_per_step': want_d,
+                 'train_mode_bn_calls_by_hooks': rec.train_bn_calls,
+                 'launches': counts_d,
+                 'rank1': float(cmc_d[0]), 'mAP': float(mAP_d),
+                 'wall_s': wall_d}
+    del engine, rec
+    torch.cuda.empty_cache()
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out['phase_s'] = time.perf_counter() - t_phase
+    results['cli'] = out
+    if checks:
+        raise AssertionError('; '.join(checks))
+    return counts_a, counts_c
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1546,13 +1861,15 @@ def main():
     phase_small_train_reference(torch, results)
     log('phase 8b, 8c: Market-1501 and Market-1501 + 500k retrieval')
     phase_large_gallery(torch, results)
+    log('phase 9: the train/test CLI (scripts/main.py)')
+    cli_launches, k2_cli_launches = phase_cli(torch, results)
 
     main_row = k2_rows[0]       # main-path shape and dtypes
     kernels = [{
         'name': 'attention_pool', 'route': 'cuda',
         'source': 'bpbreid_tpu_torch/ops/cuda/attention_pool.cu',
         'replaces': 'bpbreid_tpu/ops/pallas/pooling.py:47',
-        'launches': results['launches'].get('attention_pool', 0),
+        'launches': k2_cli_launches.get('attention_pool', 0),
         'max_abs_err': main_row['max_abs_err'],
         'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
@@ -1564,7 +1881,7 @@ def main():
         kernels.append({
             'name': name, 'route': 'cuda', 'source': K3_SOURCE,
             'replaces': K3_REPLACES[name],
-            'launches': results['train_launches'].get(name, 0),
+            'launches': cli_launches.get(name, 0),
             'max_abs_err': k3_row[name + '_max_abs_err'],
             'ms': k3_row[name + '_ms'], 'plain_ms': k3_row[name + '_plain_ms'],
             'bound_ms': k3_row[name + '_bound_ms'],
@@ -1579,6 +1896,9 @@ def main():
         'plain_ms': k1_row['plain_ms'], 'bound_ms': k1_row['bound_ms'],
         'bound_by': k1_row['bound_by'], 'library_ms': k1_row['library_ms']})
     results['kernels'] = kernels
+    unlaunched = [k['name'] for k in kernels if not k['launches']]
+    if unlaunched:
+        raise AssertionError('no launch on the path: {}'.format(unlaunched))
     with open('chiprun_out/chip_smoke.json', 'w') as f:
         json.dump(results, f, indent=1)
     s, t = results['serving'], results['train']
@@ -1588,6 +1908,20 @@ def main():
         'on {}'.format(s['forward_images_per_s'], BATCH, s['retrieval_s'],
                        s['retrieval_images'], t['step_ms_median'],
                        t['images_per_s'], gpu))
+    a, d = results['cli']['9a'], results['cli']['9d']
+    log('cli', json.dumps({
+        'steps': a['steps'], 'step_ms_median': a['step_ms_median'],
+        'data_time_ms': a['data_time_ms'], 'images_per_s': a['images_per_s'],
+        'phase6_step_ms_median': a['phase6_step_ms_median'],
+        'cli_over_phase6_step': a['cli_over_phase6_step'],
+        'mAP': a['mAP'], 'rank1': a['rank1'],
+        'checkpoint_mb': a['checkpoint_mb'],
+        'checkpoint_write_s': a['checkpoint_write_s'],
+        'checkpoint_read_s': a['checkpoint_read_s'],
+        'wall_s': {k: v['wall_s'] for k, v in results['cli'].items()
+                   if k != 'phase_s'},
+        'phase_s': results['cli']['phase_s'],
+        'resnet50_step_ms_median': d['step_ms_median'], 'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

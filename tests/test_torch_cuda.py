@@ -369,3 +369,71 @@ def test_counting_ranker_on_the_card_matches_the_cpu(cuda):
                 assert int(a) == int(b)
             else:
                 torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=0)
+
+
+def test_device_prefetch_keeps_the_stream_order(cuda):
+    """Batches copied on the side stream arrive whole while the compute
+    stream is busy: each equals its host batch bit for bit, the host-side
+    fields stay numpy, and tensors freed while a later step still runs
+    are not overwritten (``record_stream``)."""
+    import numpy as np
+    from bpbreid_tpu_torch.engine.engine import device_prefetch
+    rng = np.random.default_rng(0)
+    host = [{'image': rng.integers(0, 256, (64, 384, 128, 3), dtype=np.uint8),
+             'mask': rng.random((64, 48, 16, 36), dtype=np.float32),
+             'pid': rng.integers(0, 751, 64).astype(np.int32),
+             'camid': np.full(64, i, np.int32)} for i in range(6)]
+    busy = torch.randn(4096, 4096, device=cuda)
+    sums = []
+    for i, batch in enumerate(device_prefetch(host, cuda)):
+        for _ in range(4):                 # keep the compute stream busy
+            busy = busy @ busy / 4096
+        assert batch['image'].device.type == 'cuda'
+        assert isinstance(batch['camid'], np.ndarray)
+        sums.append((batch['image'].sum(dtype=torch.int64),
+                     batch['mask'].double().sum(), batch['pid'].clone()))
+        del batch
+    torch.cuda.synchronize()
+    for (img, mask, pid), want in zip(sums, host):
+        assert img.item() == int(want['image'].sum(dtype=np.int64))
+        assert mask.item() == pytest.approx(float(want['mask'].astype(
+            np.float64).sum()), rel=1e-12)
+        assert pid.cpu().numpy().tolist() == want['pid'].tolist()
+    first = next(iter(device_prefetch(host[:1], cuda)))
+    for k in ('image', 'mask', 'pid'):
+        assert torch.equal(first[k].cpu(), torch.as_tensor(host[0][k]))
+
+
+def test_cli_launches_the_bn_kernels(cuda, tmp_path):
+    """The CLI on the smoke config (resnet18, 4 train steps, 18 eval
+    batches): two forward BN kernels for every train-mode BN call, two
+    backward ones for each that gets a gradient, one ``bn_apply`` for
+    every eval-mode BN call, counted against forward hooks."""
+    import os
+    import types
+    from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.scripts import main as cli
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    clear_dataset_cache()
+    cfg = cli.build_config(
+        types.SimpleNamespace(save_dir=str(tmp_path), job_id=1, opts=[]),
+        os.path.join(repo, 'configs/bpbreid/bpbreid_synthetic_smoke.yaml'))
+    engine, model = cli.build_model_engine(cfg)
+    calls = {'train': 0, 'eval': 0}
+
+    def hook(mod, inp):
+        calls['train' if mod.training else 'eval'] += 1
+    for m in model.modules():
+        if isinstance(m, FastBatchNorm):
+            m.register_forward_pre_hook(hook)
+    reset_launch_counts()
+    engine.run(max_epoch=1, test_only=False, save_dir=cfg.data.save_dir)
+    torch.cuda.synchronize()
+    assert calls['train'] > 0 and calls['eval'] > 0
+    assert launch_counts['bn_stats'] == calls['train']
+    assert launch_counts['bn_apply'] == calls['train'] + calls['eval']
+    assert launch_counts['bn_grad_stats'] == launch_counts['bn_dx']
+    assert 0 < launch_counts['bn_grad_stats'] <= calls['train']

@@ -34,7 +34,7 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     assert next(model.parameters()).device.type == 'cpu'
     assert not model.training
     with pytest.raises(NotImplementedError, match='not ported'):
-        build_model('resnet50', 1, device='cpu')
+        build_model('osnet_x1_0', 1, device='cpu')
 
 
 def test_build_model_is_seeded():
@@ -59,6 +59,28 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(names) > 15
+
+
+def test_port_imports_no_cv2_or_pil():
+    """Every module of the port, its CLI and chip_smoke.py load no
+    OpenCV and no PIL (the card's machine has neither); images are
+    decoded with PIL only when a file is read. Fresh interpreter."""
+    names = ['bpbreid_tpu_torch', 'bpbreid_tpu_torch.scripts.main'] + [
+        m.name for m in pkgutil.walk_packages(bpbreid_tpu_torch.__path__,
+                                              'bpbreid_tpu_torch.')]
+    code = ('import importlib, importlib.util, sys\n'
+            'for n in {!r}: importlib.import_module(n)\n'
+            'spec = importlib.util.spec_from_file_location('
+            '"chip_smoke", "chip_smoke.py")\n'
+            'spec.loader.exec_module(importlib.util.module_from_spec(spec))\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("cv2", "PIL", "jax", "flax", "bpbreid_tpu")]\n'
+            'print("BAD", bad)\n'
+            'sys.exit(1 if bad else 0)\n').format(names)
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'bpbreid_tpu_torch.data.datasets.dataset' in names
 
 
 def test_port_sources_name_no_jax():
