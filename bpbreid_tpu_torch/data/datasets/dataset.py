@@ -19,8 +19,11 @@ does. ``tests/test_torch_data_pipeline.py`` holds both against
 ``cv2.resize``.
 """
 import copy
+import io
 import os
 import os.path as osp
+import struct
+import zlib
 
 import numpy as np
 
@@ -195,19 +198,121 @@ class Dataset:
                     gp, len(self.gallery), gc)
 
 
-def read_image(path):
-    """Image file -> RGB uint8 ``[H, W, 3]``, with two retries on a
-    failed read. Decodes with PIL, imported here."""
+_PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}     # 8-bit gray, RGB, RGBA
+
+
+def _png_chunks(data):
+    pos = len(_PNG_SIGNATURE)
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack('>I4s', data[pos:pos + 8])
+        yield kind, data[pos + 8:pos + 8 + length]
+        pos += 12 + length             # length, type, body, CRC
+
+
+def _unfilter_average(line, prior, bpp):
+    cur, up = bytearray(line.tobytes()), prior.tobytes()
+    for i in range(len(cur)):
+        left = cur[i - bpp] if i >= bpp else 0
+        cur[i] = (cur[i] + ((left + up[i]) >> 1)) & 255
+    return np.frombuffer(cur, np.uint8)
+
+
+def _unfilter_paeth(line, prior, bpp):
+    cur, up = bytearray(line.tobytes()), prior.tobytes()
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b, c = up[i], (up[i - bpp] if i >= bpp else 0)
+        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        cur[i] = (cur[i] + pred) & 255
+    return np.frombuffer(cur, np.uint8)
+
+
+def _decode_png(data):
+    """An 8-bit gray, RGB or RGBA non-interlaced PNG -> RGB uint8 ``[H,
+    W, 3]`` (gray replicated, alpha dropped, as ``cv2.imread`` gives
+    after its BGR -> RGB swap); None for any other PNG variant."""
+    chunks = list(_png_chunks(data))
+    if not chunks or chunks[0][0] != b'IHDR':
+        raise OSError('PNG without an IHDR chunk')
+    width, height, depth, color, _, _, interlace = struct.unpack(
+        '>IIBBBBB', chunks[0][1][:13])
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        return None
+    bpp = _PNG_CHANNELS[color]
+    stride = width * bpp
+    try:
+        raw = zlib.decompress(b''.join(b for k, b in chunks if k == b'IDAT'))
+    except zlib.error as e:
+        raise OSError('corrupt PNG data: {}'.format(e)) from e
+    if len(raw) < height * (stride + 1):
+        raise OSError('truncated PNG data')
+    rows = np.frombuffer(raw, np.uint8, count=height * (stride + 1)) \
+        .reshape(height, stride + 1)
+    out = np.empty((height, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(height):
+        kind, line = rows[y, 0], rows[y, 1:]
+        if kind == 0:
+            out[y] = line
+        elif kind == 1:                # Sub: a running sum per channel
+            out[y] = np.cumsum(line.reshape(width, bpp), axis=0,
+                               dtype=np.uint8).reshape(-1)
+        elif kind == 2:                # Up
+            out[y] = line + prior
+        elif kind == 3:
+            out[y] = _unfilter_average(line, prior, bpp)
+        elif kind == 4:
+            out[y] = _unfilter_paeth(line, prior, bpp)
+        else:
+            raise OSError('PNG row filter {} does not exist'.format(kind))
+        prior = out[y]
+    img = out.reshape(height, width, bpp)
+    return np.repeat(img, 3, axis=2) if bpp == 1 \
+        else np.ascontiguousarray(img[..., :3])
+
+
+def _format_name(data, path):
+    if data.startswith(_PNG_SIGNATURE):
+        _, _, depth, color, _, _, interlace = struct.unpack(
+            '>IIBBBBB', data[16:29])
+        return 'PNG (bit depth {}, color type {}{})'.format(
+            depth, color, ', interlaced' if interlace else '')
+    if data.startswith(b'\xff\xd8'):
+        return 'JPEG'
+    return 'the {} file'.format(osp.splitext(path)[1] or 'extensionless')
+
+
+def _decode_image(path, data):
+    if data.startswith(_PNG_SIGNATURE):
+        img = _decode_png(data)
+        if img is not None:
+            return img
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError('reading image files needs PIL (Pillow), which '
-                          'is not installed: {}'.format(e)) from e
+        raise ImportError(
+            'decoding {} ({}) needs PIL (Pillow), which is not installed; '
+            'only 8-bit gray, RGB and RGBA non-interlaced PNGs decode '
+            'without it'.format(_format_name(data, path), path)) from e
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert('RGB'))
+
+
+def read_image(path):
+    """Image file -> RGB uint8 ``[H, W, 3]``, with two retries on a
+    failed read. 8-bit gray, RGB and RGBA non-interlaced PNGs are decoded
+    here with the standard library (``zlib``): PNG is lossless, so these
+    are the pixels ``cv2.imread`` gives. Every other file goes through
+    PIL, imported here, and raises naming its format where PIL is
+    absent."""
     err = None
     for _ in range(3):
         try:
-            with Image.open(path) as im:
-                return np.asarray(im.convert('RGB'))
+            with open(path, 'rb') as f:
+                data = f.read()
+            return _decode_image(path, data)
         except OSError as e:
             err = e
     raise IOError('Failed to read image: {} ({})'.format(path, err))

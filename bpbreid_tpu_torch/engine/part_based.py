@@ -10,12 +10,15 @@ forward (``_train_step_impl`` :196, ``_loss_fn`` :173).
 streams concatenated to ``[N, P+2, D]`` + visibility + pixel-accuracy
 counts (``_eval_step_impl`` :284). ``evaluate`` (``_evaluate`` :609):
 features of the query and gallery loaders, L2-normalize, then either
-the visibility-masked part distance and CMC/mAP on the host, or, once
-``Nq * Ng`` exceeds ``device_ranking_threshold``, the query-chunked
-device pipeline (``_chunked_device_eval`` :818): per chunk the part
-distances, the sort-free counting ranker (``ops/ranking.py``) and the
-pair-distance moments of an exact SSMD, all on the device. With
-``detailed_ranking`` on, each part's mAP and rank-1 are reported too.
+the visibility-masked part distance on the device, optional
+k-reciprocal re-ranking and CMC/mAP on the host, or, once
+``Nq * Ng`` exceeds ``device_ranking_threshold`` (and without
+re-ranking), the query-chunked device pipeline
+(``_chunked_device_eval`` :818): per chunk the part distances, the
+sort-free counting ranker (``ops/ranking.py``) and the pair-distance
+moments of an exact SSMD, all on the device. With ``detailed_ranking``
+on, each part's mAP and rank-1 are reported too; with a writer, the
+query-gallery distance statistics (``utils/writer.py``).
 
 A loader is any iterable of batch dicts holding numpy arrays: ``image``
 ``[B, H, W, 3]`` uint8, optional ``mask`` ``[B, h, w, C]`` float
@@ -29,6 +32,9 @@ manager, ``run`` trains and tests it (``_evaluate`` :609 over the data
 manager's loaders) and ``save_model`` (:149) writes the port's
 checkpoints (``utils/checkpoint.py``).
 """
+import os
+import os.path as osp
+
 import numpy as np
 import torch
 
@@ -49,6 +55,7 @@ from bpbreid_tpu_torch.ops.resize import resize_bilinear_align_corners
 from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
 from bpbreid_tpu_torch.utils.distribution import (
     compute_ssmd, plot_pairs_distance_distribution)
+from bpbreid_tpu_torch.utils.rerank import re_ranking
 
 __all__ = ['ImagePartBasedEngine', 'normalize', 'refuse_unported_test_options']
 
@@ -59,17 +66,16 @@ def normalize(features, dim=-1):
     return f / f.norm(dim=dim, keepdim=True).clamp(min=1e-12)
 
 
-def refuse_unported_test_options(visrank=False, rerank=False,
-                                 save_features=False,
+def refuse_unported_test_options(visrank=False,
                                  vis_embedding_projection=False):
-    """Raise for the test options the port does not have yet."""
-    for flag, name, item in (
-            (visrank, 'test.visrank', 4), (rerank, 'test.rerank', 4),
-            (save_features, 'test.save_features', 4),
-            (vis_embedding_projection, 'test.vis_embedding_projection', 11)):
+    """Raise for the test options the port does not have yet: both draw
+    figures (OpenCV, matplotlib)."""
+    for flag, name in ((visrank, 'test.visrank'),
+                       (vis_embedding_projection,
+                        'test.vis_embedding_projection')):
         if flag:
             raise NotImplementedError('{} is not ported yet (ROADMAP Queue 1 '
-                                      'item {})'.format(name, item))
+                                      'item 11)'.format(name))
 
 
 class ImagePartBasedEngine(Engine):
@@ -348,16 +354,26 @@ class ImagePartBasedEngine(Engine):
 
     def evaluate(self, query_loader, gallery_loader, normalize_feature=True,
                  dist_metric='euclidean', max_rank=50, eval_metric='default',
-                 use_metric_cuhk03=False):
+                 use_metric_cuhk03=False, rerank=False, features_dir=None):
         """Query-gallery retrieval.
+
+        With ``rerank``, k-reciprocal re-ranking (``utils/rerank.py``, on
+        the host) of the distance matrix, from the query-query and
+        gallery-gallery distances computed on the device, before CMC, mAP
+        and SSMD; the chunked path is then never taken. With
+        ``features_dir``, ``features.npz`` is written there (``qf, gf,
+        q_vis, g_vis, q_pids, g_pids, q_camids, g_camids``, the features
+        as ranked). With a writer, its query-gallery distance statistics
+        (before re-ranking, as in JAX).
 
         Returns ``{'cmc', 'mAP', 'ssmd', 'pixel_accuracy', 'distmat',
         'parts_ranking'}`` (numpy / floats). ``distmat`` is the whole
-        distance matrix on the host path; on the chunked path the first
-        query chunk over a subsample of the gallery columns, which CMC,
-        mAP, SSMD and the per-part table do not use there: they are
-        exact over the whole run. ``parts_ranking`` holds ``(name, mAP %,
-        rank-1 %)`` per stream with ``detailed_ranking``, else None.
+        distance matrix on the host path (re-ranked with ``rerank``); on
+        the chunked path the first query chunk over a subsample of the
+        gallery columns, which CMC, mAP, SSMD and the per-part table do
+        not use there: they are exact over the whole run.
+        ``parts_ranking`` holds ``(name, mAP %, rank-1 %)`` per stream
+        with ``detailed_ranking``, else None.
         """
         qf, q_vis, q_pids, q_camids, q_acc = \
             self.feature_extraction(query_loader)
@@ -376,7 +392,7 @@ class ImagePartBasedEngine(Engine):
             eval_metric = 'cuhk03'
 
         big_gallery = (n_q * n_g > self.device_ranking_threshold
-                       and eval_metric == 'default')
+                       and eval_metric == 'default' and not rerank)
         part_rows = None
         if big_gallery:
             (cmc, mAP, distmat, body_parts_distmat, n_q_host, g_pids_host,
@@ -386,16 +402,29 @@ class ImagePartBasedEngine(Engine):
                                           dist_metric, max_rank=max_rank)
             q_pids_host = q_pids[:n_q_host]
             q_camids_host = q_camids[:n_q_host]
+            q_vis_host = q_vis[:n_q_host]
         else:
             distmat, body_parts_distmat = \
                 compute_distance_matrix_using_bp_features(
                     qf, gf, q_vis_arr, g_vis_arr, self.dist_combine_strat,
                     self.batch_size_pairwise_dist_matrix, metric=dist_metric)
+            g_pids_host, g_camids_host = g_pids, g_camids
+            q_pids_host, q_camids_host, q_vis_host = q_pids, q_camids, q_vis
+        if self.writer is not None:
+            self.writer.qg_pairwise_dist_statistics(
+                distmat, body_parts_distmat, q_vis_host, g_vis,
+                subsample=big_gallery)
+        if not big_gallery:
             distmat = distmat.cpu().numpy()
             body_parts_distmat = body_parts_distmat.cpu().numpy() \
                 if self.detailed_ranking else None
-            g_pids_host, g_camids_host = g_pids, g_camids
-            q_pids_host, q_camids_host = q_pids, q_camids
+            if rerank:
+                d_qq, d_gg = (compute_distance_matrix_using_bp_features(
+                    f, f, v, v, self.dist_combine_strat,
+                    self.batch_size_pairwise_dist_matrix,
+                    metric=dist_metric)[0].cpu().numpy()
+                    for f, v in ((qf, q_vis_arr), (gf, g_vis_arr)))
+                distmat = re_ranking(distmat, d_qq, d_gg)
             metrics = evaluate_rank(distmat, q_pids, g_pids, q_camids,
                                     g_camids, max_rank=max_rank,
                                     eval_metric=eval_metric)
@@ -413,6 +442,14 @@ class ImagePartBasedEngine(Engine):
         else:
             ssmd = plot_pairs_distance_distribution(distmat, q_pids_host,
                                                     g_pids_host)[-1]
+        if features_dir:
+            os.makedirs(features_dir, exist_ok=True)
+            np.savez(osp.join(features_dir, 'features.npz'),
+                     qf=qf.float().cpu().numpy(), gf=gf.float().cpu().numpy(),
+                     q_vis=q_vis.cpu().numpy(), g_vis=g_vis.cpu().numpy(),
+                     q_pids=q_pids, g_pids=g_pids,
+                     q_camids=q_camids, g_camids=g_camids)
+            print('Saved features to {}'.format(features_dir))
         return {'cmc': cmc, 'mAP': mAP, 'ssmd': ssmd,
                 'pixel_accuracy': pxl_acc, 'distmat': distmat,
                 'parts_ranking': parts_ranking}
@@ -424,17 +461,21 @@ class ImagePartBasedEngine(Engine):
                   use_metric_cuhk03=False, ranks=(1, 5, 10, 20), rerank=False,
                   save_features=False, **kwargs):
         """``evaluate`` on one target's loaders, printed and reported as
-        the JAX engine does; returns ``(cmc, mAP, ssmd,
-        pixel_accuracy)``."""
-        refuse_unported_test_options(visrank, rerank, save_features)
+        the JAX engine does; with ``save_features`` (and a ``save_dir``)
+        the features go to ``<save_dir>/features_<dataset_name>/``.
+        Returns ``(cmc, mAP, ssmd, pixel_accuracy)``."""
+        refuse_unported_test_options(visrank)
         entry = (getattr(self.datamanager, 'test_dataset', None)
                  or {}).get(dataset_name)
         eval_metric = getattr(entry['query'], 'eval_metric', 'default') \
             if entry else 'default'
+        features_dir = osp.join(save_dir, 'features_{}'.format(
+            dataset_name)) if save_features and save_dir else None
         res = self.evaluate(query_loader, gallery_loader,
                             normalize_feature=normalize_feature,
                             dist_metric=dist_metric, eval_metric=eval_metric,
-                            use_metric_cuhk03=use_metric_cuhk03)
+                            use_metric_cuhk03=use_metric_cuhk03,
+                            rerank=rerank, features_dir=features_dir)
         cmc, mAP, ssmd = res['cmc'], res['mAP'], res['ssmd']
         if res['pixel_accuracy']:
             print('Pixel prediction accuracy: {:.2%}'.format(

@@ -4,16 +4,23 @@
 
 Config (YAML merge, then ``key value`` overrides, then the parts count
 from the mask grouping) -> data manager -> model -> optimizer and
-schedule -> ``ImagePartBasedEngine`` -> ``engine.run``. The device is
-the config's own ``use_gpu``: True (the default) runs on ``cuda`` and
-raises where CUDA is missing; ``use_gpu False`` runs on the CPU.
+schedule -> ``ImagePartBasedEngine`` -> ``engine.run``, then, with
+``--inference-enabled``, the features of ``inference.input_folder``
+(``tools.extract_reid_features``). The device is the config's own
+``use_gpu``: True (the default) runs on ``cuda`` and raises where CUDA
+is missing; ``use_gpu False`` runs on the CPU.
 
-``model.load_weights`` takes the port's checkpoints
-(``utils/checkpoint.py``); ``model.resume`` also restores the optimizer
-and the epoch. Not ported, and raising with their ROADMAP Queue 1 item:
-torchreid ``.pth`` weights and the HRNet ImageNet file (5), inference on
-external data (5), data parallelism over several cards (8), the softmax
-and triplet engines and video data (9), and the test options of item 4.
+``model.load_weights`` takes the port's checkpoints (``.pt``,
+``utils/checkpoint.py``) and torchreid ``.pth`` files
+(``utils/torch_weights.py``: a partial, shape-checked load);
+``model.resume`` also restores the optimizer and the epoch. With
+``model.pretrained`` an HRNet-W32 backbone starts from
+``<model.bpbreid.hrnet_pretrained_path>/hrnetv2_w32_imagenet_pretrained.pth``
+when that file exists. Not ported, and raising with their ROADMAP Queue
+1 item: int8 eval (7), data parallelism over several cards (8), the
+softmax and triplet engines and video data (9), and the figures of
+``test.visrank``, ``test.vis_embedding_projection`` and
+``train.batch_debug_freq`` (11).
 """
 import argparse
 import json
@@ -35,10 +42,14 @@ from bpbreid_tpu_torch.engine.part_based import (ImagePartBasedEngine,
 from bpbreid_tpu_torch.models import build_model
 from bpbreid_tpu_torch.ops.masks import compute_parts_num_and_names
 from bpbreid_tpu_torch.optim import build_lr_scheduler, build_optimizer
+from bpbreid_tpu_torch.tools.extract_part_based_features import \
+    extract_reid_features
 from bpbreid_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                 resume_from_checkpoint)
 from bpbreid_tpu_torch.utils.engine_state import EngineState
 from bpbreid_tpu_torch.utils.logging import Logger
+from bpbreid_tpu_torch.utils.torch_weights import (load_torch_state_dict,
+                                                   load_torchreid_state_dict)
 from bpbreid_tpu_torch.utils.writer import Writer
 
 __all__ = ['build_config', 'build_model_engine', 'main']
@@ -64,9 +75,6 @@ def refuse_unported(cfg):
         raise NotImplementedError(
             'train.n_devices {}: data parallelism is not ported yet (ROADMAP '
             'Queue 1 item 8)'.format(cfg.train.n_devices))
-    if cfg.inference.enabled:
-        raise NotImplementedError('inference on external data is not ported '
-                                  'yet (ROADMAP Queue 1 item 5)')
     if cfg.test.int8:
         raise NotImplementedError('int8 eval is not ported yet (ROADMAP '
                                   'Queue 1 item 7)')
@@ -74,16 +82,16 @@ def refuse_unported(cfg):
         raise NotImplementedError('train.batch_debug_freq: the debug figures '
                                   'are not ported yet (ROADMAP Queue 1 item '
                                   '11)')
-    refuse_unported_test_options(cfg.test.visrank, cfg.test.rerank,
-                                 cfg.test.save_features,
+    refuse_unported_test_options(cfg.test.visrank,
                                  cfg.test.vis_embedding_projection)
 
 
 def build_config(args=None, config_file=None, config=None, makedirs=True):
     """Default config <- ``config`` <- ``config_file`` <- the CLI
-    arguments; then the parts count, the model config stored beside
-    ``model.load_weights`` (with ``model.load_config``), and the save dir
-    ``<data.save_dir>/<job_id>``."""
+    arguments; then the parts count, the model config of
+    ``model.load_weights`` (with ``model.load_config``: a torchreid
+    file's ``config`` entry, else the ``.meta.json`` beside the file),
+    and the save dir ``<data.save_dir>/<job_id>``."""
     cfg = get_default_config()
     default_cfg_copy = cfg.clone()
     if config is not None:
@@ -114,16 +122,22 @@ def build_config(args=None, config_file=None, config=None, makedirs=True):
     compute_parts_num_and_names(
         cfg, ds_cls.get_masks_config(cfg.model.bpbreid.masks.dir))
 
-    if cfg.model.load_weights and cfg.model.load_config:
+    if cfg.model.load_weights and osp.isfile(cfg.model.load_weights) \
+            and cfg.model.load_config:
         ckpt_cfg = None
+        if is_torchreid_file(cfg.model.load_weights):
+            ckpt_cfg = load_torch_state_dict(cfg.model.load_weights)[1].get(
+                'config')
         meta_path = cfg.model.load_weights + '.meta.json'
-        if osp.exists(meta_path):
+        if not ckpt_cfg and osp.exists(meta_path):
             with open(meta_path) as f:
                 ckpt_cfg = json.load(f).get('config')
         if ckpt_cfg:
             print('Overwriting current config with config loaded from {}'
                   .format(cfg.model.load_weights))
-            sub = dict(ckpt_cfg['model']['bpbreid'])
+            sub = ckpt_cfg['model']['bpbreid'] if 'model' in ckpt_cfg \
+                else ckpt_cfg
+            sub = dict(sub)
             sub.pop('hrnet_pretrained_path', None)
             if isinstance(sub.get('masks'), dict):
                 sub['masks'] = {k: v for k, v in sub['masks'].items()
@@ -141,25 +155,49 @@ def build_config(args=None, config_file=None, config=None, makedirs=True):
     return cfg
 
 
+def is_torchreid_file(path):
+    """Port checkpoints end in ``.pt`` (``utils/checkpoint.py``) and JAX
+    ones in ``.ckpt``; any other file is read as a torchreid state dict."""
+    return not path.endswith(('.pt', '.ckpt'))
+
+
 def load_pretrained_weights(engine, path):
-    """The model's and the optimizer's state from a port checkpoint; a
-    torchreid ``.pth`` raises (``utils.checkpoint.load_checkpoint``)."""
-    payload, _meta = load_checkpoint(path)
-    engine.model.load_state_dict(payload['model'])
-    if engine.optimizer is not None and payload['optimizer'] is not None:
-        engine.optimizer.load_state_dict(payload['optimizer'])
-    print('Loaded checkpoint from {}'.format(path))
+    """A port checkpoint: the model's and the optimizer's state (a JAX
+    ``.ckpt`` raises). Any other file: a partial, shape-checked load of
+    its torchreid state dict into the model; returns ``(matched,
+    discarded)`` (``utils.torch_weights.load_torchreid_state_dict``)."""
+    if not is_torchreid_file(path):
+        payload, _meta = load_checkpoint(path)
+        engine.model.load_state_dict(payload['model'])
+        if engine.optimizer is not None and payload['optimizer'] is not None:
+            engine.optimizer.load_state_dict(payload['optimizer'])
+        print('Loaded checkpoint from {}'.format(path))
+        return None
+    sd, _extra = load_torch_state_dict(path)
+    matched, discarded = load_torchreid_state_dict(engine.model, sd)
+    print('Loaded pretrained weights from {}: {} tensors matched, {} left '
+          'at init'.format(path, len(matched), len(discarded)))
+    return matched, discarded
 
 
-def maybe_load_hrnet_imagenet(cfg):
+def maybe_load_hrnet_imagenet(engine, cfg):
+    """The torchreid HRNet-W32 ImageNet file into the model's backbone
+    (``backbone_appearance_feature_extractor.``), when the file exists;
+    its ImageNet-only heads have no place in the model and stay out.
+    Returns ``(matched, discarded)``, or None without the file."""
     path = osp.join(cfg.model.bpbreid.hrnet_pretrained_path,
                     'hrnetv2_w32_imagenet_pretrained.pth')
-    if osp.isfile(path):
-        raise NotImplementedError(
-            'loading the torchreid HRNet ImageNet weights ({}) is not ported '
-            'yet (ROADMAP Queue 1 item 5)'.format(path))
-    print('HRNet ImageNet weights not found at {}; training from random '
-          'init'.format(path))
+    if not osp.isfile(path):
+        print('HRNet ImageNet weights not found at {}; training from random '
+              'init'.format(path))
+        return None
+    sd, _ = load_torch_state_dict(path)
+    prefixed = {'backbone_appearance_feature_extractor.' + k: v
+                for k, v in sd.items()}
+    matched, discarded = load_torchreid_state_dict(engine.model, prefixed)
+    print('Loaded ImageNet HRNet-W32 weights from {} ({} tensors)'.format(
+        path, len(matched)))
+    return matched, discarded
 
 
 def build_model_engine(cfg):
@@ -187,7 +225,7 @@ def build_model_engine(cfg):
     if cfg.model.load_weights and osp.isfile(cfg.model.load_weights):
         load_pretrained_weights(engine, cfg.model.load_weights)
     elif cfg.model.pretrained and cfg.model.bpbreid.backbone == 'hrnet32':
-        maybe_load_hrnet_imagenet(cfg)
+        maybe_load_hrnet_imagenet(engine, cfg)
     if cfg.model.resume and osp.isfile(cfg.model.resume):
         start_epoch, _meta = resume_from_checkpoint(cfg.model.resume, model,
                                                     optimizer)
@@ -220,6 +258,10 @@ def main(argv=None):
                         max_epoch=cfg.train.max_epoch,
                         eval_freq=cfg.train.eval_freq,
                         start_eval=cfg.test.start_eval)
+    if cfg.inference.enabled:
+        print('Starting inference on external data')
+        extract_reid_features(cfg, cfg.inference.input_folder,
+                              cfg.data.save_dir, engine=engine)
     return engine, result
 
 

@@ -43,9 +43,9 @@ def save_checkpoint(model, optimizer, meta, save_dir, job_id=0, epoch=0,
 
 def load_checkpoint(path):
     """``(payload, meta)`` of a checkpoint written by ``save_checkpoint``.
-    Raises ``NotImplementedError`` for any other ``torch.save`` file (a
-    torchreid ``.pth``: ROADMAP Queue 1 item 5) and ``ValueError`` for a
-    file ``torch.load`` cannot read (a JAX ``.ckpt``)."""
+    Raises ``ValueError`` for any other file: a torchreid ``.pth`` (read
+    those with ``utils.torch_weights.load_torch_state_dict``) or a file
+    ``torch.load`` cannot read (a JAX ``.ckpt``)."""
     if not osp.exists(path):
         raise FileNotFoundError('File is not found at "{}"'.format(path))
     try:
@@ -55,10 +55,9 @@ def load_checkpoint(path):
                          'JAX .ckpt does not load into the port'.format(
                              path, e)) from e
     if not (isinstance(payload, dict) and payload.get('format') == FORMAT):
-        raise NotImplementedError(
-            '{} is not a bpbreid_tpu_torch checkpoint: loading torchreid '
-            'state dicts is not ported yet (ROADMAP Queue 1 item 5)'.format(
-                path))
+        raise ValueError(
+            '{} is not a bpbreid_tpu_torch checkpoint; read a torchreid state '
+            'dict with utils.torch_weights.load_torch_state_dict'.format(path))
     meta = {}
     if osp.exists(path + '.meta.json'):
         with open(path + '.meta.json') as f:

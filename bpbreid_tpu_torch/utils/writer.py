@@ -1,13 +1,15 @@
 """Writer: the metrics hub that listens to the engine state (port of
 bpbreid_tpu/utils/writer.py).
 
-Phase timers and their table at the end of a run, the eval results, and
-the train scalars through the ``Logger``. The query-gallery distance
-statistics and their figures are not ported (ROADMAP Queue 1 item 4)
-and raise. ``ProfilerTrace`` wraps ``torch.profiler`` where the JAX
-package wraps ``jax.profiler``.
+Phase timers and their table at the end of a run, the eval results,
+the query-gallery distance statistics of each test, and the train
+scalars through the ``Logger``. ``ProfilerTrace`` wraps
+``torch.profiler`` where the JAX package wraps ``jax.profiler``.
 """
 import os
+
+import numpy as np
+import torch
 
 from bpbreid_tpu_torch.utils.avgmeter import TimeMeter
 from bpbreid_tpu_torch.utils.engine_state import EngineStateListener
@@ -26,13 +28,85 @@ class Writer(EngineStateListener):
         self.batch_timer = TimeMeter('batch')
         self.data_loading_timer = TimeMeter('data loading')
         self.eval_results = {}
+        self.qg_stats = {}
         if engine_state is not None:
             engine_state.add_listener(self)
 
-    def qg_pairwise_dist_statistics(self, *args, **kwargs):
-        raise NotImplementedError(
-            'query-gallery distance statistics are not ported yet (ROADMAP '
-            'Queue 1 item 4)')
+    def qg_pairwise_dist_statistics(self, pairwise_dist, bp_dist, q_vis,
+                                    g_vis, subsample=False):
+        """Query-gallery distance and visibility statistics of a test
+        (JAX writer.py:71; reference writer.py:172-186): the valid-pair
+        distance mean and std, the invalid-pair share (distance -1), the
+        share of queries with no comparable gallery sample, and per part
+        the pair availability, the distance mean and std over valid pairs
+        and the query and gallery visibility. Kept in ``self.qg_stats``
+        (floats and float64 arrays), logged as ``eval/<name>`` scalars
+        (``eval/<name>/part_<i>`` for the per-part values) and printed.
+
+        The reductions run in float64 on the device the tensors lie on;
+        ``[K, Nq, Ng]`` part distances are reduced one part at a time.
+        ``subsample`` labels the print when the matrices are a
+        big-gallery subsample. Unlike the JAX writer, errors are raised,
+        not swallowed, and no figure is drawn (the reference's barplots
+        need matplotlib: ROADMAP Queue 1 item 11).
+        """
+        f64 = torch.float64
+        d = torch.as_tensor(pairwise_dist)
+        valid = d != -1
+        n_valid = int(valid.sum())
+        mean = std = 0.0
+        if n_valid:
+            vals = d[valid].to(f64)
+            mean = float(vals.mean())
+            std = float(((vals - mean) ** 2).mean().sqrt())
+        stats = {
+            'qg_dist_mean': mean, 'qg_dist_std': std,
+            'qg_invalid_frac': float((~valid).to(f64).mean()),
+            'qg_uncomparable_queries_frac':
+                float((~valid.any(dim=1)).to(f64).mean())
+                if d.numel() else 0.0,
+            'q_vis_mean': float(torch.as_tensor(q_vis).to(f64).mean())
+                          if q_vis is not None else 1.0,
+            'g_vis_mean': float(torch.as_tensor(g_vis).to(f64).mean())
+                          if g_vis is not None else 1.0,
+        }
+        if bp_dist is not None:
+            bp = torch.as_tensor(bp_dist)
+            avail, mu, sd = [], [], []
+            for part in bp:                # [Nq, Ng], float64 one at a time
+                ok = part != -1
+                cnt = max(int(ok.sum()), 1)
+                x = torch.where(ok, part.to(f64), 0.0)
+                m = float(x.sum()) / cnt
+                var = float(torch.where(ok, (x - m) ** 2, 0.0).sum()) / cnt
+                avail.append(float(ok.to(f64).mean()))
+                mu.append(m)
+                sd.append(np.sqrt(var))
+            stats['part_pair_availability'] = np.asarray(avail, np.float64)
+            stats['part_dist_mean'] = np.asarray(mu, np.float64)
+            stats['part_dist_std'] = np.asarray(sd, np.float64)
+        for key, v in (('q_part_visibility', q_vis),
+                       ('g_part_visibility', g_vis)):
+            if v is not None:
+                stats[key] = torch.as_tensor(v).to(f64).mean(dim=0) \
+                    .cpu().numpy()
+        self.qg_stats = stats
+        if self.logger is not None:
+            for k, v in stats.items():
+                if np.ndim(v) == 0:
+                    self.logger.add_scalar('eval/{}'.format(k), v)
+                else:
+                    for i, vi in enumerate(np.asarray(v).ravel()):
+                        self.logger.add_scalar(
+                            'eval/{}/part_{}'.format(k, i), float(vi))
+        print('Query-gallery distance stats{}: mean {qg_dist_mean:.4f} '
+              'std {qg_dist_std:.4f} invalid {qg_invalid_frac:.2%} '
+              'uncomparable queries {qg_uncomparable_queries_frac:.2%}'
+              .format(' (gallery subsample)' if subsample else '', **stats))
+        if 'part_pair_availability' in stats:
+            print('Per-part pair availability: [{}]'.format(' '.join(
+                '{:.0%}'.format(a) for a in stats['part_pair_availability'])))
+        return stats
 
     def report_eval(self, dataset_name, cmc, mAP, ssmd):
         self.eval_results[dataset_name] = {

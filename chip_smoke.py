@@ -72,13 +72,35 @@ and Market-1501 + 500k distractors scale. Phases:
    (1e-6); (c) a test-only run through K2 (fused pooling, multires off)
    launches it once per eval batch and no train-mode BN kernel; (d) one
    epoch and the final test on a ResNet-50 backbone, finite losses and
-   the BN launches of its train-mode BNs.
+   the BN launches of its train-mode BNs;
+10. the inference path, with the Market-1501 test config
+   (``configs/bpbreid/bpbreid_market1501_test.yaml``: HRNet-W32,
+   384x128, five_v, bf16, batch 64) and the serving pooling (K2):
+   (a) a torchreid-format file of a seeded model with 751 classes
+   (``module.`` prefixes, ``num_batches_tracked``, a ``state_dict``
+   wrapper, plain ``epoch`` / ``rank1`` / ``config``) as
+   ``model.load_weights`` of a test-only CLI run on phase 9's set: every
+   tensor but the identity classifiers (16 classes here) equals the
+   file's, the discarded keys are those classifiers, and CMC and mAP
+   equal an in-process test of the source model (1e-6); an HRNet
+   ImageNet-format file (the backbone, a fake ``classifier.*`` head)
+   loads every backbone tensor at a training start with
+   ``model.pretrained``; (b) the ``FeatureExtractor`` on 3 batches of 64
+   arrays of mixed sizes (80x40 to 400x150): equal to ``eval_step`` on
+   the resized batch (1e-6), one ``bn_apply`` per eval-mode BN and one
+   K2 launch a batch, images/s by CUDA events; (c) ``--inference-enabled``
+   on 192 PNG crops written by the script's own encoder: the saved
+   arrays have their shapes and equal the extractor's outputs (1e-6);
+   (d) ``test.rerank`` and ``test.save_features``: CMC and mAP equal
+   ``re_ranking`` on the CPU copy of the distance matrices recomputed
+   from ``features.npz`` (1e-6), which holds the engine's features, and
+   the writer's statistics equal float64 CPU reductions (1e-5).
 
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
-throughput line, the CLI line (phase 9), the kernels line (launches: the
-BN kernels' in run 9a, K2's in run 9c, K1's in phase 3b) and the result
-line
+throughput line, the CLI line (phase 9), the inference line (phase 10),
+the kernels line (launches: the BN kernels' in run 9a and phase 10, K2's
+in run 9c and phase 10, K1's in phase 3b) and the result line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Needs one CUDA card.
 """
@@ -86,9 +108,11 @@ import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -1809,6 +1833,397 @@ def phase_cli(torch, results):
     return counts_a, counts_c
 
 
+# phase 10: the inference path. A torchreid file of a seeded full-width
+# model (751 classes, Market-1501's training identities) through the test
+# CLI, the HRNet ImageNet file through a training start, the
+# FeatureExtractor on crops of mixed sizes, --inference-enabled on a
+# folder of PNG crops, and the test options rerank and save_features; the
+# files go to CLI_SAVE_DIR and are deleted at the end
+INF_CONFIG = 'configs/bpbreid/bpbreid_market1501_test.yaml'
+INF_CLASSES = 751
+INF_BATCHES = 3                     # FeatureExtractor batches of 64
+INF_MIN_HW, INF_MAX_HW = (80, 40), (400, 150)
+INF_PNGS = 192
+INF_CHUNK = 50                      # extract_reid_features' chunk size
+BACKBONE = 'backbone_appearance_feature_extractor.'
+
+
+def write_png(path, img):
+    """A few-line PNG encoder: 8-bit RGB, row filter 0, zlib."""
+    h, w, _ = img.shape
+    raw = b''.join(b'\x00' + img[y].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body)))
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n'
+                + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+                + chunk(b'IDAT', zlib.compress(raw)) + chunk(b'IEND', b''))
+
+
+def mixed_crops(rng, n):
+    """``n`` seeded RGB uint8 crops from 80x40 to 400x150."""
+    hs = rng.integers(INF_MIN_HW[0], INF_MAX_HW[0] + 1, n)
+    ws = rng.integers(INF_MIN_HW[1], INF_MAX_HW[1] + 1, n)
+    return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in zip(hs, ws)]
+
+
+def inference_argv(job_id, *opts, flags=()):
+    """The test CLI's argv: the Market-1501 test config (HRNet-W32,
+    384x128, five_v, test embeddings bn_foreg + parts, batch 64) in bf16
+    with the serving pooling (K2), on the smoke dataset."""
+    return (['--config-file', INF_CONFIG, '--save_dir', CLI_SAVE_DIR,
+             '--job-id', str(job_id)] + list(flags)
+            + ['data.sources', "['{}']".format(CLI_DATASET),
+               'data.targets', "['{}']".format(CLI_DATASET),
+               'model.compute_dtype', 'bfloat16',
+               'model.bpbreid.use_pallas_pooling', 'True',
+               'model.bpbreid.multires_pooling', 'False'] + list(opts))
+
+
+class Recorder:
+    """Wraps ``module.name`` for a run: each call's return value and its
+    seconds (ending in a synchronize)."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.fn, self.values, self.seconds = getattr(module, name), [], []
+
+    def __enter__(self):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            value = self.fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            self.values.append(value)
+            return value
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+
+def _max_diff(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _qg_stats_f64(d, bp, q_vis, g_vis):
+    """The writer's statistics in numpy float64 on the CPU."""
+    d, bp = d.cpu().double().numpy(), bp.cpu().double().numpy()
+    valid = d != -1
+    out = {'qg_dist_mean': d[valid].mean(), 'qg_dist_std': d[valid].std(),
+           'qg_invalid_frac': (~valid).mean(),
+           'qg_uncomparable_queries_frac': (~valid.any(axis=1)).mean(),
+           'q_vis_mean': q_vis.double().mean().item(),
+           'g_vis_mean': g_vis.double().mean().item()}
+    ok = bp != -1
+    cnt = np.maximum(ok.sum(axis=(1, 2)), 1)
+    mu = np.where(ok, bp, 0).sum(axis=(1, 2)) / cnt
+    out['part_pair_availability'] = ok.mean(axis=(1, 2))
+    out['part_dist_mean'] = mu
+    out['part_dist_std'] = np.sqrt(np.where(
+        ok, (bp - mu[:, None, None]) ** 2, 0).sum(axis=(1, 2)) / cnt)
+    out['q_part_visibility'] = q_vis.double().mean(0).cpu().numpy()
+    out['g_part_visibility'] = g_vis.double().mean(0).cpu().numpy()
+    return out
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_inference(torch, results):
+    """Phase 10 (see the module docstring). Returns the launch counts of
+    its runs, summed."""
+    import shutil
+    import types
+    from bpbreid_tpu_torch.engine import part_based
+    from bpbreid_tpu_torch.engine.part_based import (ImagePartBasedEngine,
+                                                     normalize)
+    from bpbreid_tpu_torch.metrics.distance import \
+        compute_distance_matrix_using_bp_features
+    from bpbreid_tpu_torch.metrics.rank import evaluate_rank
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.scripts import main as cli
+    from bpbreid_tpu_torch.tools import FeatureExtractor
+    from bpbreid_tpu_torch.utils.rerank import re_ranking
+    t_phase = time.perf_counter()
+    register_cli_dataset()
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    os.makedirs(os.path.join(CLI_SAVE_DIR, 'imagenet'))
+    out, checks, total = {}, [], {}
+    n_bn = results['serving']['eval_bn_calls_per_step']
+    eval_counts = {'bn_apply': CLI_EVAL_BATCHES * n_bn,
+                   'attention_pool': CLI_EVAL_BATCHES}
+
+    # 10a: a torchreid file and an HRNet ImageNet file of a seeded model
+    src = build_model('bpbreid', INF_CLASSES, config=serving_config(),
+                      device='cuda', seed=SEED + 10)
+    src_sd = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+    sd = {'module.' + k: v for k, v in src_sd.items()}
+    for k in src_sd:
+        if k.endswith('.running_mean'):
+            sd['module.' + k[:-len('running_mean')] + 'num_batches_tracked'] \
+                = torch.tensor(0)
+    pth = os.path.join(CLI_SAVE_DIR, 'bpbreid_market1501_hrnet32_seeded.pth')
+    torch.save({'state_dict': sd, 'epoch': 120, 'rank1': 0.0,
+                'config': {'model': {'bpbreid': {
+                    'test_embeddings': ['bn_foreg', 'parts'],
+                    'dim_reduce_output': 512}}}}, pth)
+    del sd
+    with Recorder(torch, cli, 'load_pretrained_weights') as loads:
+        engine, (cmc, mAP, _, _), counts, rec, wall_a = drive_cli(
+            torch, '10a test from a torchreid file',
+            inference_argv(101, 'model.load_weights', pth))
+    _add_counts(total, counts)
+    matched, discarded = loads.values[0]
+    got_sd = engine.model.state_dict()
+    want_discarded = sorted(k for k, v in got_sd.items()
+                            if v.shape != src_sd[k].shape)
+    if sorted(discarded) != want_discarded or not discarded or not all(
+            'identity_classifier' in k and 'classifier.' in k
+            for k in discarded):
+        checks.append('10a: discarded {}'.format(discarded))
+    unequal = [k for k, v in got_sd.items() if k not in discarded
+               and not torch.equal(v.cpu(), src_sd[k].to(v.dtype))]
+    if unequal or rec.losses:
+        checks.append('10a: tensors unlike the file {}'.format(unequal[:5]))
+    if {k: v for k, v in counts.items() if v} != eval_counts:
+        checks.append('10a: launches {} != {}'.format(counts, eval_counts))
+    name, loaders = next(iter(engine.datamanager.test_loader.items()))
+    ref = ImagePartBasedEngine.from_config(
+        engine.config, src, datamanager=engine.datamanager, device='cuda')
+    ref_cmc, ref_map, _, _ = ref._evaluate(
+        0, dataset_name=name, query_loader=loaders['query'],
+        gallery_loader=loaders['gallery'],
+        normalize_feature=engine.config.test.normalize_feature,
+        dist_metric=engine.config.test.dist_metric)
+    d_cmc = float(np.abs(np.asarray(cmc) - np.asarray(ref_cmc)).max())
+    d_map = abs(float(mAP) - float(ref_map))
+    if not (d_cmc <= 1e-6 and d_map <= 1e-6):
+        checks.append('10a: CMC / mAP off the source model by {}, {}'.format(
+            d_cmc, d_map))
+    out['10a'] = {'matched': len(matched), 'discarded': discarded,
+                  'rank1': float(cmc[0]), 'mAP': float(mAP),
+                  'cmc_max_abs_diff': d_cmc, 'mAP_abs_diff': d_map,
+                  'launches': counts, 'wall_s': wall_a,
+                  'file_mb': os.path.getsize(pth) / 1e6}
+    del engine, ref, rec
+    torch.cuda.empty_cache()
+
+    # the HRNet ImageNet file through a training start (model.pretrained)
+    imagenet = {k[len(BACKBONE):]: v for k, v in src_sd.items()
+                if k.startswith(BACKBONE)}
+    gen = torch.Generator().manual_seed(SEED)
+    imagenet['classifier.weight'] = torch.randn(1000, 2048, generator=gen)
+    imagenet['classifier.bias'] = torch.zeros(1000)
+    inet_dir = os.path.join(CLI_SAVE_DIR, 'imagenet')
+    torch.save(imagenet, os.path.join(inet_dir,
+                                      'hrnetv2_w32_imagenet_pretrained.pth'))
+    with Recorder(torch, cli, 'maybe_load_hrnet_imagenet') as inet:
+        cfg_t = cli.build_config(types.SimpleNamespace(
+            save_dir=CLI_SAVE_DIR, job_id=102, opts=[
+                'data.sources', "['{}']".format(CLI_DATASET),
+                'data.targets', "['{}']".format(CLI_DATASET),
+                'test.visrank', 'False', 'model.pretrained', 'True',
+                'model.bpbreid.hrnet_pretrained_path', inet_dir]),
+            CLI_CONFIG)
+        engine, _ = cli.build_model_engine(cfg_t)
+    i_matched, _ = inet.values[0]
+    got_sd = engine.model.state_dict()
+    backbone_keys = sorted(k for k in got_sd if k.startswith(BACKBONE))
+    if sorted(i_matched) != backbone_keys or any(
+            not torch.equal(got_sd[k].cpu(), src_sd[k])
+            for k in backbone_keys):
+        checks.append('10a: ImageNet load matched {} of {} backbone tensors'
+                      .format(len(i_matched), len(backbone_keys)))
+    out['10a']['imagenet_matched'] = len(i_matched)
+    out['10a']['backbone_tensors'] = len(backbone_keys)
+    del engine, src, imagenet
+    torch.cuda.empty_cache()
+
+    # 10b: the FeatureExtractor, serving configuration, mixed-size arrays
+    cfg = serving_config()
+    fe = FeatureExtractor(cfg, model_path=pth, device='cuda',
+                          num_classes=INF_CLASSES)
+    fe_engine = ImagePartBasedEngine.from_config(cfg, fe.model, device='cuda')
+    rng = np.random.default_rng(SEED + 10)
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda *_: calls.append(1))
+             for m in fe.model.modules() if isinstance(m, FastBatchNorm)]
+    fe(mixed_crops(rng, BATCH))            # warm-up, outside the counts
+    torch.cuda.synchronize()
+    per_batch, errs, batch_ms = [], [], []
+    for _ in range(INF_BATCHES):
+        crops = mixed_crops(rng, BATCH)
+        calls.clear()
+        reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outputs = fe(crops)
+        end.record()
+        torch.cuda.synchronize()
+        batch_ms.append(start.elapsed_time(end))
+        counts = {k: v for k, v in launch_counts.items() if v}
+        _add_counts(total, counts)
+        per_batch.append(counts)
+        if counts != {'bn_apply': len(calls), 'attention_pool': 1} \
+                or len(calls) != n_bn:
+            checks.append('10b: launches {} for {} BN calls (phase 3: {})'
+                          .format(counts, len(calls), n_bn))
+        feats, vis = fe_engine.extract_test_embeddings(outputs)[:2]
+        prepared = torch.as_tensor(fe._prepare(crops), device='cuda')
+        want_f, want_v = fe_engine.eval_step(prepared)[:2]
+        errs.append(_max_diff(feats, want_f))
+        if not (errs[-1] <= 1e-6 and torch.equal(vis, want_v)
+                and tuple(feats.shape) == (BATCH, 6, 512)):
+            checks.append('10b: FeatureExtractor vs eval_step: {} {}'.format(
+                tuple(feats.shape), errs[-1]))
+    for h in hooks:
+        h.remove()
+    fwd_ms = time_ms(lambda: fe(prepared.cpu().numpy()), torch, warmup=1,
+                     iters=3, repeats=3)
+    out['10b'] = {
+        'batches': INF_BATCHES, 'launches_per_batch': per_batch,
+        'max_abs_err_vs_eval_step': max(errs),
+        'mixed_arrays_ms_per_batch': statistics.median(batch_ms),
+        'mixed_arrays_images_per_s': BATCH / statistics.median(batch_ms)
+        * 1e3,
+        'resized_batch_ms': fwd_ms,
+        'resized_batch_images_per_s': BATCH / fwd_ms * 1e3,
+        'phase3_forward_images_per_s':
+            results['serving']['forward_images_per_s']}
+    del fe_engine
+
+    # 10c: --inference-enabled on a folder of PNG crops
+    folder = os.path.join(CLI_SAVE_DIR, 'crops')
+    os.makedirs(folder)
+    paths = []
+    for i, img in enumerate(mixed_crops(rng, INF_PNGS)):
+        paths.append(os.path.join(folder, 'crop_{:03d}.png'.format(i)))
+        write_png(paths[-1], img)
+    with Recorder(torch, cli, 'extract_reid_features') as extract:
+        engine, _, counts, rec, wall_c = drive_cli(
+            torch, '10c --inference-enabled',
+            inference_argv(103, 'model.load_weights', pth,
+                           'inference.input_folder', folder,
+                           flags=['--inference-enabled']))
+    _add_counts(total, counts)
+    n_chunks = -(-INF_PNGS // INF_CHUNK)
+    want_c = {'bn_apply': (CLI_EVAL_BATCHES + n_chunks) * n_bn,
+              'attention_pool': CLI_EVAL_BATCHES + n_chunks}
+    if {k: v for k, v in counts.items() if v} != want_c:
+        checks.append('10c: launches {} != {}'.format(counts, want_c))
+    save = os.path.join(CLI_SAVE_DIR, '103')
+    files = {k: np.load(os.path.join(save, '{}_crops.npy'.format(k)))
+             for k in ('embeddings', 'visibility_scores', 'parts_masks')}
+    with open(os.path.join(save, 'image_list_crops.txt')) as f:
+        listed = f.read().split('\n')
+    want_f, want_v, want_m = [], [], []
+    for i in range(0, INF_PNGS, INF_CHUNK):
+        o = fe(paths[i:i + INF_CHUNK])
+        f_, v_ = engine.extract_test_embeddings(o)[:2]
+        want_f.append(f_.float().cpu())
+        want_v.append(v_.cpu())
+        want_m.append(o[5]['parts'].permute(0, 2, 3, 1).float().cpu())
+    want = {'embeddings': torch.cat(want_f),
+            'visibility_scores': torch.cat(want_v),
+            'parts_masks': torch.cat(want_m)}
+    c_errs = {k: _max_diff(torch.from_numpy(files[k]), want[k])
+              for k in files}
+    shapes = {k: list(v.shape) for k, v in files.items()}
+    if listed != paths or shapes['embeddings'] != [INF_PNGS, 6, 512] \
+            or shapes['visibility_scores'] != [INF_PNGS, 6] \
+            or shapes['parts_masks'][0] != INF_PNGS \
+            or not all(e <= 1e-6 for e in c_errs.values()):
+        checks.append('10c: files {} errors {}'.format(shapes, c_errs))
+    out['10c'] = {'images': INF_PNGS, 'shapes': shapes,
+                  'max_abs_err_vs_feature_extractor': c_errs,
+                  'extract_s': extract.seconds[0], 'launches': counts,
+                  'wall_s': wall_c}
+    del engine, rec, fe
+    torch.cuda.empty_cache()
+
+    # 10d: test.rerank and test.save_features on the synthetic target
+    with Recorder(torch, part_based, 're_ranking') as rr:
+        engine, (cmc, mAP, _, _), counts, rec, wall_d = drive_cli(
+            torch, '10d rerank + save_features',
+            inference_argv(104, 'model.load_weights', pth, 'test.rerank',
+                           'True', 'test.save_features', 'True'))
+    _add_counts(total, counts)
+    if {k: v for k, v in counts.items() if v} != eval_counts:
+        checks.append('10d: launches {} != {}'.format(counts, eval_counts))
+    npz = np.load(os.path.join(engine.config.data.save_dir,
+                               'features_{}'.format(CLI_DATASET),
+                               'features.npz'))
+    loaders = engine.datamanager.test_loader[CLI_DATASET]
+    feat = {}
+    for side in ('q', 'g'):
+        f_, v_, p_, c_, _ = engine.feature_extraction(
+            loaders['query' if side == 'q' else 'gallery'])
+        feat[side] = (normalize(f_), v_)
+        if not (_max_diff(torch.from_numpy(npz[side + 'f']), feat[side][0]
+                          .cpu()) <= 1e-6
+                and np.array_equal(npz[side + '_vis'], v_.cpu().numpy())
+                and np.array_equal(npz[side + '_pids'], p_)
+                and np.array_equal(npz[side + '_camids'], c_)):
+            checks.append('10d: features.npz differs from the engine\'s '
+                          '{} features'.format(side))
+    qf, gf = (torch.from_numpy(npz[k]).cuda() for k in ('qf', 'gf'))
+    qv, gv = (torch.from_numpy(npz[k]).cuda() for k in ('q_vis', 'g_vis'))
+    dist = {}
+    for key, a, b, va, vb in (('qg', qf, gf, qv, gv), ('qq', qf, qf, qv, qv),
+                              ('gg', gf, gf, gv, gv)):
+        dist[key] = compute_distance_matrix_using_bp_features(
+            a, b, va.bool(), vb.bool(), 'mean', 500)
+    t0 = time.perf_counter()
+    reranked = re_ranking(*(dist[k][0].cpu().numpy()
+                            for k in ('qg', 'qq', 'gg')))
+    cpu_rerank_s = time.perf_counter() - t0
+    ranked = evaluate_rank(reranked, npz['q_pids'], npz['g_pids'],
+                           npz['q_camids'], npz['g_camids'])
+    r_cmc = float(np.abs(np.asarray(cmc)[:len(ranked['cmc'])]
+                         - ranked['cmc']).max())
+    r_map = abs(float(mAP) - float(ranked['mAP']))
+    if not (r_cmc <= 1e-6 and r_map <= 1e-6):
+        checks.append('10d: rerank CMC / mAP off the CPU re_ranking by {}, '
+                      '{}'.format(r_cmc, r_map))
+    want = _qg_stats_f64(dist['qg'][0], dist['qg'][1], qv, gv)
+    got = engine.writer.qg_stats
+    s_err = max(float(np.abs(np.asarray(got[k]) - np.asarray(v)).max())
+                for k, v in want.items())
+    if sorted(got) != sorted(want) or not s_err <= 1e-5:
+        checks.append('10d: qg_stats off the f64 CPU reductions by {}'
+                      .format(s_err))
+    out['10d'] = {'rank1': float(cmc[0]), 'mAP': float(mAP),
+                  'cmc_err_vs_cpu_rerank': r_cmc,
+                  'mAP_err_vs_cpu_rerank': r_map,
+                  'qg_stats_max_err': s_err,
+                  'engine_rerank_s': rr.seconds[0],
+                  'cpu_rerank_s': cpu_rerank_s,
+                  'queries': len(npz['q_pids']),
+                  'gallery': len(npz['g_pids']),
+                  'launches': counts, 'wall_s': wall_d}
+    del engine, rec, dist
+    torch.cuda.empty_cache()
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out['launches'] = total
+    out['phase_s'] = time.perf_counter() - t_phase
+    results['inference'] = out
+    if checks:
+        raise AssertionError('; '.join(checks))
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1818,6 +2233,7 @@ def main():
     # f32 convolutions and matmuls in full f32 on the card
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_script = time.perf_counter()
     gpu = gpu_name_and_power_limit()
     log('gpu:', gpu, '| torch', torch.__version__, 'cuda', torch.version.cuda)
     results = {'gpu': gpu, 'torch': torch.__version__}
@@ -1863,13 +2279,17 @@ def main():
     phase_large_gallery(torch, results)
     log('phase 9: the train/test CLI (scripts/main.py)')
     cli_launches, k2_cli_launches = phase_cli(torch, results)
+    log('phase 10: the inference path (torchreid weights, '
+        'FeatureExtractor, --inference-enabled, rerank, save_features)')
+    inference_launches = phase_inference(torch, results)
 
     main_row = k2_rows[0]       # main-path shape and dtypes
     kernels = [{
         'name': 'attention_pool', 'route': 'cuda',
         'source': 'bpbreid_tpu_torch/ops/cuda/attention_pool.cu',
         'replaces': 'bpbreid_tpu/ops/pallas/pooling.py:47',
-        'launches': k2_cli_launches.get('attention_pool', 0),
+        'launches': k2_cli_launches.get('attention_pool', 0)
+                    + inference_launches.get('attention_pool', 0),
         'max_abs_err': main_row['max_abs_err'],
         'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
@@ -1881,7 +2301,8 @@ def main():
         kernels.append({
             'name': name, 'route': 'cuda', 'source': K3_SOURCE,
             'replaces': K3_REPLACES[name],
-            'launches': cli_launches.get(name, 0),
+            'launches': cli_launches.get(name, 0)
+                        + inference_launches.get(name, 0),
             'max_abs_err': k3_row[name + '_max_abs_err'],
             'ms': k3_row[name + '_ms'], 'plain_ms': k3_row[name + '_plain_ms'],
             'bound_ms': k3_row[name + '_bound_ms'],
@@ -1896,6 +2317,7 @@ def main():
         'plain_ms': k1_row['plain_ms'], 'bound_ms': k1_row['bound_ms'],
         'bound_by': k1_row['bound_by'], 'library_ms': k1_row['library_ms']})
     results['kernels'] = kernels
+    results['script_s'] = time.perf_counter() - t_script
     unlaunched = [k['name'] for k in kernels if not k['launches']]
     if unlaunched:
         raise AssertionError('no launch on the path: {}'.format(unlaunched))
@@ -1903,6 +2325,8 @@ def main():
         json.dump(results, f, indent=1)
     s, t = results['serving'], results['train']
     log(gpu)
+    log('script: {:.1f} s, kernels built in {:.1f} s'.format(
+        results['script_s'], results['build_s']))
     log('throughput: {:.1f} images/s forward (batch {}, bf16), retrieval '
         '{:.3f} s for {} images; train step {:.1f} ms ({:.1f} images/s), '
         'on {}'.format(s['forward_images_per_s'], BATCH, s['retrieval_s'],
@@ -1922,6 +2346,24 @@ def main():
                    if k != 'phase_s'},
         'phase_s': results['cli']['phase_s'],
         'resnet50_step_ms_median': d['step_ms_median'], 'gpu': gpu}))
+    inf = results['inference']
+    log('inference', json.dumps({
+        'torchreid_file_matched': inf['10a']['matched'],
+        'torchreid_file_discarded': len(inf['10a']['discarded']),
+        'test_rank1': inf['10a']['rank1'], 'test_mAP': inf['10a']['mAP'],
+        'imagenet_matched': inf['10a']['imagenet_matched'],
+        'feature_extractor_images_per_s':
+            inf['10b']['mixed_arrays_images_per_s'],
+        'feature_extractor_resized_images_per_s':
+            inf['10b']['resized_batch_images_per_s'],
+        'phase3_forward_images_per_s':
+            inf['10b']['phase3_forward_images_per_s'],
+        'inference_enabled_extract_s': inf['10c']['extract_s'],
+        'inference_enabled_images': inf['10c']['images'],
+        'rerank_s': inf['10d']['engine_rerank_s'],
+        'rerank_rank1': inf['10d']['rank1'], 'rerank_mAP': inf['10d']['mAP'],
+        'launches': inf['launches'], 'phase_s': inf['phase_s'],
+        'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -96,7 +96,7 @@ def test_checkpoint_round_trip_and_resume(trained, tmp_path):
 def test_checkpoint_refuses_other_files(tmp_path):
     torchreid = tmp_path / 'model.pth'
     torch.save({'conv1.weight': torch.zeros(1)}, torchreid)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
+    with pytest.raises(ValueError, match='load_torch_state_dict'):
         load_checkpoint(str(torchreid))
     msgpack = tmp_path / 'job-1_0_model.ckpt'
     msgpack.write_bytes(b'\x82\xa6params\x80')
@@ -159,8 +159,8 @@ def test_main_raises_without_cuda_when_use_gpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize('opts, match', [
     (['loss.name', 'softmax'], 'Queue 1 item 9'),
     (['train.n_devices', '2'], 'Queue 1 item 8'),
-    (['test.visrank', 'True'], 'Queue 1 item 4'),
-    (['test.rerank', 'True'], 'Queue 1 item 4'),
+    (['test.visrank', 'True'], 'Queue 1 item 11'),
+    (['test.int8', 'True'], 'Queue 1 item 7'),
     (['data.sources', "['viper']"], 'Queue 1 item 9'),
 ])
 def test_main_refuses_unported_options(tmp_path, opts, match):
@@ -186,8 +186,11 @@ def test_meters_writer_and_profiler(tmp_path, capsys):
     assert [(s['name'], s['value']) for s in logger.scalars] == [
         ('Test/synthetic/rank1', 0.5), ('Test/synthetic/mAP', 0.25),
         ('Train/globl_id', 2.0), ('Train/lr', 1e-3)]
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        writer.qg_pairwise_dist_statistics(None, None, None, None)
+    stats = writer.qg_pairwise_dist_statistics(
+        torch.tensor([[0.5, -1.0], [1.5, 2.0]]), None, None, None)
+    assert stats['qg_dist_mean'] == pytest.approx(4.0 / 3)
+    assert stats['qg_invalid_frac'] == 0.25
+    assert logger.scalars[-6]['name'] == 'eval/qg_dist_mean'
     with ProfilerTrace(str(tmp_path / 'profile')):
         torch.ones(8).sum()
     assert (tmp_path / 'profile' / 'trace.json').stat().st_size > 0

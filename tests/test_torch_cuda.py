@@ -437,3 +437,84 @@ def test_cli_launches_the_bn_kernels(cuda, tmp_path):
     assert launch_counts['bn_apply'] == calls['train'] + calls['eval']
     assert launch_counts['bn_grad_stats'] == launch_counts['bn_dx']
     assert 0 < launch_counts['bn_grad_stats'] <= calls['train']
+
+
+def _serving_config(dtype='float32'):
+    """BPBReID on resnet18 at 64x32, five_v, the serving configuration
+    (fused pooling through K2, multires off)."""
+    from bpbreid_tpu_torch.config import get_default_config
+    cfg = get_default_config()
+    cfg.data.height, cfg.data.width = 64, 32
+    cfg.model.bpbreid.backbone = 'resnet18'
+    cfg.model.bpbreid.masks.preprocess = 'five_v'
+    cfg.model.bpbreid.masks.parts_num = 5
+    cfg.model.bpbreid.use_pallas_pooling = True
+    cfg.model.bpbreid.multires_pooling = False
+    cfg.model.compute_dtype = dtype
+    return cfg
+
+
+def test_feature_extractor_on_the_card_matches_the_cpu(cuda):
+    """The same seeded model on the card and on the CPU, f32 with TF32
+    off, on arrays of mixed sizes: embeddings to 1e-3, visibility equal;
+    on the card one bn_apply per eval-mode BN call (forward hooks) and
+    one K2 launch a batch, and no other kernel of the port."""
+    import numpy as np
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.tools import FeatureExtractor
+    cfg = _serving_config()
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((80, 40), (50, 30), (64, 32), (121, 45))]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = FeatureExtractor(cfg, device='cpu', num_classes=7)(images)
+        card = FeatureExtractor(cfg, device=cuda, num_classes=7)
+        calls = []
+        for m in card.model.modules():
+            if isinstance(m, FastBatchNorm):
+                m.register_forward_pre_hook(lambda mod, inp: calls.append(1))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = card(images)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts.items() if v}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    assert calls and counts == {'bn_apply': len(calls), 'attention_pool': 1}
+    for k, v in want[0].items():
+        assert (got[0][k].cpu() - v).abs().max().item() <= 1e-3, k
+    for k, v in want[1].items():
+        assert torch.equal(got[1][k].cpu(), v), k
+
+
+def test_torchreid_weights_load_into_a_cuda_model(cuda, tmp_path):
+    """A torchreid file (``module.`` prefixes, ``num_batches_tracked``,
+    a ``state_dict`` wrapper) read on the CPU and copied into a model on
+    the card, f32 and bf16: every tensor equal to the file's."""
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.utils.torch_weights import (
+        load_torch_state_dict, load_torchreid_state_dict)
+    cfg = _serving_config()
+    src = build_model('bpbreid', 9, config=cfg, device='cpu', seed=3)
+    sd = {'module.' + k: v for k, v in src.state_dict().items()}
+    sd.update({'module.' + k[:-len('running_mean')] + 'num_batches_tracked':
+               torch.tensor(5) for k in src.state_dict()
+               if k.endswith('running_mean')})
+    path = str(tmp_path / 'model.pth.tar')
+    torch.save({'state_dict': sd, 'epoch': 1}, path)
+    for dtype in ('float32', 'bfloat16'):
+        dst = build_model('bpbreid', 9, config=_serving_config(dtype),
+                          device=cuda, seed=4)
+        matched, discarded = load_torchreid_state_dict(
+            dst, load_torch_state_dict(path)[0])
+        assert not discarded and len(matched) == len(src.state_dict())
+        for k, v in dst.state_dict().items():
+            assert v.device.type == 'cuda', k
+            assert torch.equal(v.cpu(), src.state_dict()[k].to(v.dtype)), k

@@ -59,6 +59,10 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(names) > 15
+    assert {'bpbreid_tpu_torch.tools.feature_extractor',
+            'bpbreid_tpu_torch.tools.extract_part_based_features',
+            'bpbreid_tpu_torch.utils.torch_weights',
+            'bpbreid_tpu_torch.utils.rerank'} <= set(names)
 
 
 def test_port_imports_no_cv2_or_pil():
@@ -86,7 +90,8 @@ def test_port_imports_no_cv2_or_pil():
 def test_port_sources_name_no_jax():
     roots = [os.path.join(REPO, 'bpbreid_tpu_torch'),
              os.path.join(REPO, 'chip_smoke.py'),
-             os.path.join(REPO, 'k1_bench.py')]
+             os.path.join(REPO, 'k1_bench.py'),
+             os.path.join(REPO, 'rerank_bench.py')]
     files = roots[1:] + [os.path.join(d, f)
                           for d, _, fs in os.walk(roots[0]) for f in fs
                           if f.endswith('.py')]
@@ -115,6 +120,13 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 def test_k1_bench_fails_without_cuda():
     proc = subprocess.run([sys.executable, 'k1_bench.py'], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1 and proc.stdout == ''
+    assert 'CUDA is not available' in proc.stderr
+
+
+def test_rerank_bench_fails_without_cuda():
+    proc = subprocess.run([sys.executable, 'rerank_bench.py'], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 1 and proc.stdout == ''
     assert 'CUDA is not available' in proc.stderr
