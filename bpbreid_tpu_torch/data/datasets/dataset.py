@@ -28,7 +28,7 @@ import zlib
 import numpy as np
 
 __all__ = ['Dataset', 'ImageDataset', 'read_image', 'read_masks',
-           'resize_linear']
+           'resize_linear', 'write_png', 'read_png_text']
 
 _COEF_SCALE = np.float32(2048)        # OpenCV INTER_RESIZE_COEF_SCALE
 
@@ -316,6 +316,48 @@ def read_image(path):
         except OSError as e:
             err = e
     raise IOError('Failed to read image: {} ({})'.format(path, err))
+
+
+def _png_chunk(kind, body):
+    return (struct.pack('>I', len(body)) + kind + body
+            + struct.pack('>I', zlib.crc32(kind + body) & 0xffffffff))
+
+
+def write_png(path, img, text=None):
+    """Write an RGB uint8 ``[H, W, 3]`` image as an 8-bit RGB PNG (no
+    row filter, ``zlib`` level 6), with one ``tEXt`` chunk for each
+    ``(keyword, text)`` of ``text`` (Latin-1), before the image data.
+    ``read_image`` reads the pixels back, ``read_png_text`` the text."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError('write_png takes [H, W, 3] uint8, got {}'.format(
+            img.shape))
+    h, w = img.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          img.reshape(h, w * 3)], axis=1).tobytes()
+    chunks = [_png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0,
+                                              0))]
+    for key, value in (text or {}).items():
+        chunks.append(_png_chunk(b'tEXt', key.encode('latin-1') + b'\0'
+                                 + str(value).encode('latin-1')))
+    chunks += [_png_chunk(b'IDAT', zlib.compress(raw, 6)),
+               _png_chunk(b'IEND', b'')]
+    with open(path, 'wb') as f:
+        f.write(_PNG_SIGNATURE + b''.join(chunks))
+
+
+def read_png_text(path):
+    """The ``tEXt`` chunks of a PNG file as ``{keyword: text}``."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if not data.startswith(_PNG_SIGNATURE):
+        raise OSError('{} is not a PNG file'.format(path))
+    out = {}
+    for kind, body in _png_chunks(data):
+        if kind == b'tEXt':
+            key, _, value = body.partition(b'\0')
+            out[key.decode('latin-1')] = value.decode('latin-1')
+    return out
 
 
 def read_masks(path):

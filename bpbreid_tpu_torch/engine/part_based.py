@@ -18,7 +18,10 @@ re-ranking), the query-chunked device pipeline
 sort-free counting ranker (``ops/ranking.py``) and the pair-distance
 moments of an exact SSMD, all on the device. With ``detailed_ranking``
 on, each part's mAP and rank-1 are reported too; with a writer, the
-query-gallery distance statistics (``utils/writer.py``).
+query-gallery distance statistics (``utils/writer.py``); with
+``visrank``, the ranking grids (``utils/visualization/rankings.py``),
+whose attention maps come from ``eval_step`` run again on the selected
+samples (``_evaluate`` :747-789).
 
 A loader is any iterable of batch dicts holding numpy arrays: ``image``
 ``[B, H, W, 3]`` uint8, optional ``mask`` ``[B, h, w, C]`` float
@@ -50,12 +53,15 @@ from bpbreid_tpu_torch.losses.gilt import GiLtLoss
 from bpbreid_tpu_torch.metrics.distance import \
     compute_distance_matrix_using_bp_features
 from bpbreid_tpu_torch.metrics.rank import evaluate_rank
+from bpbreid_tpu_torch.models.bpbreid import set_dropout_generator
 from bpbreid_tpu_torch.ops.ranking import cmc_map, cmc_map_counting
 from bpbreid_tpu_torch.ops.resize import resize_bilinear_align_corners
 from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
 from bpbreid_tpu_torch.utils.distribution import (
     compute_ssmd, plot_pairs_distance_distribution)
 from bpbreid_tpu_torch.utils.rerank import re_ranking
+from bpbreid_tpu_torch.utils.visualization.rankings import \
+    visualize_ranking_grid
 
 __all__ = ['ImagePartBasedEngine', 'normalize', 'refuse_unported_test_options']
 
@@ -66,16 +72,12 @@ def normalize(features, dim=-1):
     return f / f.norm(dim=dim, keepdim=True).clamp(min=1e-12)
 
 
-def refuse_unported_test_options(visrank=False,
-                                 vis_embedding_projection=False):
-    """Raise for the test options the port does not have yet: both draw
-    figures (OpenCV, matplotlib)."""
-    for flag, name in ((visrank, 'test.visrank'),
-                       (vis_embedding_projection,
-                        'test.vis_embedding_projection')):
-        if flag:
-            raise NotImplementedError('{} is not ported yet (ROADMAP Queue 1 '
-                                      'item 11)'.format(name))
+def refuse_unported_test_options(vis_embedding_projection=False):
+    """Raise for the test option the port does not have yet: it draws
+    its figures with matplotlib."""
+    if vis_embedding_projection:
+        raise NotImplementedError('test.vis_embedding_projection is not '
+                                  'ported yet (ROADMAP Queue 1 item 11)')
 
 
 class ImagePartBasedEngine(Engine):
@@ -138,6 +140,8 @@ class ImagePartBasedEngine(Engine):
         self.open_layers = list(open_layers or [])
         self._freeze_base = False
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        # the after-pooling dropout draws its masks from this generator
+        set_dropout_generator(model, self.generator)
         self.test_embeddings = list(test_embeddings)
         self.mask_kwargs = mask_kwargs
         self.norm_mean = tuple(norm_mean)
@@ -354,7 +358,9 @@ class ImagePartBasedEngine(Engine):
 
     def evaluate(self, query_loader, gallery_loader, normalize_feature=True,
                  dist_metric='euclidean', max_rank=50, eval_metric='default',
-                 use_metric_cuhk03=False, rerank=False, features_dir=None):
+                 use_metric_cuhk03=False, rerank=False, features_dir=None,
+                 visrank=False, visrank_topk=10, visrank_q_idx_list=None,
+                 visrank_count=10, visrank_dir=None, dataset_name=''):
         """Query-gallery retrieval.
 
         With ``rerank``, k-reciprocal re-ranking (``utils/rerank.py``, on
@@ -364,7 +370,12 @@ class ImagePartBasedEngine(Engine):
         ``features_dir``, ``features.npz`` is written there (``qf, gf,
         q_vis, g_vis, q_pids, g_pids, q_camids, g_camids``, the features
         as ranked). With a writer, its query-gallery distance statistics
-        (before re-ranking, as in JAX).
+        (before re-ranking, as in JAX). With ``visrank``, a ranking grid
+        of ``visrank_topk`` gallery images for each of ``visrank_count``
+        queries (``visrank_q_idx_list`` first, then seeded picks) in
+        ``visrank_dir``; the loaders must be ``BatchLoader``s (their
+        datasets give the thumbnails and the samples ``eval_step`` runs
+        again). The chunked path draws none, as in JAX.
 
         Returns ``{'cmc', 'mAP', 'ssmd', 'pixel_accuracy', 'distmat',
         'parts_ranking'}`` (numpy / floats). ``distmat`` is the whole
@@ -373,7 +384,8 @@ class ImagePartBasedEngine(Engine):
         gallery columns, which CMC, mAP, SSMD and the per-part table do
         not use there: they are exact over the whole run.
         ``parts_ranking`` holds ``(name, mAP %, rank-1 %)`` per stream
-        with ``detailed_ranking``, else None.
+        with ``detailed_ranking``, else None; ``visrank_paths`` the
+        grids' files.
         """
         qf, q_vis, q_pids, q_camids, q_acc = \
             self.feature_extraction(query_loader)
@@ -417,7 +429,7 @@ class ImagePartBasedEngine(Engine):
         if not big_gallery:
             distmat = distmat.cpu().numpy()
             body_parts_distmat = body_parts_distmat.cpu().numpy() \
-                if self.detailed_ranking else None
+                if self.detailed_ranking or visrank else None
             if rerank:
                 d_qq, d_gg = (compute_distance_matrix_using_bp_features(
                     f, f, v, v, self.dist_combine_strat,
@@ -442,6 +454,15 @@ class ImagePartBasedEngine(Engine):
         else:
             ssmd = plot_pairs_distance_distribution(distmat, q_pids_host,
                                                     g_pids_host)[-1]
+        visrank_paths = []
+        if visrank and big_gallery:
+            print('visrank skipped: gallery too large for ranking grids')
+        elif visrank:
+            visrank_paths = self._visrank(
+                query_loader, gallery_loader, distmat, body_parts_distmat,
+                q_vis.cpu().numpy(), g_vis.cpu().numpy(), mAP,
+                float(cmc[0]), visrank_topk, visrank_q_idx_list,
+                visrank_count, visrank_dir, dataset_name)
         if features_dir:
             os.makedirs(features_dir, exist_ok=True)
             np.savez(osp.join(features_dir, 'features.npz'),
@@ -452,7 +473,49 @@ class ImagePartBasedEngine(Engine):
             print('Saved features to {}'.format(features_dir))
         return {'cmc': cmc, 'mAP': mAP, 'ssmd': ssmd,
                 'pixel_accuracy': pxl_acc, 'distmat': distmat,
-                'parts_ranking': parts_ranking}
+                'parts_ranking': parts_ranking,
+                'visrank_paths': visrank_paths}
+
+    def _visrank(self, query_loader, gallery_loader, distmat, bp_distmat,
+                 q_vis, g_vis, mAP, rank1, topk, q_idx_list, count, out_dir,
+                 dataset_name):
+        """The ranking grids of ``evaluate`` (JAX :755-789)."""
+        if not out_dir:
+            raise ValueError('visrank needs a visrank_dir')
+        for loader in (query_loader, gallery_loader):
+            if not hasattr(loader, 'dataset'):
+                raise ValueError('visrank needs BatchLoaders (their datasets '
+                                 'give the thumbnails)')
+        pad_to = max(int(topk), 1)
+
+        def masks_for(idxs, kind):
+            """``[M, Hf, Wf, P]`` attention maps of the selected samples:
+            ``eval_step`` again on a batch padded to ``visrank_topk`` (one
+            shape for every call), instead of holding the whole run's
+            maps."""
+            loader = query_loader if kind == 'query' else gallery_loader
+            padded = (list(idxs) + [idxs[0]] * pad_to)[:pad_to]
+            samples = [loader.dataset.get(loader.mode, i, loader.height,
+                                          loader.width,
+                                          mask_grid=loader.mask_grid)
+                       for i in padded]
+            imgs = torch.as_tensor(np.stack([s['image'] for s in samples]))
+            masks = torch.as_tensor(np.stack([s['mask'] for s in samples])) \
+                if 'mask' in samples[0] else None
+            emb_masks = self.eval_step(
+                imgs.to(self.device),
+                masks.to(self.device) if masks is not None else None)[2]
+            return emb_masks[:len(idxs)].permute(0, 2, 3, 1).float() \
+                .cpu().numpy()
+
+        paths = visualize_ranking_grid(
+            distmat, query_loader.dataset.data(query_loader.mode),
+            gallery_loader.dataset.data(gallery_loader.mode), out_dir,
+            topk=topk, q_idx_list=q_idx_list, count=count, mAP=mAP,
+            rank1=rank1, dataset_name=dataset_name, bp_distmat=bp_distmat,
+            q_vis=q_vis, g_vis=g_vis, masks_fn=masks_for)
+        print('Saved {} ranking grids to {}'.format(len(paths), out_dir))
+        return paths
 
     def _evaluate(self, epoch, dataset_name='', query_loader=None,
                   gallery_loader=None, dist_metric='euclidean',
@@ -463,8 +526,9 @@ class ImagePartBasedEngine(Engine):
         """``evaluate`` on one target's loaders, printed and reported as
         the JAX engine does; with ``save_features`` (and a ``save_dir``)
         the features go to ``<save_dir>/features_<dataset_name>/``.
-        Returns ``(cmc, mAP, ssmd, pixel_accuracy)``."""
-        refuse_unported_test_options(visrank)
+        With ``visrank`` the ranking grids go to
+        ``<save_dir>/visrank_<dataset_name>/``. Returns ``(cmc, mAP, ssmd,
+        pixel_accuracy)``."""
         entry = (getattr(self.datamanager, 'test_dataset', None)
                  or {}).get(dataset_name)
         eval_metric = getattr(entry['query'], 'eval_metric', 'default') \
@@ -475,7 +539,13 @@ class ImagePartBasedEngine(Engine):
                             normalize_feature=normalize_feature,
                             dist_metric=dist_metric, eval_metric=eval_metric,
                             use_metric_cuhk03=use_metric_cuhk03,
-                            rerank=rerank, features_dir=features_dir)
+                            rerank=rerank, features_dir=features_dir,
+                            visrank=visrank, visrank_topk=visrank_topk,
+                            visrank_q_idx_list=visrank_q_idx_list,
+                            visrank_count=visrank_count,
+                            visrank_dir=osp.join(save_dir, 'visrank_{}'.format(
+                                dataset_name)),
+                            dataset_name=dataset_name)
         cmc, mAP, ssmd = res['cmc'], res['mAP'], res['ssmd']
         if res['pixel_accuracy']:
             print('Pixel prediction accuracy: {:.2%}'.format(

@@ -28,6 +28,21 @@ Backbones: HRNet-W32 and the ResNet family (``models/resnet.py``). The
 multires path is HRNet's; a ResNet backbone returns one map, which a
 ``before_pooling`` dim-reduce (1x1 conv + BN + ReLU) shrinks when its
 width differs from ``dim_reduce_output``.
+
+PCB stripes (``horizontal_stripes``; the ``pcb`` and ``bot``
+constructors, and ``masks.type: 'stripes'`` configs): the attention is a
+zero background channel plus K horizontal stripes
+(``ops/masks.py pcb_stripe_masks``), broadcast over the batch. The model
+then has no pixel classifier, pools the materialized map (no multires,
+no fused K2 kernel) and returns ``pixels_cls_scores`` None, as the JAX
+model does.
+
+``dim_reduce='after_pooling_with_dropout'``: the after-pooling reduction
+ends in a dropout of rate 0.5 in train mode, whose keep-mask comes from
+the generator that ``set_dropout_generator`` gives it (the engine's),
+never from torch's global RNG. JAX draws its bits from ``jax.random``,
+which torch cannot reproduce, so the train-mode masks differ by design;
+eval mode is the identity in both.
 """
 import numpy as np
 import torch
@@ -42,13 +57,19 @@ from bpbreid_tpu_torch.models.common import (BN_EPS, BN_MOMENTUM, Dense,
 from bpbreid_tpu_torch.models.hrnet import hrnet32
 from bpbreid_tpu_torch.models.resnet import RESNETS
 from bpbreid_tpu_torch.ops.cuda.pooling import fused_attention_pool
+from bpbreid_tpu_torch.ops.masks import pcb_stripe_masks
 from bpbreid_tpu_torch.ops.pooling import parts_pooling
 from bpbreid_tpu_torch.ops.resize import (_linear_matrix_align_corners,
                                           linear_matrix_align_corners,
                                           resize_bilinear_align_corners)
 
 __all__ = ['BPBreID', 'BNClassifier', 'PixelToPartClassifier',
-           'AfterPoolingDimReduce', 'BeforePoolingDimReduce', 'bpbreid']
+           'AfterPoolingDimReduce', 'BeforePoolingDimReduce',
+           'GeneratorDropout', 'set_dropout_generator', 'bpbreid', 'pcb',
+           'bot']
+
+# the rate of the 'after_pooling_with_dropout' dim-reduce (JAX :327-333)
+DIM_REDUCE_DROPOUT = 0.5
 
 
 class BNClassifier(nn.Module):
@@ -161,18 +182,55 @@ class PixelToPartClassifier(nn.Module):
         return (logits + const[:, None, None]).to(self.dtype)
 
 
-class AfterPoolingDimReduce(nn.Module):
-    """Linear + BN1d + ReLU over the last axis (``[N, D]`` or
-    ``[N, K, D]``)."""
+class GeneratorDropout(nn.Module):
+    """Dropout (flax ``nn.Dropout``: kept entries divided by the keep
+    probability) whose keep-mask is drawn from ``generator``, on its
+    device; the identity in eval mode. In train mode without a
+    generator it raises rather than draw from torch's global RNG."""
 
-    def __init__(self, in_features, output_dim, dtype=torch.float32):
+    def __init__(self, rate):
         super().__init__()
-        self.layers = nn.ModuleList([
-            Dense(in_features, output_dim, bias=True, dtype=dtype),
-            FastBatchNorm(output_dim, channel_dim=-1, dtype=dtype)])
+        self.rate = rate
+        self.generator = None
 
     def forward(self, x):
-        return F.relu(self.layers[1](self.layers[0](x)))
+        if not self.training:
+            return x
+        if self.generator is None:
+            raise RuntimeError('GeneratorDropout in train mode needs a '
+                               'generator (set_dropout_generator)')
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(model, generator):
+    """Give every ``GeneratorDropout`` of ``model`` its generator."""
+    for m in model.modules():
+        if isinstance(m, GeneratorDropout):
+            m.generator = generator
+
+
+class AfterPoolingDimReduce(nn.Module):
+    """Linear + BN1d + ReLU over the last axis (``[N, D]`` or
+    ``[N, K, D]``), then, with ``dropout_rate``, a ``GeneratorDropout``
+    at index 3 of ``layers`` (the torch reference's place)."""
+
+    def __init__(self, in_features, output_dim, dropout_rate=None,
+                 dtype=torch.float32):
+        super().__init__()
+        layers = [Dense(in_features, output_dim, bias=True, dtype=dtype),
+                  FastBatchNorm(output_dim, channel_dim=-1, dtype=dtype),
+                  nn.ReLU()]
+        if dropout_rate:
+            layers.append(GeneratorDropout(dropout_rate))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
 
 
 class BeforePoolingDimReduce(nn.Module):
@@ -217,9 +275,8 @@ class BPBreID(nn.Module):
             raise NotImplementedError(
                 "pooling normalization '{}' is not supported (the reference "
                 "marks it obsolete; use 'identity')".format(normalization))
-        if horizontal_stripes:
-            raise NotImplementedError('stripe masks are not ported yet')
-        if dim_reduce not in ('none', 'after_pooling', 'before_pooling'):
+        if dim_reduce not in ('none', 'after_pooling', 'before_pooling',
+                              'after_pooling_with_dropout'):
             raise NotImplementedError(
                 "dim_reduce '{}' is not ported yet".format(dim_reduce))
         self.parts_num = parts_num
@@ -230,11 +287,13 @@ class BPBreID(nn.Module):
         self.training_binary_visibility_score = \
             training_binary_visibility_score
         self.testing_binary_visibility_score = testing_binary_visibility_score
+        self.horizontal_stripes = horizontal_stripes
         self.use_pallas_pooling = use_pallas_pooling
         self.dtype = dtype
         self.hrnet = backbone == 'hrnet32'
         self.multires = (self.hrnet and multires_pooling
                          and learnable_attention_enabled
+                         and not horizontal_stripes
                          and pooling in ('gwap', 'gap')
                          and dim_reduce != 'before_pooling')
 
@@ -257,14 +316,20 @@ class BPBreID(nn.Module):
             self.before_pooling_dim_reduce = BeforePoolingDimReduce(
                 spatial_dim, dim_reduce_output, dtype)
             spatial_dim = dim_reduce_output
-        self.use_after_reduce = dim_reduce == 'after_pooling'
+        self.use_after_reduce = dim_reduce in ('after_pooling',
+                                               'after_pooling_with_dropout')
+        dropout = DIM_REDUCE_DROPOUT \
+            if dim_reduce == 'after_pooling_with_dropout' else None
         out_dim = dim_reduce_output if dim_reduce != 'none' else spatial_dim
         if self.use_after_reduce:
             for stream in ('global', 'foreground', 'background', 'parts'):
                 setattr(self, '{}_after_pooling_dim_reduce'.format(stream),
-                        AfterPoolingDimReduce(spatial_dim, out_dim, dtype))
-        self.pixel_classifier = PixelToPartClassifier(spatial_dim, parts_num,
-                                                      dtype)
+                        AfterPoolingDimReduce(spatial_dim, out_dim, dropout,
+                                              dtype))
+        # stripes replace the attention: JAX creates no pixel classifier
+        if not horizontal_stripes:
+            self.pixel_classifier = PixelToPartClassifier(spatial_dim,
+                                                          parts_num, dtype)
         for name in ('global', 'background', 'foreground'):
             setattr(self, '{}_identity_classifier'.format(name),
                     BNClassifier(out_dim, num_classes, dtype))
@@ -298,7 +363,12 @@ class BPBreID(nn.Module):
 
         # attention: per-pixel part probabilities [N, K+1, Hf, Wf]
         pixels_cls_scores = None
-        if self.learnable_attention_enabled:
+        if self.horizontal_stripes:
+            dt, dev = spatial_features.dtype, spatial_features.device
+            probs = torch.cat([torch.zeros((1, hf, wf), dtype=dt, device=dev),
+                               pcb_stripe_masks(K, hf, wf, dt, dev)])
+            probs = probs[None].expand(n, K + 1, hf, wf)
+        elif self.learnable_attention_enabled:
             if multires:
                 pixels_cls_scores = self.pixel_classifier(
                     branches=branches, out_hw=(hf, wf))
@@ -461,8 +531,8 @@ class BPBreID(nn.Module):
         foreground_embeddings = parts_pooling(
             spatial_features, foreground_masks[:, None], 'gap')[:, 0]
         # the fused kernel is only valid when the masks really are
-        # softmax(pixel logits): learnable attention, no test-time
-        # mask refinement
+        # softmax(pixel logits): learnable attention (so no stripes, whose
+        # pixels_cls_scores is None), no test-time mask refinement
         fused = (self.use_pallas_pooling and self.pooling == 'gwap'
                  and pixels_cls_scores is not None
                  and (self.training
@@ -497,11 +567,11 @@ class BPBreID(nn.Module):
 
 def bpbreid(num_classes, loss='part_based', pretrained=True, config=None,
             **kwargs):
-    """Factory mirroring bpbreid_tpu.models.bpbreid.bpbreid."""
+    """Factory mirroring bpbreid_tpu.models.bpbreid.bpbreid; the
+    ``masks.type: 'stripes'`` configs (PCB) give the stripes model."""
     del loss, pretrained
     mc = config.model.bpbreid
-    if mc.masks.type == 'stripes':
-        raise NotImplementedError('stripe masks are not ported yet')
+    kwargs.setdefault('horizontal_stripes', mc.masks.type == 'stripes')
     dtype = torch.bfloat16 if getattr(config.model, 'compute_dtype',
                                       'float32') == 'bfloat16' \
         else torch.float32
@@ -523,3 +593,23 @@ def bpbreid(num_classes, loss='part_based', pretrained=True, config=None,
         multires_pooling=getattr(mc, 'multires_pooling', True),
         dtype=dtype,
         **kwargs)
+
+
+def pcb(num_classes, loss='part_based', pretrained=True, config=None,
+        **kwargs):
+    """PCB: stripes, learnable attention off (JAX :632). Sets
+    ``config.model.bpbreid.learnable_attention_enabled`` False, as the
+    JAX constructor does."""
+    config.model.bpbreid.learnable_attention_enabled = False
+    return bpbreid(num_classes, loss, pretrained, config,
+                   horizontal_stripes=True, **kwargs)
+
+
+def bot(num_classes, loss='part_based', pretrained=True, config=None,
+        **kwargs):
+    """BoT: one stripe, learnable attention off (JAX :640); sets both
+    in ``config.model.bpbreid``."""
+    config.model.bpbreid.masks.parts_num = 1
+    config.model.bpbreid.learnable_attention_enabled = False
+    return bpbreid(num_classes, loss, pretrained, config,
+                   horizontal_stripes=True, **kwargs)

@@ -25,8 +25,8 @@ import torch
 __all__ = [
     'PIFPAF_KEYPOINTS', 'PIFPAF_JOINTS', 'PIFPAF_PARTS', 'COCO_KEYPOINTS',
     'GROUPING_STRATEGIES', 'get_grouping', 'grouping_matrix', 'group_masks',
-    'add_background_mask', 'masks_preprocess_all',
-    'compute_parts_num_and_names',
+    'add_background_mask', 'pcb_stripe_masks', 'identity_masks',
+    'masks_preprocess_all', 'compute_parts_num_and_names',
 ]
 
 PIFPAF_KEYPOINTS = [
@@ -435,6 +435,25 @@ def add_background_mask(masks, strategy='sum', softmax_weight=0.0,
     if softmax_weight > 0:
         return torch.softmax(full * softmax_weight, dim=1)
     return full / full.sum(dim=1, keepdim=True)
+
+
+def pcb_stripe_masks(parts_num, height, width, dtype=torch.float32,
+                     device=None):
+    """K horizontal-stripe masks ``[K, H, W]``: stripe ``i`` covers the
+    rows ``[round(i H / K), round((i + 1) H / K))`` (numpy's
+    round-half-even, as the JAX version)."""
+    bounds = np.round(np.arange(parts_num + 1) * height / parts_num) \
+        .astype(int)
+    rows = np.zeros((parts_num, height), dtype=np.float32)
+    for i in range(parts_num):
+        rows[i, bounds[i]:bounds[i + 1]] = 1.0
+    return torch.as_tensor(rows, dtype=dtype, device=device)[:, :, None] \
+        .expand(parts_num, height, width)
+
+
+def identity_masks(height, width, dtype=torch.float32, device=None):
+    """One all-ones mask ``[1, H, W]`` (BoT emulation)."""
+    return torch.ones((1, height, width), dtype=dtype, device=device)
 
 
 class _FixedSpec:

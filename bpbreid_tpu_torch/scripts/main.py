@@ -19,8 +19,9 @@ is missing; ``use_gpu False`` runs on the CPU.
 when that file exists. Not ported, and raising with their ROADMAP Queue
 1 item: int8 eval (7), data parallelism over several cards (8), the
 softmax and triplet engines and video data (9), and the figures of
-``test.visrank``, ``test.vis_embedding_projection`` and
-``train.batch_debug_freq`` (11).
+``test.vis_embedding_projection`` and ``train.batch_debug_freq`` (11).
+``test.visrank`` draws its ranking grids without matplotlib
+(``utils/visualization/rankings.py``).
 """
 import argparse
 import json
@@ -82,8 +83,7 @@ def refuse_unported(cfg):
         raise NotImplementedError('train.batch_debug_freq: the debug figures '
                                   'are not ported yet (ROADMAP Queue 1 item '
                                   '11)')
-    refuse_unported_test_options(cfg.test.visrank,
-                                 cfg.test.vis_embedding_projection)
+    refuse_unported_test_options(cfg.test.vis_embedding_projection)
 
 
 def build_config(args=None, config_file=None, config=None, makedirs=True):

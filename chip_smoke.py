@@ -63,11 +63,16 @@ and Market-1501 + 500k distractors scale. Phases:
    images of 128x64, which the loader upsamples (3 steps an epoch, 192
    query and 384 gallery images); every launch count is set to 0 just
    before each run and read just after:
-   (a) two epochs and the final test with a checkpoint: every step
-   launches the BN kernels phase 6 counts (and as many as forward hooks
-   count train-mode BNs), the eval batches one bn_apply per eval-mode BN;
-   the first prefetched batch equals the loader's host batch bit for bit
-   and the first loss equals ``forward_backward`` on it (1e-5 relative);
+   (a) two epochs and the final test with a checkpoint, the config as
+   shipped (``test.visrank`` on): every step launches the BN kernels
+   phase 6 counts (and as many as forward hooks count train-mode BNs),
+   the eval batches one bn_apply per eval-mode BN; the ranking grids (10
+   queries x top 10) decode with the port's ``read_image`` to (topk+1) x
+   (P+1) cells with a ``tEXt`` title each, and their attention maps'
+   ``eval_step`` launched one bn_apply per eval-mode BN of its two padded
+   batches a figure; the first prefetched batch equals the loader's host
+   batch bit for bit and the first loss equals ``forward_backward`` on it
+   (1e-5 relative); (b)-(d) run without visrank;
    (b) a test-only run from (a)'s checkpoint gives (a)'s CMC and mAP
    (1e-6); (c) a test-only run through K2 (fused pooling, multires off)
    launches it once per eval batch and no train-mode BN kernel; (d) one
@@ -94,13 +99,31 @@ and Market-1501 + 500k distractors scale. Phases:
    (d) ``test.rerank`` and ``test.save_features``: CMC and mAP equal
    ``re_ranking`` on the CPU copy of the distance matrices recomputed
    from ``features.npz`` (1e-6), which holds the engine's features, and
-   the writer's statistics equal float64 CPU reductions (1e-5).
+   the writer's statistics equal float64 CPU reductions (1e-5);
+11. the PCB path: (a) ``configs/bpbreid/pcb_market1501_train.yaml`` as
+   shipped (six horizontal stripes, no pixel classifier, the
+   materialized 1920-channel map, HRNet-W32 at full depth, 384x128, bf16,
+   batch 64, visrank on) through ``scripts.main.main`` on phase 9's set,
+   two epochs and the test: the BN launches of every step against the
+   model's kernel-backed BNs (those of streams that feed no loss get no
+   backward), K2 never, the ranking grids checked as in 9a; (b) BoT
+   (``build_model('bot')``: one stripe) at full width, a train step and
+   an eval batch with their BN launches; (c) amsgrad, rmsprop and radam
+   on the PCB model's gradients of one card step: the card's update
+   against the same update on the CPU copy (within 1e-6 of the update's
+   size beyond one float32 ulp of the parameter), the second step's
+   kernel launches (torch.profiler), and 20 steps on one batch whose last 3
+   losses average below the first 3; (d) the ``after_pooling_with_dropout``
+   model: eval mode bit-equal to the model without dropout, the same
+   generator seed the same mask, kept entries doubled, a kept share of
+   0.5 +- 0.02 at 512 dimensions.
 
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
 throughput line, the CLI line (phase 9), the inference line (phase 10),
-the kernels line (launches: the BN kernels' in run 9a and phase 10, K2's
-in run 9c and phase 10, K1's in phase 3b) and the result line
+the PCB line (phase 11), the kernels line (launches: the BN kernels' in
+run 9a, phase 10 and phase 11a-b, K2's in run 9c and phase 10, K1's in
+phase 3b) and the result line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Needs one CUDA card.
 """
@@ -1573,34 +1596,38 @@ def register_cli_dataset():
         register_image_dataset(CLI_DATASET, SmokeMarketCrops)
 
 
-def cli_argv(job_id, *opts):
-    """The CLI's argv: the Market-1501 train config (HRNet-W32, 384x128,
-    five_v, bf16, batch 64) on the smoke dataset, without visrank."""
-    return (['--config-file', CLI_CONFIG, '--save_dir', CLI_SAVE_DIR,
+def cli_argv(job_id, *opts, config=CLI_CONFIG):
+    """The CLI's argv: a train config as shipped (the Market-1501 one by
+    default: HRNet-W32, 384x128, five_v, bf16, batch 64, visrank on) on
+    the smoke dataset."""
+    return (['--config-file', config, '--save_dir', CLI_SAVE_DIR,
              '--job-id', str(job_id),
              'data.sources', "['{}']".format(CLI_DATASET),
              'data.targets', "['{}']".format(CLI_DATASET),
-             'test.visrank', 'False', 'train.eval_freq', '-1']
-            + list(opts))
+             'train.eval_freq', '-1'] + list(opts))
 
 
 class CliRecorder:
-    """Wraps ``ImagePartBasedEngine.forward_backward`` and ``save_model``
-    for one CLI run: each step's host entry time, loss tensor and BN
-    launches, the train-mode FastBatchNorm calls of each step (forward
-    hooks, set on the first step), the first batch as the prefetch put
-    it on the card, and the checkpoint's path and write seconds. Reads
-    nothing back from the card during the steps."""
+    """Wraps ``ImagePartBasedEngine.forward_backward``, ``save_model``
+    and ``_visrank`` for one CLI run: each step's host entry time, loss
+    tensor and BN launches, the train-mode FastBatchNorm calls of each
+    step (forward hooks, set on the first step), the first batch as the
+    prefetch put it on the card, the checkpoint's path and write
+    seconds, and the ranking grids' files, seconds and launches (the
+    ``eval_step`` run again for their attention maps). Reads nothing
+    back from the card during the steps."""
 
     def __init__(self, torch):
         from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
         self.torch, self.cls = torch, ImagePartBasedEngine
         self.fb = ImagePartBasedEngine.forward_backward
         self.save = ImagePartBasedEngine.save_model
+        self.visrank = ImagePartBasedEngine._visrank
         self.entries, self.losses, self.launches = [], [], []
         self.bn_calls = {'train': 0, 'eval': 0}
         self.train_bn_calls = []
         self.first_batch = self.checkpoint = self.save_s = None
+        self.visrank_paths, self.visrank_s, self.visrank_launches = [], 0.0, {}
 
     def _hook(self, mod, inp):
         self.bn_calls['train' if mod.training else 'eval'] += 1
@@ -1616,7 +1643,8 @@ class CliRecorder:
                     if isinstance(m, FastBatchNorm):
                         m.register_forward_pre_hook(rec._hook)
                 rec.first_batch = {k: batch[k].cpu().clone()
-                                   for k in ('image', 'mask', 'pid')}
+                                   for k in ('image', 'mask', 'pid')
+                                   if k in batch}
             rec.entries.append(time.perf_counter())
             before = dict(launch_counts)
             calls = rec.bn_calls['train']
@@ -1635,12 +1663,27 @@ class CliRecorder:
                 rec.checkpoint, rec.save_s = path, time.perf_counter() - t0
             return path
 
+        def visrank(engine, *args, **kwargs):
+            rec.torch.cuda.synchronize()
+            before = dict(launch_counts)
+            t0 = time.perf_counter()
+            paths = rec.visrank(engine, *args, **kwargs)
+            rec.torch.cuda.synchronize()
+            rec.visrank_s += time.perf_counter() - t0
+            rec.visrank_paths += paths
+            for k, v in launch_counts.items():
+                rec.visrank_launches[k] = (rec.visrank_launches.get(k, 0)
+                                           + v - before.get(k, 0))
+            return paths
+
         self.cls.forward_backward = forward_backward
         self.cls.save_model = save_model
+        self.cls._visrank = visrank
         return self
 
     def __exit__(self, *exc):
         self.cls.forward_backward, self.cls.save_model = self.fb, self.save
+        self.cls._visrank = self.visrank
         return False
 
 
@@ -1665,17 +1708,38 @@ def drive_cli(torch, what, argv):
     return engine, result, counts, rec, wall_s
 
 
-def _bn_split(model):
+# the modules of each stream's embeddings (its after-pooling reduction)
+# and of its identity scores (its BNNeck), by loss-weight key
+STREAM_MODULES = {'globl': ('global_after_pooling_dim_reduce',
+                            'global_identity_classifier'),
+                  'foreg': ('foreground_after_pooling_dim_reduce',
+                            'foreground_identity_classifier'),
+                  'conct': ('parts_after_pooling_dim_reduce',
+                            'concat_parts_identity_classifier'),
+                  'parts': ('parts_after_pooling_dim_reduce',
+                            'parts_identity_classifier')}
+
+
+def _bn_split(model, weights):
     """Phase 6's split of a model's FastBatchNorms: those that run the
     BN kernels in train mode (all but the pixel classifier's, whose
-    statistics are plain ops) and those of them whose stream feeds no
-    loss (no backward)."""
+    statistics are plain ops) and those of them that get no backward:
+    the head modules of streams that feed no loss under the GiLt
+    ``weights`` (a triplet term reads a stream's embeddings, an identity
+    term its BNNeck scores; the background stream feeds none)."""
     from bpbreid_tpu_torch.models.common import FastBatchNorm
     bn = [n for n, mod in model.named_modules()
           if isinstance(mod, FastBatchNorm) and n != 'pixel_classifier.bn']
-    no_grad = [n for n in bn if n.startswith((
-        'background_after_pooling_dim_reduce',
-        'background_identity_classifier', 'parts_identity_classifier'))]
+    heads = {m for mods in STREAM_MODULES.values() for m in mods}
+    heads |= {'background_after_pooling_dim_reduce',
+              'background_identity_classifier'}
+    fed = set()
+    for key, (reduce, neck) in STREAM_MODULES.items():
+        if weights[key]['tr'] > 0 or weights[key]['id'] > 0:
+            fed.add(reduce)
+        if weights[key]['id'] > 0:
+            fed.add(neck)
+    no_grad = [n for n in bn if n.split('.')[0] in heads - fed]
     return bn, no_grad
 
 
@@ -1713,7 +1777,7 @@ def phase_cli(torch, results):
         torch, '9a train', cli_argv(91, 'train.max_epoch', str(CLI_EPOCHS),
                         'model.save_model_flag', 'True'))
     losses = [float(v) for v in rec.losses]
-    bn, no_grad = _bn_split(engine.model)
+    bn, no_grad = _bn_split(engine.model, engine.losses_weights)
     want, bad = _step_launch_checks(rec, bn, no_grad, '9a')
     checks += bad
     if want != {k: phase6['bn_launches_per_step'][k] for k in BN_KERNELS}:
@@ -1721,13 +1785,16 @@ def phase_cli(torch, results):
                       .format(want, phase6['bn_launches_per_step']))
     steps = len(losses)
     eval_apply = counts_a.get('bn_apply', 0) - steps * want['bn_apply']
+    vis_apply = rec.visrank_launches.get('bn_apply', 0)
     if steps != CLI_EPOCHS * steps_per_epoch:
         checks.append('9a: {} steps'.format(steps))
     if eval_apply != rec.bn_calls['eval'] \
-            or eval_apply != CLI_EVAL_BATCHES * len(bn):
-        checks.append('9a: eval bn_apply {} != {} eval-mode BN calls, {} x '
-                      '{}'.format(eval_apply, rec.bn_calls['eval'],
-                                  CLI_EVAL_BATCHES, len(bn)))
+            or eval_apply - vis_apply != CLI_EVAL_BATCHES * len(bn):
+        checks.append('9a: eval bn_apply {} ({} in visrank) != {} eval-mode '
+                      'BN calls, {} x {} + visrank'.format(
+                          eval_apply, vis_apply, rec.bn_calls['eval'],
+                          CLI_EVAL_BATCHES, len(bn)))
+    checks += _visrank_checks(rec, engine, bn, '9a')
     if not all(np.isfinite(losses)):
         checks.append('9a: non-finite loss {}'.format(losses))
     intervals = (np.diff(rec.entries) * 1e3).tolist()
@@ -1743,6 +1810,7 @@ def phase_cli(torch, results):
     # host batch, with a fresh engine of the same config: the same
     # seeded weights and generator, so the same draws
     cfg, first_loss, first_dev = engine.config, losses[0], rec.first_batch
+    rec_paths, rec_visrank_s = rec.visrank_paths, rec.visrank_s
     del engine, rec
     torch.cuda.empty_cache()
     clear_dataset_cache()
@@ -1768,6 +1836,8 @@ def phase_cli(torch, results):
         'cli_over_phase6_step': step_ms / phase6['step_ms_median'],
         'rank1': float(cmc[0]), 'mAP': float(mAP),
         'bn_launches_per_step': want, 'eval_bn_apply': eval_apply,
+        'visrank_figures': len(rec_paths), 'visrank_s': rec_visrank_s,
+        'visrank_bn_apply': vis_apply,
         'launches': counts_a, 'first_loss_rel_err': first_rel,
         'first_batch_bit_equal': batch_equal,
         'checkpoint_mb': os.path.getsize(ckpt) / 1e6,
@@ -1777,7 +1847,7 @@ def phase_cli(torch, results):
     # 9b: test only from 9a's checkpoint
     engine, (cmc_b, mAP_b, _, _), counts_b, rec, wall_b = drive_cli(
         torch, '9b test from the checkpoint', cli_argv(92, 'test.evaluate', 'True',
-                        'model.load_weights', ckpt))
+                        'model.load_weights', ckpt, 'test.visrank', 'False'))
     d_cmc = float(np.abs(np.asarray(cmc_b) - np.asarray(cmc)).max())
     d_map = abs(float(mAP_b) - float(mAP))
     if rec.losses or not (d_cmc <= 1e-6 and d_map <= 1e-6):
@@ -1793,7 +1863,7 @@ def phase_cli(torch, results):
 
     # 9c: test only through K2 (materialized map, fused pooling)
     engine, _, counts_c, rec, wall_c = drive_cli(
-        torch, '9c test through K2', cli_argv(93, 'test.evaluate', 'True',
+        torch, '9c test through K2', cli_argv(93, 'test.evaluate', 'True', 'test.visrank', 'False',
                         'model.bpbreid.use_pallas_pooling', 'True',
                         'model.bpbreid.multires_pooling', 'False'))
     want_c = {'attention_pool': CLI_EVAL_BATCHES,
@@ -1807,10 +1877,10 @@ def phase_cli(torch, results):
 
     # 9d: the ResNet-50 backbone, one epoch and the final test
     engine, (cmc_d, mAP_d, _, _), counts_d, rec, wall_d = drive_cli(
-        torch, '9d resnet50', cli_argv(94, 'train.max_epoch', '1',
+        torch, '9d resnet50', cli_argv(94, 'train.max_epoch', '1', 'test.visrank', 'False',
                         'model.bpbreid.backbone', 'resnet50'))
     losses_d = [float(v) for v in rec.losses]
-    bn_d, no_grad_d = _bn_split(engine.model)
+    bn_d, no_grad_d = _bn_split(engine.model, engine.losses_weights)
     want_d, bad = _step_launch_checks(rec, bn_d, no_grad_d, '9d')
     checks += bad
     if len(losses_d) != steps_per_epoch or not all(np.isfinite(losses_d)):
@@ -1831,6 +1901,255 @@ def phase_cli(torch, results):
     if checks:
         raise AssertionError('; '.join(checks))
     return counts_a, counts_c
+
+
+def _streams(engine):
+    """Columns of a ranking grid after the image: the test embedding
+    streams (a part-wise key counts its parts)."""
+    k = engine.model.parts_num
+    return sum(k if key in ('parts', 'bn_parts') else 1
+               for key in engine.test_embeddings)
+
+
+def _visrank_checks(rec, engine, bn, what):
+    """The run's ranking grids: one per selected query (``visrank_count``
+    of them), each decoding with the port's ``read_image`` to ``(topk+1)
+    x (P+1)`` cells, with a ``tEXt`` title for every cell and the
+    suptitle; the recompute of their attention maps launched one
+    ``bn_apply`` per eval-mode BN of its two padded batches (query,
+    gallery) per figure."""
+    from bpbreid_tpu_torch.data.datasets.dataset import (read_image,
+                                                         read_png_text)
+    from bpbreid_tpu_torch.utils.visualization.rankings import (
+        BORDER, GRID_SPACING, THUMB_HW)
+    cfg = engine.config.test
+    rows, cols = cfg.visrank_topk + 1, _streams(engine) + 1
+    shape = (rows * (THUMB_HW[0] + 2 * BORDER) + (rows - 1) * GRID_SPACING,
+             cols * (THUMB_HW[1] + 2 * BORDER) + (cols - 1) * GRID_SPACING,
+             3)
+    titles = {'r{}c{}'.format(r, c) for r in range(rows)
+              for c in range(cols)} | {'suptitle'}
+    paths, bad = rec.visrank_paths, []
+    if len(paths) != max(cfg.visrank_count, len(cfg.visrank_q_idx_list)):
+        bad.append('{}: {} ranking grids'.format(what, len(paths)))
+    for path in paths:
+        img, text = read_image(path), read_png_text(path)
+        if img.shape != shape or not titles <= set(text):
+            bad.append('{}: {} is {} with {} titles, not {} with {}'.format(
+                what, os.path.basename(path), img.shape, len(text), shape,
+                len(titles)))
+    want = {'bn_apply': 2 * len(paths) * len(bn)}
+    got = {k: v for k, v in rec.visrank_launches.items() if v}
+    if got != want:
+        bad.append('{}: visrank launches {} != {}'.format(what, got, want))
+    return bad[:3]
+
+
+# phase 11: the PCB config as shipped (horizontal stripes, HRNet-W32 at
+# full depth, 384x128, bf16, batch 64, visrank on) through the CLI on
+# phase 9's set, the BoT model, the optax-rule optimizers on the PCB
+# model's gradients, and the after-pooling dropout
+PCB_CONFIG = 'configs/bpbreid/pcb_market1501_train.yaml'
+OPTIMS = ('amsgrad', 'rmsprop', 'radam')
+OPT_LEARN_STEPS = 20
+
+
+def phase_pcb(torch, results):
+    """Phase 11 (see the module docstring). Returns the launch counts of
+    11a (the CLI run) and 11b (BoT's step and eval batch)."""
+    import copy
+    import shutil
+    from bpbreid_tpu_torch.config import optimizer_kwargs
+    from bpbreid_tpu_torch.data.augment import sample_train_draws
+    from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.optim import build_optimizer
+    t_phase = time.perf_counter()
+    register_cli_dataset()
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out, checks = {}, []
+    steps_per_epoch = CLI_IDS * CLI_CAMS * CLI_IMGS // BATCH
+
+    # 11a: the PCB config through the CLI: two epochs, the test, visrank
+    engine, (cmc, mAP, _, _), counts_a, rec, wall_a = drive_cli(
+        torch, '11a pcb', cli_argv(111, 'train.max_epoch', str(CLI_EPOCHS),
+                                   config=PCB_CONFIG))
+    model = engine.model
+    if not model.horizontal_stripes or hasattr(model, 'pixel_classifier') \
+            or model.parts_num != 6 or model.dtype != torch.bfloat16:
+        checks.append('11a: not the bf16 six-stripe model')
+    losses = [float(v) for v in rec.losses]
+    bn, no_grad = _bn_split(model, engine.losses_weights)
+    want, bad = _step_launch_checks(rec, bn, no_grad, '11a')
+    checks += bad
+    vis_apply = rec.visrank_launches.get('bn_apply', 0)
+    eval_apply = counts_a.get('bn_apply', 0) - len(losses) * want['bn_apply']
+    if len(losses) != CLI_EPOCHS * steps_per_epoch \
+            or not all(np.isfinite(losses)):
+        checks.append('11a: losses {}'.format(losses))
+    if counts_a.get('attention_pool', 0):
+        checks.append('11a: K2 launched {} times under stripes'.format(
+            counts_a['attention_pool']))
+    if eval_apply != rec.bn_calls['eval'] \
+            or eval_apply - vis_apply != CLI_EVAL_BATCHES * len(bn):
+        checks.append('11a: eval bn_apply {} ({} in visrank) for {} '
+                      'eval-mode BN calls'.format(eval_apply, vis_apply,
+                                                  rec.bn_calls['eval']))
+    checks += _visrank_checks(rec, engine, bn, '11a')
+    step_ms = statistics.median((np.diff(rec.entries) * 1e3).tolist())
+    out['11a'] = {'steps': len(losses), 'losses': losses,
+                  'step_ms_median': step_ms,
+                  'images_per_s': BATCH / step_ms * 1e3,
+                  'rank1': float(cmc[0]), 'mAP': float(mAP),
+                  'bn_modules': len(bn), 'bn_no_backward': len(no_grad),
+                  'bn_launches_per_step': want,
+                  'eval_bn_apply': eval_apply - vis_apply,
+                  'visrank_figures': len(rec.visrank_paths),
+                  'visrank_s': rec.visrank_s, 'visrank_bn_apply': vis_apply,
+                  'launches': counts_a, 'wall_s': wall_a}
+    cfg = engine.config
+    host = next(iter(engine.datamanager.train_loader))
+    batch = {k: torch.as_tensor(host[k]).cuda() for k in ('image', 'pid')}
+    del rec
+
+    # 11b: BoT (one stripe, no attention) at full width: a train step and
+    # an eval batch
+    num_classes = engine.datamanager.num_train_pids
+    cfg_b = copy.deepcopy(cfg)
+    bot = build_model('bot', num_classes, config=cfg_b, device='cuda',
+                      seed=SEED)
+    bot_engine = ImagePartBasedEngine.from_config(
+        cfg_b, bot, device='cuda',
+        optimizer=build_optimizer(bot, **optimizer_kwargs(cfg_b)))
+    bn_b, no_grad_b = _bn_split(bot, bot_engine.losses_weights)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss_b = float(bot_engine.forward_backward(batch)[0])
+    train_b = {k: v for k, v in launch_counts.items() if v}
+    reset_launch_counts()
+    feats_b = bot_engine.eval_step(batch['image'])[0]
+    torch.cuda.synchronize()
+    eval_b = {k: v for k, v in launch_counts.items() if v}
+    want_b = {'bn_stats': len(bn_b), 'bn_apply': len(bn_b),
+              'bn_grad_stats': len(bn_b) - len(no_grad_b),
+              'bn_dx': len(bn_b) - len(no_grad_b)}
+    if bot.parts_num != 1 or train_b != want_b \
+            or eval_b != {'bn_apply': len(bn_b)} or not np.isfinite(loss_b) \
+            or not bool(torch.isfinite(feats_b.float()).all()):
+        checks.append('11b: parts {}, train launches {} (want {}), eval {} '
+                      '(want {} bn_apply), loss {}'.format(
+                          bot.parts_num, train_b, want_b, eval_b, len(bn_b),
+                          loss_b))
+    out['11b'] = {'loss': loss_b, 'train_launches': train_b,
+                  'eval_launches': eval_b, 'bn_modules': len(bn_b),
+                  'features_shape': list(feats_b.shape)}
+    counts_b = {k: train_b.get(k, 0) + eval_b.get(k, 0)
+                for k in set(train_b) | set(eval_b)}
+    del bot, bot_engine, feats_b
+    torch.cuda.empty_cache()
+
+    # 11c: amsgrad, rmsprop, radam on the PCB model's gradients
+    draws = sample_train_draws(engine.generator, BATCH, HEIGHT, WIDTH,
+                               engine.transforms, **engine.cj)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    cpu_model = build_model(cfg.model.name, num_classes,
+                            config=copy.deepcopy(cfg), device='cpu')
+    params = dict(model.named_parameters())
+    cpu_params = dict(cpu_model.named_parameters())
+    eps32 = float(np.finfo(np.float32).eps)
+    out['11c'] = {}
+    for optim in OPTIMS:
+        model.load_state_dict(state0)
+        kw = dict(optimizer_kwargs(cfg), optim=optim)
+        opt = engine.optimizer = build_optimizer(model, **kw)
+        real_step, prof, calls = opt.step, {}, []
+
+        def step(opt=opt, real_step=real_step, prof=prof, calls=calls):
+            # the second step is profiled: the first also allocates the
+            # state, one fill per tensor
+            calls.append(1)
+            if len(calls) < 2:
+                return real_step()
+            opt.step = real_step
+            prof.update(profile_steps(torch, real_step, steps=1))
+        opt.step = step
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        losses = [float(engine.forward_backward(batch, draws)[0])]
+        # the same update on the CPU, from the same parameters and
+        # gradients
+        cpu_model.load_state_dict({k: v.cpu() for k, v in state0.items()})
+        for n, p in cpu_params.items():
+            p.grad = params[n].grad.cpu()
+        build_optimizer(cpu_model, **kw).step()
+        worst, moved = 0.0, 0.0
+        for n, p in params.items():
+            ref = cpu_params[n].detach()
+            delta = (ref - before[n].cpu()).abs().max().item()
+            moved = max(moved, delta)
+            err = (p.detach().cpu() - ref).abs()
+            excess = (err - eps32 * ref.abs()).max().item()
+            worst = max(worst, excess / max(delta, 1e-30))
+        for _ in range(OPT_LEARN_STEPS - 1):
+            losses.append(float(engine.forward_backward(batch, draws)[0]))
+        learned = np.mean(losses[-3:]) < np.mean(losses[:3])
+        if not worst <= 1e-6 or not learned:
+            checks.append('11c {}: card vs CPU update error {:.2e} of the '
+                          'update (beyond one ulp), losses {:.3f} -> {:.3f}'
+                          .format(optim, worst, losses[0], losses[-1]))
+        out['11c'][optim] = {
+            'update_rel_err_beyond_ulp': worst, 'update_max_abs': moved,
+            'step_device_kernel_launches': prof.get('device_kernel_launches'),
+            'step_device_ms': prof.get('device_busy_ms'),
+            'losses': losses}
+    del cpu_model, cpu_params, params, state0
+    engine.optimizer = None
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # 11d: the after_pooling_with_dropout model on the card
+    cfg_d = train_config()
+    cfg_d.model.bpbreid.dim_reduce = 'after_pooling_with_dropout'
+    drop = build_model('bpbreid', 751, config=cfg_d, device='cuda',
+                       seed=SEED)
+    plain = build_model('bpbreid', 751, config=train_config(), device='cuda',
+                        seed=SEED)
+    plain.load_state_dict(drop.state_dict())
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    x = torch.randn(BATCH, 3, HEIGHT, WIDTH, device='cuda', generator=gen)
+    with torch.no_grad():
+        a, b = drop(x)[0], plain(x)[0]
+        eval_equal = all(torch.equal(a[k], b[k]) for k in a)
+        red = drop.global_after_pooling_dim_reduce.train()
+        feats = torch.randn(BATCH, red.layers[0].weight.shape[1],
+                            device='cuda', generator=gen).to(torch.bfloat16)
+        ref = plain.global_after_pooling_dim_reduce.train()
+        masks = []
+        for _ in range(2):
+            red.layers[3].generator = torch.Generator(
+                device='cuda').manual_seed(SEED)
+            masks.append(red(feats))
+        undropped = ref(feats)
+    kept = masks[0] != 0
+    positive = undropped > 0
+    share = float((kept & positive).sum()) / float(positive.sum())
+    same = torch.equal(masks[0], masks[1])
+    scaled = torch.equal(masks[0][kept], 2 * undropped[kept])
+    if not (eval_equal and same and scaled and abs(share - 0.5) <= 0.02):
+        checks.append('11d: eval equal {}, same mask {}, kept x2 {}, kept '
+                      'share {:.4f}'.format(eval_equal, same, scaled, share))
+    out['11d'] = {'eval_bit_equal': eval_equal, 'same_seed_same_mask': same,
+                  'kept_scaled_by_2': scaled, 'kept_share': share,
+                  'dims': int(undropped.shape[-1])}
+    del drop, plain, red, ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out['phase_s'] = time.perf_counter() - t_phase
+    results['pcb'] = out
+    if checks:
+        raise AssertionError('; '.join(checks))
+    return counts_a, counts_b
 
 
 # phase 10: the inference path. A torchreid file of a seeded full-width
@@ -2282,6 +2601,14 @@ def main():
     log('phase 10: the inference path (torchreid weights, '
         'FeatureExtractor, --inference-enabled, rerank, save_features)')
     inference_launches = phase_inference(torch, results)
+    log('phase 11: PCB config through the CLI, BoT, amsgrad / rmsprop / '
+        'radam, the dropout dim-reduce')
+    pcb_launches, bot_launches = phase_pcb(torch, results)
+    # the launches of phases 10 and 11 (each its own path, counted from 0)
+    path_launches = {}
+    for counts in (inference_launches, pcb_launches, bot_launches):
+        for k, v in counts.items():
+            path_launches[k] = path_launches.get(k, 0) + v
 
     main_row = k2_rows[0]       # main-path shape and dtypes
     kernels = [{
@@ -2289,7 +2616,7 @@ def main():
         'source': 'bpbreid_tpu_torch/ops/cuda/attention_pool.cu',
         'replaces': 'bpbreid_tpu/ops/pallas/pooling.py:47',
         'launches': k2_cli_launches.get('attention_pool', 0)
-                    + inference_launches.get('attention_pool', 0),
+                    + path_launches.get('attention_pool', 0),
         'max_abs_err': main_row['max_abs_err'],
         'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
@@ -2302,7 +2629,7 @@ def main():
             'name': name, 'route': 'cuda', 'source': K3_SOURCE,
             'replaces': K3_REPLACES[name],
             'launches': cli_launches.get(name, 0)
-                        + inference_launches.get(name, 0),
+                        + path_launches.get(name, 0),
             'max_abs_err': k3_row[name + '_max_abs_err'],
             'ms': k3_row[name + '_ms'], 'plain_ms': k3_row[name + '_plain_ms'],
             'bound_ms': k3_row[name + '_bound_ms'],
@@ -2339,6 +2666,7 @@ def main():
         'phase6_step_ms_median': a['phase6_step_ms_median'],
         'cli_over_phase6_step': a['cli_over_phase6_step'],
         'mAP': a['mAP'], 'rank1': a['rank1'],
+        'visrank_figures': a['visrank_figures'], 'visrank_s': a['visrank_s'],
         'checkpoint_mb': a['checkpoint_mb'],
         'checkpoint_write_s': a['checkpoint_write_s'],
         'checkpoint_read_s': a['checkpoint_read_s'],
@@ -2364,6 +2692,28 @@ def main():
         'rerank_rank1': inf['10d']['rank1'], 'rerank_mAP': inf['10d']['mAP'],
         'launches': inf['launches'], 'phase_s': inf['phase_s'],
         'gpu': gpu}))
+    p = results['pcb']
+    log('pcb', json.dumps({
+        'steps': p['11a']['steps'], 'step_ms_median': p['11a']['step_ms_median'],
+        'images_per_s': p['11a']['images_per_s'], 'mAP': p['11a']['mAP'],
+        'rank1': p['11a']['rank1'],
+        'bn_launches_per_step': p['11a']['bn_launches_per_step'],
+        'attention_pool_launches':
+            p['11a']['launches'].get('attention_pool', 0),
+        'visrank_figures': p['11a']['visrank_figures'],
+        'visrank_s': p['11a']['visrank_s'],
+        'visrank_bn_apply': p['11a']['visrank_bn_apply'],
+        'bot_train_launches': p['11b']['train_launches'],
+        'bot_eval_launches': p['11b']['eval_launches'],
+        'optimizers': {k: {'update_rel_err_beyond_ulp':
+                           v['update_rel_err_beyond_ulp'],
+                           'step_device_kernel_launches':
+                           v['step_device_kernel_launches'],
+                           'first_loss': v['losses'][0],
+                           'last_loss': v['losses'][-1]}
+                       for k, v in p['11c'].items()},
+        'dropout_kept_share': p['11d']['kept_share'],
+        'phase_s': p['phase_s'], 'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -518,3 +518,122 @@ def test_torchreid_weights_load_into_a_cuda_model(cuda, tmp_path):
         for k, v in dst.state_dict().items():
             assert v.device.type == 'cuda', k
             assert torch.equal(v.cpu(), src.state_dict()[k].to(v.dtype)), k
+
+
+@pytest.mark.parametrize('optim', ['amsgrad', 'rmsprop', 'radam'])
+def test_optimizer_rules_on_the_card_match_the_cpu(cuda, optim):
+    """Eight steps of ``OptaxRule`` (weight decay, staged lr; radam
+    crosses its threshold) on the card and on the CPU from the same
+    parameters and gradients: the parameters within 1e-6 of the size of
+    the run's updates, plus one float32 ulp of the parameter per step
+    (the final ``p - lr u`` may round once otherwise where the card
+    fuses the multiply-add), and no launch of the port's kernels."""
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.optim import build_optimizer
+    gen = torch.Generator().manual_seed(5)
+    shapes = {'backbone.w': (64, 33), 'backbone.b': (33,),
+              'classifier.w': (33, 7)}
+    init = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    grads = [{k: torch.randn(s, generator=gen) / (1 + t)
+              for k, s in shapes.items()} for t in range(8)]
+    lr = 1e-3
+    out = []
+    reset_launch_counts()
+    for device in ('cpu', cuda):
+        model = torch.nn.Module()
+        for group in ('backbone', 'classifier'):
+            setattr(model, group, torch.nn.ParameterDict(
+                {k.split('.')[1]: torch.nn.Parameter(v.clone().to(device))
+                 for k, v in init.items() if k.startswith(group)}))
+        opt = build_optimizer(model, optim=optim, lr=lr, weight_decay=5e-4,
+                              staged_lr=True, new_layers=['classifier'])
+        for g in grads:
+            for name, p in model.named_parameters():
+                p.grad = g[name].to(device)
+            opt.step()
+        out.append({n: p.detach().cpu() for n, p in model.named_parameters()})
+    assert not any(launch_counts.values())
+    eps = torch.finfo(torch.float32).eps
+    for name in shapes:
+        moved = (out[0][name] - init[name]).abs().max().item()
+        tol = 1e-6 * moved + len(grads) * eps * out[0][name].abs()
+        assert ((out[0][name] - out[1][name]).abs() <= tol).all(), name
+
+
+def test_dropout_dim_reduce_on_the_card_matches_the_cpu(cuda):
+    """The ``after_pooling_with_dropout`` reduction on the card: a
+    generator seed gives the same mask twice, about half of 512
+    dimensions kept, kept entries twice the undropped ones; eval mode
+    equal to the CPU's (f32, TF32 off) and to the model without dropout,
+    bit for bit."""
+    from bpbreid_tpu_torch.models.bpbreid import (AfterPoolingDimReduce,
+                                                  set_dropout_generator)
+    from bpbreid_tpu_torch.models.common import init_parameters
+    plain = AfterPoolingDimReduce(96, 512)
+    init_parameters(plain, torch.Generator().manual_seed(0))
+    drop = AfterPoolingDimReduce(96, 512, dropout_rate=0.5)
+    drop.load_state_dict(plain.state_dict())
+    plain, drop = plain.to(cuda), drop.to(cuda)
+    x = torch.randn(64, 96, generator=torch.Generator().manual_seed(1))
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            # eval mode first: the train-mode calls below move the BN
+            # running statistics
+            got = drop.eval()(x.to(cuda))
+            assert torch.equal(got, plain.eval()(x.to(cuda)))
+            cpu = AfterPoolingDimReduce(96, 512, dropout_rate=0.5)
+            cpu.load_state_dict(drop.state_dict())
+            assert (got.cpu() - cpu.eval()(x)).abs().max().item() <= 1e-5
+            masks = []
+            for _ in range(2):
+                set_dropout_generator(
+                    drop, torch.Generator(cuda).manual_seed(3))
+                masks.append(drop.train()(x.to(cuda)))
+            want = plain.train()(x.to(cuda))
+            kept = masks[0] != 0
+            assert torch.equal(masks[0], masks[1])
+            assert torch.equal(masks[0][kept], 2 * want[kept])
+            positive = want > 0
+            share = (kept & positive).sum().item() / positive.sum().item()
+            assert abs(share - 0.5) <= 0.02
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def test_ranking_grid_from_card_tensors(cuda, tmp_path):
+    """The smoke config's test with ``test.visrank`` on the card (the
+    attention maps of the grids from ``eval_step`` on card tensors):
+    every grid decodes with ``(topk+1) x (P+1)`` cells and their
+    titles."""
+    import os
+    from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    from bpbreid_tpu_torch.data.datasets.dataset import (read_image,
+                                                         read_png_text)
+    from bpbreid_tpu_torch.scripts import main as cli
+    from bpbreid_tpu_torch.utils.visualization import rankings
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    clear_dataset_cache()
+    engine, _ = cli.main([
+        '--config-file',
+        os.path.join(repo, 'configs/bpbreid/bpbreid_synthetic_smoke.yaml'),
+        '--save_dir', str(tmp_path), '--job-id', '1', 'test.evaluate',
+        'True', 'test.visrank', 'True', 'test.visrank_topk', '4',
+        'test.visrank_count', '2', 'test.visrank_q_idx_list', '[0]'])
+    out_dir = tmp_path / '1' / 'visrank_synthetic'
+    files = sorted(os.listdir(out_dir))
+    assert len(files) == 2
+    streams = 1 + engine.model.parts_num
+    cell = (rankings.THUMB_HW[0] + 2 * rankings.BORDER,
+            rankings.THUMB_HW[1] + 2 * rankings.BORDER)
+    gap = rankings.GRID_SPACING
+    for f in files:
+        img = read_image(str(out_dir / f))
+        assert img.shape == (5 * cell[0] + 4 * gap,
+                             (streams + 1) * cell[1] + streams * gap, 3)
+        text = read_png_text(str(out_dir / f))
+        assert text['r0c0'].startswith('query pid')
+        assert len([k for k in text if k.startswith('r')]) == \
+            5 * (streams + 1)

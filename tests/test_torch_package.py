@@ -62,13 +62,17 @@ def test_port_imports_no_jax():
     assert {'bpbreid_tpu_torch.tools.feature_extractor',
             'bpbreid_tpu_torch.tools.extract_part_based_features',
             'bpbreid_tpu_torch.utils.torch_weights',
-            'bpbreid_tpu_torch.utils.rerank'} <= set(names)
+            'bpbreid_tpu_torch.utils.rerank',
+            'bpbreid_tpu_torch.metrics.accuracy',
+            'bpbreid_tpu_torch.utils.visualization.imaging',
+            'bpbreid_tpu_torch.utils.visualization.rankings'} <= set(names)
 
 
 def test_port_imports_no_cv2_or_pil():
     """Every module of the port, its CLI and chip_smoke.py load no
-    OpenCV and no PIL (the card's machine has neither); images are
-    decoded with PIL only when a file is read. Fresh interpreter."""
+    OpenCV, no PIL and no matplotlib (the card's machine has none of
+    them; the ranking grids draw without them); images are decoded with
+    PIL only when a file is read. Fresh interpreter."""
     names = ['bpbreid_tpu_torch', 'bpbreid_tpu_torch.scripts.main'] + [
         m.name for m in pkgutil.walk_packages(bpbreid_tpu_torch.__path__,
                                               'bpbreid_tpu_torch.')]
@@ -78,7 +82,7 @@ def test_port_imports_no_cv2_or_pil():
             '"chip_smoke", "chip_smoke.py")\n'
             'spec.loader.exec_module(importlib.util.module_from_spec(spec))\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("cv2", "PIL", "jax", "flax", "bpbreid_tpu")]\n'
+            '("cv2", "PIL", "matplotlib", "jax", "flax", "bpbreid_tpu")]\n'
             'print("BAD", bad)\n'
             'sys.exit(1 if bad else 0)\n').format(names)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,

@@ -261,8 +261,13 @@ def test_lr_schedule_matches_jax(kind):
     got.set_in_optimizer(opt, 5)
     assert [g['lr'] for g in opt.param_groups] == pytest.approx(
         [got(5), 0.1 * got(5)])
-    with pytest.raises(NotImplementedError, match='not ported'):
-        build_optimizer(model, optim='radam')
+    radam = build_optimizer(model, optim='radam', lr=3.5e-4, staged_lr=True,
+                            new_layers=['classifier'], base_lr_mult=0.1)
+    got.set_in_optimizer(radam, 5)
+    assert [g['lr'] for g in radam.param_groups] == pytest.approx(
+        [got(5), 0.1 * got(5)])
+    with pytest.raises(ValueError, match='Unsupported optimizer'):
+        build_optimizer(model, optim='adagrad')
 
 
 def test_staged_lr_schedule_divergence_kept_on_purpose():

@@ -69,3 +69,31 @@ def randomize_variables(variables, seed):
         return out
 
     return {coll: walk(tree, coll) for coll, tree in variables.items()}
+
+
+def port_variables(jax_model, port_model, *init_args):
+    """JAX variables holding ``port_model``'s weights, for the tree of
+    ``jax_model.init(key, *init_args)``: the tree comes from
+    ``jax.eval_shape`` (traced, not compiled), each leaf from the port's
+    ``state_dict`` in the JAX layout. Cheaper than a compiled ``init``
+    of an HRNet on the CPU."""
+    from bpbreid_tpu_torch.utils.weights import _torch_key
+    shapes = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0),
+                            *init_args)
+    sd = {k: v.detach().float().numpy()
+          for k, v in port_model.state_dict().items()}
+
+    def fill(tree, coll, prefix):
+        out = {}
+        for k, v in tree.items():
+            if hasattr(v, 'items'):
+                out[k] = fill(v, coll, prefix + (k,))
+                continue
+            a = sd[_torch_key(prefix + (k,), coll)]
+            if k == 'kernel':                    # OIHW -> HWIO, OI -> IO
+                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            assert a.shape == tuple(v.shape), (prefix, k, a.shape, v.shape)
+            out[k] = np.ascontiguousarray(a)
+        return out
+
+    return {coll: fill(tree, coll, ()) for coll, tree in shapes.items()}
