@@ -266,7 +266,8 @@ class TestCfg:
     dist_metric: str = 'euclidean'
     # eval batches per dispatch (read by the JAX engine; kept so configs load)
     batches_per_dispatch: int = 8
-    # int8 inference options (int8 is not ported yet; kept so configs load)
+    # calibrated int8 eval (ops/quant.py): the engine, the extractor and
+    # the CLI
     int8: bool = False
     int8_calib_batches: int = 4
     int8_calib_percentile: float = 99.9

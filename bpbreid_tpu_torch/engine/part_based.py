@@ -8,8 +8,15 @@ forward (``_train_step_impl`` :196, ``_loss_fn`` :173).
 
 ``eval_step``: preprocess -> forward -> the configured test embedding
 streams concatenated to ``[N, P+2, D]`` + visibility + pixel-accuracy
-counts (``_eval_step_impl`` :284). ``evaluate`` (``_evaluate`` :609):
-features of the query and gallery loaders, L2-normalize, then either
+counts (``_eval_step_impl`` :284); with ``quant_opts``, the forward runs
+the calibrated int8 graph (``ops/quant.py``). With ``test.int8`` in the
+config, ``feature_extraction`` first calibrates the activation ranges on
+the first ``test.int8_calib_batches`` batches of the first loader it
+evaluates (the query loader; ``_calibrate_int8`` :422), keeps them for
+every later loader, and extracts with the int8 graph (:468-498,
+:577-584). JAX's grouped ``batches_per_dispatch`` path is left out.
+``evaluate`` (``_evaluate`` :609): features of the query and gallery
+loaders, L2-normalize, then either
 the visibility-masked part distance on the device, optional
 k-reciprocal re-ranking and CMC/mAP on the host, or, once
 ``Nq * Ng`` exceeds ``device_ranking_threshold`` (and without
@@ -54,6 +61,8 @@ from bpbreid_tpu_torch.metrics.distance import \
     compute_distance_matrix_using_bp_features
 from bpbreid_tpu_torch.metrics.rank import evaluate_rank
 from bpbreid_tpu_torch.models.bpbreid import set_dropout_generator
+from bpbreid_tpu_torch.ops.quant import (QuantOpts, clear_calibration,
+                                         int8_calibration)
 from bpbreid_tpu_torch.ops.ranking import cmc_map, cmc_map_counting
 from bpbreid_tpu_torch.ops.resize import resize_bilinear_align_corners
 from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
@@ -154,6 +163,9 @@ class ImagePartBasedEngine(Engine):
         self.parts_names = list(parts_names)
         # above Nq * Ng of this, evaluate takes the query-chunked path
         self.device_ranking_threshold = int(2e8)
+        # cfg.test.int8: the model's activation ranges, recorded once on
+        # the first loader evaluated
+        self.int8_calibrated = False
 
     @classmethod
     def from_config(cls, config, model, mask_kwargs=None, device=None,
@@ -283,8 +295,9 @@ class ImagePartBasedEngine(Engine):
         return loss.detach(), summary
 
     @torch.inference_mode()
-    def eval_step(self, imgs_u8, raw_masks=None):
-        """One eval batch on the device.
+    def eval_step(self, imgs_u8, raw_masks=None, quant_opts=None):
+        """One eval batch on the device; with ``quant_opts`` (a
+        ``QuantOpts``) through the calibrated int8 graph.
 
         Returns ``(features [N, P+2, D], visibility [N, P+2] f32,
         embedding masks [N, P+2, Hf, Wf], pixels_cls_scores, masks,
@@ -295,7 +308,11 @@ class ImagePartBasedEngine(Engine):
                                       norm_mean=self.norm_mean,
                                       norm_std=self.norm_std,
                                       mask_kwargs=self.mask_kwargs)
-        outputs = self.model(imgs, masks)
+        if quant_opts is None:
+            outputs = self.model(imgs, masks)
+        else:
+            with quant_opts.inference_context():
+                outputs = self.model(imgs, masks)
         features, visibility, parts_masks, pixels_cls_scores = \
             self.extract_test_embeddings(outputs)
         # pixel part-prediction accuracy vs the target masks
@@ -329,21 +346,58 @@ class ImagePartBasedEngine(Engine):
         emb_masks = torch.cat(mask_list, dim=1)
         return features, visibility, emb_masks, pixels_cls_scores
 
+    @torch.inference_mode()
+    def calibrate_int8(self, loader, n_batches=4, percentile=99.9):
+        """Record the model's activation ranges afresh: the running
+        maxima over the first ``n_batches`` batches of ``loader`` of each
+        quantization point's ``calib_amax`` at ``percentile``
+        (``_calibrate_int8`` :422). The forwards run in float."""
+        clear_calibration(self.model)
+        self.model.eval()
+        with int8_calibration(percentile=percentile):
+            for i, batch in enumerate(loader):
+                if i >= n_batches:
+                    break
+                imgs = torch.as_tensor(batch['image']).to(self.device)
+                masks = torch.as_tensor(batch['mask']).to(self.device) \
+                    if batch.get('mask') is not None else None
+                imgs, masks = eval_preprocess(imgs, masks,
+                                              norm_mean=self.norm_mean,
+                                              norm_std=self.norm_std,
+                                              mask_kwargs=self.mask_kwargs)
+                self.model(imgs, masks)
+        self.int8_calibrated = True
+
+    def int8_quant_opts(self, loader):
+        """``QuantOpts`` of ``config.test`` when ``test.int8`` is on,
+        calibrating on ``loader`` the first time (``_maybe_int8_eval_step``
+        :468); None otherwise."""
+        tcfg = getattr(self.config, 'test', None)
+        if tcfg is None or not getattr(tcfg, 'int8', False):
+            return None
+        if not self.int8_calibrated:
+            self.calibrate_int8(
+                loader, max(1, int(getattr(tcfg, 'int8_calib_batches', 4))),
+                float(getattr(tcfg, 'int8_calib_percentile', 99.9)))
+        return QuantOpts.from_config(tcfg)
+
     def feature_extraction(self, loader):
-        """Features of every valid sample of ``loader``.
+        """Features of every valid sample of ``loader`` (through the int8
+        graph with ``test.int8``).
 
         Returns ``(features [N, P+2, D], visibility [N, P+2])`` on the
         device, ``(pids, camids)`` numpy and the pixel accuracy.
         """
         f_, vis_, pids_, camids_ = [], [], [], []
         pxl_correct = pxl_total = 0.0
+        quant_opts = self.int8_quant_opts(loader)
         for batch in device_prefetch(loader, self.device,
                                      keys=('image', 'mask')):
             imgs, masks = batch['image'], batch.get('mask')
             valid = np.asarray(batch.get(
                 'valid', np.ones(len(batch['pid']), bool)), bool)
-            feats, vis, _m, _pxl, _masks, corr, tot = self.eval_step(imgs,
-                                                                     masks)
+            feats, vis, _m, _pxl, _masks, corr, tot = self.eval_step(
+                imgs, masks, quant_opts)
             keep = torch.as_tensor(valid, device=self.device)
             f_.append(feats[keep])
             vis_.append(vis[keep])

@@ -59,6 +59,7 @@ from bpbreid_tpu_torch.models.resnet import RESNETS
 from bpbreid_tpu_torch.ops.cuda.pooling import fused_attention_pool
 from bpbreid_tpu_torch.ops.masks import pcb_stripe_masks
 from bpbreid_tpu_torch.ops.pooling import parts_pooling
+from bpbreid_tpu_torch.ops.quant import set_quant_paths
 from bpbreid_tpu_torch.ops.resize import (_linear_matrix_align_corners,
                                           linear_matrix_align_corners,
                                           resize_bilinear_align_corners)
@@ -111,8 +112,9 @@ class PixelToPartClassifier(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.bn = FastBatchNorm(channels, dtype=dtype)
+        # a parameter holder (flax nn.Conv layout in JAX): float always
         self.classifier = PConv(channels, parts_num + 1, 1, bias=True,
-                                dtype=dtype)
+                                dtype=dtype, quant=False)
 
     def _batch_moments(self, x=None, branches=None, out_hw=None):
         """(mean, var) of the map, or of the virtual concat of the
@@ -239,7 +241,8 @@ class BeforePoolingDimReduce(nn.Module):
     def __init__(self, in_channels, output_dim, dtype=torch.float32):
         super().__init__()
         self.layers = nn.ModuleList([
-            PConv(in_channels, output_dim, 1, bias=True, dtype=dtype),
+            PConv(in_channels, output_dim, 1, bias=True, dtype=dtype,
+                  quant=False),              # flax nn.Conv in JAX
             FastBatchNorm(output_dim, dtype=dtype)])
 
     def forward(self, x):
@@ -342,6 +345,7 @@ class BPBreID(nn.Module):
             self.parts_identity_classifier = nn.ModuleList([
                 BNClassifier(out_dim, num_classes, dtype)
                 for _ in range(parts_num)])
+        set_quant_paths(self)
 
     def forward(self, images, external_parts_masks=None):
         K = self.parts_num

@@ -13,6 +13,15 @@ module casts to its compute ``dtype`` where the JAX module does:
   BN kernels of ``ops/cuda/batchnorm.py`` and nothing else: in train mode
   ``bn_stats`` (K3a) and ``bn_apply`` forward, ``bn_grad_stats`` (K3b) and
   ``bn_dx`` backward; in eval mode ``bn_apply``.
+
+Calibrated int8 eval (``ops/quant.py``, JAX :29-139): inside
+``int8_calibration`` every ``PConv`` records the range of its input
+(``act_amax``) and the blocks the ranges of their shared quantization
+points (``in_amax``, ``out_amax`` with ``quant_out``); inside
+``int8_inference`` a ``PConv`` that is not skipped runs ``quant_conv``
+(``conv_s8`` on the card), on the shared ``QTensor`` it is given or on
+its own static quantize, with a dynamic scale where it was never
+calibrated. The residual reads a shared copy through ``dequantize``.
 """
 import math
 
@@ -24,9 +33,16 @@ from bpbreid_tpu_torch.ops.cuda.batchnorm import MOMENTUM as BN_MOMENTUM
 from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_apply, bn_dx,
                                                   bn_grad_stats, bn_stats,
                                                   channel_view)
+from bpbreid_tpu_torch.ops.quant import (QTensor, QuantWeightCache,
+                                         act_scale_from_amax, calibrated_scale,
+                                         dequantize, quant_conv, quant_mode,
+                                         quant_shared_points, quant_skipped,
+                                         quantize_calibrated, record_amax,
+                                         set_quant_paths)
 
 __all__ = ['BN_EPS', 'BN_MOMENTUM', 'PConv', 'Dense', 'FastBatchNorm',
-           'BasicBlock', 'Bottleneck', 'ResLayer', 'init_parameters']
+           'BasicBlock', 'Bottleneck', 'ResLayer', 'calibrated_quant',
+           'init_parameters']
 
 BN_EPS = 1e-5
 # flax lecun_normal: truncated normal in [-2, 2] rescaled to unit variance
@@ -34,18 +50,56 @@ _TRUNC_STD = 0.87962566103423978
 
 
 class PConv(nn.Module):
-    """Conv with explicit symmetric padding (flax ``PConv`` float path)."""
+    """Conv with explicit symmetric padding (flax ``PConv``), with the
+    calibrate and int8 modes of ``ops/quant.py`` (JAX :29-113).
+
+    ``quant=False`` marks a conv that is a flax ``nn.Conv`` in JAX (the
+    ResNet stem, the before-pooling reduction, the pixel classifier): it
+    stays float in every mode and records nothing. The quantized weights
+    are kept between calls (``quant_cache``, keyed on the weight's storage
+    and version, so a device move or a load recomputes them).
+    """
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, bias=True, groups=1, dtype=torch.float32):
+                 padding=0, bias=True, groups=1, dtype=torch.float32,
+                 quant=True):
         super().__init__()
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype = dtype
+        self.quant = quant
+        self.quant_path = ''
+        self.quant_cache = QuantWeightCache()
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.quant_cache.clear()
+        super()._load_from_state_dict(*args, **kwargs)
+
     def forward(self, x):
+        mode = quant_mode() if self.quant else 'off'
+        if mode == 'calibrate':
+            record_amax(self, 'act_amax', x)
+        skipped = mode == 'int8' and quant_skipped(self.quant_path)
+        if skipped and isinstance(x, QTensor):
+            x = dequantize(x, self.dtype)
+        if isinstance(x, QTensor):
+            # quantized by the enclosing block or module (one s8 copy
+            # shared by every consumer): the scale travels with it
+            return quant_conv(x, self.weight, self.stride, self.padding,
+                              groups=self.groups, out_dtype=self.dtype,
+                              bias=self.bias, cache=self.quant_cache)
+        if mode == 'int8' and not skipped:
+            if 'act_amax' in self._buffers:
+                scale, key = calibrated_scale(self, 'act_amax')
+            else:
+                # uncalibrated: a dynamic scale at the same granularity
+                scale, key = act_scale_from_amax(
+                    x.float().abs().amax(dim=(0, 2, 3))), None
+            return quant_conv(x, self.weight, self.stride, self.padding,
+                              scale, self.groups, self.dtype, self.bias,
+                              self.quant_cache, key)
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
         if x.device.type == 'cpu' and self.dtype == torch.bfloat16:
             # torch's CPU bf16 convolution miscomputes some shapes (an
@@ -59,6 +113,27 @@ class PConv(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)[:, None, None]
         return y
+
+
+def calibrated_quant(module, x, name='in_amax'):
+    """Module-level quantization point for a hot tensor (JAX :116).
+
+    Calibrate mode: records the range of ``x`` into ``module.<name>`` and
+    returns ``x``. int8 mode, with that range recorded, shared points on
+    and ``module`` not skipped: returns a ``QTensor``, the one s8 copy
+    every consumer reads. Otherwise (and for a ``QTensor`` quantized by
+    an outer scope) returns ``x`` as it is.
+    """
+    if isinstance(x, QTensor):
+        return x
+    mode = quant_mode()
+    if mode == 'calibrate':
+        record_amax(module, name, x)
+        return x
+    if (mode == 'int8' and name in module._buffers and quant_shared_points()
+            and not quant_skipped(getattr(module, 'quant_path', ''))):
+        return quantize_calibrated(module, x, name)
+    return x
 
 
 class Dense(nn.Module):
@@ -186,13 +261,19 @@ def _conv_bn(cin, cout, kernel, stride, dtype):
 
 
 class BasicBlock(nn.Module):
-    """Two 3x3 convs + residual (expansion 1)."""
+    """Two 3x3 convs + residual (expansion 1).
+
+    ``quant_out``: under shared-point int8 inference the block returns a
+    ``QTensor`` of its output (its own calibrated ``out_amax``), so its
+    consumers read one s8 copy (JAX :282)."""
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, has_downsample=False,
-                 groups=1, base_width=64, dtype=torch.float32):
+                 groups=1, base_width=64, quant_out=False,
+                 dtype=torch.float32):
         del groups, base_width          # as in JAX: plain 3x3 convs
         super().__init__()
+        self.quant_out, self.dtype = quant_out, dtype
         self.conv1 = PConv(inplanes, planes, 3, stride, 1, bias=False,
                            dtype=dtype)
         self.bn1 = FastBatchNorm(planes, dtype=dtype)
@@ -202,22 +283,30 @@ class BasicBlock(nn.Module):
             if has_downsample else None
 
     def forward(self, x):
-        residual = x
+        x = calibrated_quant(self, x)
+        residual = dequantize(x, self.dtype) if isinstance(x, QTensor) \
+            else x
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         if self.downsample is not None:
             residual = self.downsample(x)
-        return F.relu(out + residual)
+        y = F.relu(out + residual)
+        if self.quant_out:
+            y = calibrated_quant(self, y, name='out_amax')
+        return y
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 bottleneck + residual (expansion 4);
-    ``groups``/``base_width`` give the ResNeXt variants."""
+    ``groups``/``base_width`` give the ResNeXt variants; ``quant_out`` as
+    for ``BasicBlock`` (JAX :343)."""
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, has_downsample=False,
-                 groups=1, base_width=64, dtype=torch.float32):
+                 groups=1, base_width=64, quant_out=False,
+                 dtype=torch.float32):
         super().__init__()
+        self.quant_out, self.dtype = quant_out, dtype
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = PConv(inplanes, width, 1, 1, 0, bias=False, dtype=dtype)
         self.bn1 = FastBatchNorm(width, dtype=dtype)
@@ -231,27 +320,45 @@ class Bottleneck(nn.Module):
             if has_downsample else None
 
     def forward(self, x):
-        residual = x
+        x = calibrated_quant(self, x)
+        residual = dequantize(x, self.dtype) if isinstance(x, QTensor) \
+            else x
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         if self.downsample is not None:
             residual = self.downsample(x)
-        return F.relu(out + residual)
+        y = F.relu(out + residual)
+        if self.quant_out:
+            y = calibrated_quant(self, y, name='out_amax')
+        return y
 
 
 class ResLayer(nn.Sequential):
     """A stack of residual blocks named ``0``, ``1``, ... like the
-    reference's ``nn.Sequential``."""
+    reference's ``nn.Sequential``.
+
+    ``quant_out``: the last block produces a ``QTensor`` under shared-point
+    int8 inference (every consumer must take one); ``quant_blocks``: so do
+    the others, whose only consumer is the next block (JAX :378). The
+    producer's quantize equals the consumer's it replaces: the same
+    tensor, the scale calibrated on it."""
 
     def __init__(self, block, inplanes, planes, num_blocks, stride=1,
-                 groups=1, base_width=64, dtype=torch.float32):
+                 groups=1, base_width=64, quant_out=False, quant_blocks=True,
+                 dtype=torch.float32):
         needs_ds = stride != 1 or inplanes != planes * block.expansion
         kw = dict(groups=groups, base_width=base_width, dtype=dtype)
-        blocks = [block(inplanes, planes, stride, needs_ds, **kw)]
-        blocks += [block(planes * block.expansion, planes, 1, False, **kw)
-                   for _ in range(1, num_blocks)]
+        last = num_blocks - 1
+        blocks = [block(inplanes, planes, stride, needs_ds,
+                        quant_out=quant_out if last == 0 else quant_blocks,
+                        **kw)]
+        blocks += [block(planes * block.expansion, planes, 1, False,
+                         quant_out=quant_out if i == last else quant_blocks,
+                         **kw)
+                   for i in range(1, num_blocks)]
         super().__init__(*blocks)
+        set_quant_paths(self)
 
 
 def _lecun_normal_(weight, fan_in, generator):

@@ -6,13 +6,21 @@ Channel-first. Module names mirror the torch ``state_dict`` paths
 heads are upsampled (bilinear, align_corners=True) to 1/4 scale and
 concatenated into the 1920-channel map. As in the JAX version the
 upsample yields f32, so in bf16 mode the concat map is f32.
+
+Calibrated int8 eval (JAX :85-108, :182, :196): the branch trunks and
+``layer1`` produce ``QTensor`` outputs (``quant_out``); each branch output
+and each stage input is a shared quantization point (``branch_amax_<j>``,
+``<stage>_in_amax_<i>``) that the fuse convs, the identity term (through
+``dequantize``), the transitions and the next blocks read.
 """
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from bpbreid_tpu_torch.models.common import (BasicBlock, Bottleneck,
-                                             FastBatchNorm, PConv, ResLayer)
+                                             FastBatchNorm, PConv, ResLayer,
+                                             calibrated_quant)
+from bpbreid_tpu_torch.ops.quant import QTensor, dequantize, set_quant_paths
 from bpbreid_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 __all__ = ['HighResolutionNet', 'hrnet32', 'HRNET_W32_STAGES']
@@ -45,9 +53,14 @@ class HighResolutionModule(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         b = num_branches
+        self.dtype = dtype
+        # quant_out: every consumer of a branch output takes a QTensor
+        # (the fuse convs, the identity's dequantize, the next stage's
+        # transitions and blocks)
         self.branches = nn.ModuleList([
             ResLayer(BasicBlock, num_channels[i], num_channels[i],
-                     num_blocks[i], dtype=dtype) for i in range(b)])
+                     num_blocks[i], quant_out=True, dtype=dtype)
+            for i in range(b)])
         self.fuse_layers = None
         if b == 1:
             return
@@ -79,12 +92,16 @@ class HighResolutionModule(nn.Module):
         xs = [branch(x) for branch, x in zip(self.branches, xs)]
         if self.fuse_layers is None:
             return xs
+        # int8: one shared s8 copy of each branch output
+        xs = [calibrated_quant(self, x, name='branch_amax_{}'.format(j))
+              for j, x in enumerate(xs)]
         outs = []
         for i, row in enumerate(self.fuse_layers):
             y = None
             for j, layer in enumerate(row):
                 if j == i:
-                    t = xs[j]
+                    t = dequantize(xs[j], self.dtype) \
+                        if isinstance(xs[j], QTensor) else xs[j]
                 else:
                     t = layer(xs[j])
                     if j > i:
@@ -116,7 +133,9 @@ class HighResolutionNet(nn.Module):
         self.bn1 = FastBatchNorm(64, dtype=dtype)
         self.conv2 = PConv(64, 64, 3, 2, 1, bias=False, dtype=dtype)
         self.bn2 = FastBatchNorm(64, dtype=dtype)
-        self.layer1 = ResLayer(Bottleneck, 64, 64, 4, dtype=dtype)
+        # quant_out: layer1's output feeds the stage-2 transitions
+        self.layer1 = ResLayer(Bottleneck, 64, 64, 4, quant_out=True,
+                               dtype=dtype)
 
         prev = [256]
         for si, stage in enumerate(('stage2', 'stage3', 'stage4')):
@@ -152,6 +171,7 @@ class HighResolutionNet(nn.Module):
                       1, bias=True, dtype=dtype),
                 FastBatchNorm(dim_reduction_channels, dtype=dtype),
                 nn.ReLU())
+        set_quant_paths(self)
 
     @property
     def feature_dim(self):
@@ -167,6 +187,11 @@ class HighResolutionNet(nn.Module):
         x = self.layer1(x)
         xs = [x]
         for si, stage in enumerate(('stage2', 'stage3', 'stage4')):
+            # int8: one shared s8 copy of each stage input, for its
+            # transition convs and the blocks it passes through to
+            xs = [calibrated_quant(self, x,
+                                   name='{}_in_amax_{}'.format(stage, i))
+                  for i, x in enumerate(xs)]
             transition = getattr(self, 'transition{}'.format(si + 1))
             new_xs = []
             for i, t in enumerate(transition):

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from bpbreid_tpu_torch.models.common import (BasicBlock, Bottleneck, Dense,
                                              FastBatchNorm, PConv, ResLayer)
+from bpbreid_tpu_torch.ops.quant import set_quant_paths
 
 __all__ = ['ResNet', 'resnet18', 'resnet34', 'resnet50', 'resnet101',
            'resnet152', 'resnext50_32x4d', 'resnext101_32x8d',
@@ -33,7 +34,9 @@ class ResNet(nn.Module):
         super().__init__()
         self.loss = loss
         self.dtype = dtype
-        self.conv1 = PConv(3, 64, 7, 2, 3, bias=False, dtype=dtype)
+        # a flax nn.Conv in JAX: float in int8 eval too
+        self.conv1 = PConv(3, 64, 7, 2, 3, bias=False, dtype=dtype,
+                           quant=False)
         self.bn1 = FastBatchNorm(64, dtype=dtype)
         kw = dict(groups=groups, base_width=width_per_group, dtype=dtype)
         inplanes = 64
@@ -56,6 +59,7 @@ class ResNet(nn.Module):
         self.feature_dim = inplanes
         if loss != 'part_based':
             self.classifier = Dense(inplanes, num_classes, dtype=dtype)
+        set_quant_paths(self)
 
     def featuremaps(self, x):
         x = F.relu(self.bn1(self.conv1(x)))

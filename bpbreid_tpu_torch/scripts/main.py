@@ -16,10 +16,15 @@ is missing; ``use_gpu False`` runs on the CPU.
 ``model.resume`` also restores the optimizer and the epoch. With
 ``model.pretrained`` an HRNet-W32 backbone starts from
 ``<model.bpbreid.hrnet_pretrained_path>/hrnetv2_w32_imagenet_pretrained.pth``
-when that file exists. Not ported, and raising with their ROADMAP Queue
-1 item: int8 eval (7), data parallelism over several cards (8), the
-softmax and triplet engines and video data (9), and the figures of
-``test.vis_embedding_projection`` and ``train.batch_debug_freq`` (11).
+when that file exists. ``test.int8 True`` tests (and, with
+``--inference-enabled``, extracts) through the calibrated int8 graph:
+the activation ranges of the first ``test.int8_calib_batches`` query
+batches, then every backbone convolution that ``test.int8_skip_patterns``
+does not keep in float as an s8 x s8 -> s32 product (``ops/quant.py``).
+Not ported, and raising with their ROADMAP Queue 1 item: data
+parallelism over several cards (8), the softmax and triplet engines and
+video data (9), and the figures of ``test.vis_embedding_projection`` and
+``train.batch_debug_freq`` (11).
 ``test.visrank`` draws its ranking grids without matplotlib
 (``utils/visualization/rankings.py``).
 """
@@ -76,9 +81,6 @@ def refuse_unported(cfg):
         raise NotImplementedError(
             'train.n_devices {}: data parallelism is not ported yet (ROADMAP '
             'Queue 1 item 8)'.format(cfg.train.n_devices))
-    if cfg.test.int8:
-        raise NotImplementedError('int8 eval is not ported yet (ROADMAP '
-                                  'Queue 1 item 7)')
     if cfg.train.batch_debug_freq:
         raise NotImplementedError('train.batch_debug_freq: the debug figures '
                                   'are not ported yet (ROADMAP Queue 1 item '

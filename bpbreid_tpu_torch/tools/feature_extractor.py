@@ -7,7 +7,10 @@ engine's; callable on a list of image paths, a list of HWC uint8 arrays,
 or one batched array. Each image is resized to ``data.height x
 data.width`` with ``resize_linear`` (what the JAX extractor's
 ``cv2.resize`` computes, bit for bit) and files are decoded with
-``read_image``.
+``read_image``. With ``test.int8`` the model runs the calibrated int8
+graph (``ops/quant.py``): the activation ranges are recorded on the first
+batch, at ``test.int8_calib_percentile`` (JAX ``_ensure_int8`` :85), or
+taken from the engine when it has calibrated the shared model.
 """
 import numpy as np
 import torch
@@ -17,6 +20,8 @@ from bpbreid_tpu_torch.data.augment import eval_preprocess, mask_chain_kwargs
 from bpbreid_tpu_torch.data.datasets.dataset import read_image, resize_linear
 from bpbreid_tpu_torch.models import build_model
 from bpbreid_tpu_torch.ops.masks import GroupingSpec, masks_preprocess_all
+from bpbreid_tpu_torch.ops.quant import (QuantOpts, clear_calibration,
+                                         int8_calibration)
 from bpbreid_tpu_torch.utils.torch_weights import (load_torch_state_dict,
                                                    load_torchreid_state_dict)
 
@@ -40,9 +45,6 @@ class FeatureExtractor:
 
     def __init__(self, cfg, model_path='', device=None, num_classes=1,
                  model=None, engine=None, verbose=True):
-        if cfg.test.int8:
-            raise NotImplementedError('int8 inference is not ported yet '
-                                      '(ROADMAP Queue 1 item 7)')
         self.height, self.width = cfg.data.height, cfg.data.width
         self.norm_mean = tuple(cfg.data.norm_mean)
         self.norm_std = tuple(cfg.data.norm_std)
@@ -63,9 +65,14 @@ class FeatureExtractor:
                 matched, _ = load_torchreid_state_dict(self.model, sd)
                 print('Loaded {} tensors from {}'.format(len(matched),
                                                          model_path))
+        self.quant_opts = QuantOpts.from_config(cfg.test) \
+            if cfg.test.int8 else None
+        self.calib_percentile = float(cfg.test.int8_calib_percentile)
+        self.int8_ready = engine is not None and engine.int8_calibrated
         if verbose:
-            print('FeatureExtractor ready: {} @ {}x{} on {}'.format(
-                cfg.model.name, self.height, self.width, self.device))
+            print('FeatureExtractor ready: {} @ {}x{} on {}{}'.format(
+                cfg.model.name, self.height, self.width, self.device,
+                ' [int8]' if self.quant_opts is not None else ''))
 
     def _prepare(self, inputs):
         arrays = []
@@ -103,4 +110,12 @@ class FeatureExtractor:
                                       norm_std=self.norm_std,
                                       mask_kwargs=self.mask_kwargs)
         self.model.eval()
-        return self.model(imgs, masks)
+        if self.quant_opts is None:
+            return self.model(imgs, masks)
+        if not self.int8_ready:
+            clear_calibration(self.model)
+            with int8_calibration(percentile=self.calib_percentile):
+                self.model(imgs, masks)
+            self.int8_ready = True
+        with self.quant_opts.inference_context():
+            return self.model(imgs, masks)

@@ -8,12 +8,19 @@ mirrors a torch ``state_dict`` key, so
   params/.../scale             -> '....weight'        (batchnorm)
   params/.../bias              -> '....bias'
   batch_stats/.../mean | var   -> '....running_mean | running_var'
+  quant/.../<name>             -> '....<name>'        (int8 calibration)
+
+The ``quant`` collection (the activation ranges of a calibrated int8
+model: ``act_amax``, ``in_amax``, ``branch_amax_0``, ...) goes into the
+non-persistent buffers of the same names (``ops/quant.py``).
 
 ``variables`` is a nested dict of numpy arrays, as
 ``jax.device_get(model.init(...))`` gives; nothing here imports JAX.
 """
 import numpy as np
 import torch
+
+from bpbreid_tpu_torch.ops.quant import clear_calibration
 
 __all__ = ['jax_variables_to_state_dict', 'load_jax_variables']
 
@@ -28,6 +35,8 @@ def _walk(tree, prefix=()):
 
 def _torch_key(path, collection):
     *mods, leaf = path
+    if collection == 'quant':
+        return '.'.join(path)
     if collection == 'batch_stats':
         names = {'mean': 'running_mean', 'var': 'running_var'}
     else:
@@ -41,9 +50,10 @@ def _torch_key(path, collection):
 
 def jax_variables_to_state_dict(variables):
     """Flax variables -> ``{torch key: np.ndarray}`` in torch layout.
-    Collections other than ``params`` and ``batch_stats`` are ignored."""
+    Collections other than ``params``, ``batch_stats`` and ``quant`` are
+    ignored."""
     out = {}
-    for coll in ('params', 'batch_stats'):
+    for coll in ('params', 'batch_stats', 'quant'):
         for path, v in _walk(variables.get(coll, {})):
             a = np.asarray(v)
             if path[-1] == 'kernel':
@@ -64,8 +74,23 @@ def load_jax_variables(module, variables):
     The one exception: a BPBReID with ``learnable_attention_enabled``
     False keeps its ``pixel_classifier`` (as the torch reference does),
     which JAX never creates in that mode; those keys keep their values.
+    With a ``quant`` collection, the module's recorded activation ranges
+    are replaced by it (each module named by its path gets the buffers).
     """
     sd = jax_variables_to_state_dict(variables)
+    quant = {_torch_key(path, 'quant'): v
+             for path, v in _walk(variables.get('quant', {}))}
+    for key in quant:
+        sd.pop(key)
+    if 'quant' in variables:
+        clear_calibration(module)
+        for key, v in quant.items():
+            owner, _, name = key.rpartition('.')
+            target = module.get_submodule(owner)
+            ref = next(iter(module.parameters()))
+            target.register_buffer(
+                name, torch.as_tensor(np.asarray(v, np.float32),
+                                      device=ref.device), persistent=False)
     own = module.state_dict()
     unused = set()
     if getattr(module, 'learnable_attention_enabled', True) is False:

@@ -116,14 +116,36 @@ and Market-1501 + 500k distractors scale. Phases:
    losses average below the first 3; (d) the ``after_pooling_with_dropout``
    model: eval mode bit-equal to the model without dropout, the same
    generator seed the same mask, kept entries doubled, a kept share of
-   0.5 +- 0.02 at 512 dimensions.
+   0.5 +- 0.02 at 512 dimensions;
+12. calibrated int8 eval (``test.int8``, JAX's defaults) on the serving
+   model: (a) ``conv_s8`` bit-equal to its plain version at every
+   distinct int8 conv shape of a batch and at ragged ones (Cin 3 and 40,
+   Co 5 and 130, odd H and W, stride 2; bf16 and f32 with a bias), and
+   ``quantize_s8`` bit-equal (per-tensor and per-channel, NCHW and
+   channels-last), with their times, bounds and library calls
+   (``F.conv2d`` bf16; ``torch._int_mm`` beside a 1x1 conv); (b)
+   calibration on 4 batches, then an int8 eval step launches one
+   ``conv_s8`` per quantized PConv (counted from the model before the
+   run), ``quantize_s8``, one ``bn_apply`` per eval-mode BN and one K2,
+   and runs 3 cuDNN convs (the float stem and the pixel classifier); a
+   profile of three int8 and three bf16 steps; the int8 step's time
+   against the bf16 step's (CUDA events, interleaved), peak memory, the
+   ``bn_foreg`` cosine to bf16 (min at least 0.99) and the ``parts``
+   visibility agreement; (c) a small f32 int8 model on the card against
+   the CPU on the CPU's calibration (batch norms that normalize exactly):
+   embeddings within 1e-3, the s8 values of the branch outputs counted;
+   (d) a ``FeatureExtractor`` batch over the calibrated engine equal to
+   its int8 ``eval_step``, and the test CLI with ``test.int8 True`` beside
+   its bf16 test.
 
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
 throughput line, the CLI line (phase 9), the inference line (phase 10),
-the PCB line (phase 11), the kernels line (launches: the BN kernels' in
-run 9a, phase 10 and phase 11a-b, K2's in run 9c and phase 10, K1's in
-phase 3b) and the result line
+the PCB line (phase 11), the int8 line (phase 12), the kernels line
+(launches: the BN kernels' in run 9a, phase 10 and phase 11a-b, K2's in
+run 9c and phase 10, K1's in phase 3b, ``conv_s8`` and ``quantize_s8``'s
+in phase 12's int8 step, extractor batch and CLI test) and the result
+line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Needs one CUDA card.
 """
@@ -2543,6 +2565,406 @@ def phase_inference(torch, results):
     return total
 
 
+
+# phase 12: calibrated int8 eval (ops/quant.py, conv_s8.cu) at full width:
+# the serving model (HRNet-W32, 384x128, bf16, batch 64, K2) with
+# cfg.test.int8 and its defaults (99.9th percentile over 4 batches, the
+# float stem, shared points, per-tensor scales)
+INT8_CALIB_BATCHES = 4
+INT8_SOURCE = 'bpbreid_tpu_torch/ops/cuda/conv_s8.cu'
+INT8_REPLACES = {
+    'conv_s8': 'no TPU kernel (XLA compiled it): bpbreid_tpu/ops/quant.py:327 '
+               'quant_conv',
+    'quantize_s8': 'no TPU kernel (XLA compiled it): '
+                   'bpbreid_tpu/ops/quant.py:288 quantize_static'}
+PEAK_INT8_OPS = 1979e12            # H100 SXM dense int8 tensor cores
+# the hot branch conv: [64, 32, 96, 32] 3x3 32 -> 32; the layer1 1x1
+# 256 -> 64 (the torch._int_mm yardstick); the layer1 output quantize
+INT8_CONV_REPORT = (BATCH, 32, 96, 32, 32, 3, 1)
+INT8_MM_REPORT = (BATCH, 256, 96, 32, 64, 1, 1)
+INT8_QUANT_REPORT = (BATCH, 256, 96, 32)
+# ragged conv_s8 cases: (N, Cin, H, W, Co, kernel, stride)
+INT8_RAGGED = [(2, 3, 17, 9, 64, 3, 2), (3, 40, 7, 5, 5, 3, 1),
+               (2, 64, 13, 11, 130, 1, 2), (1, 96, 6, 4, 72, 3, 2)]
+# cudnn convs an int8 eval step may run: the 2 float stem convs (the
+# default int8_skip_patterns) and the pixel classifier's 1x1 conv (a flax
+# nn.Conv in JAX, float there too)
+INT8_FLOAT_CONVS = 3
+INT8_MIN_COSINE = 0.99             # tests/test_quant.py:178-189
+
+
+def _s8_conv_case(torch, gen, shape):
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import (pack_weight_s8,
+                                                    padded_channels)
+    n, cin, h, w, co, k, _ = shape
+    cp = padded_channels(cin)
+    xq = torch.zeros(n, h, w, cp, dtype=torch.int8, device='cuda')
+    xq[..., :cin] = torch.randint(-127, 128, (n, h, w, cin), device='cuda',
+                                  generator=gen).to(torch.int8)
+    wq = torch.randint(-127, 128, (co, cin, k, k), device='cuda',
+                       generator=gen).to(torch.int8)
+    sw = torch.rand(co, device='cuda', generator=gen) * 1e-3
+    return xq, pack_weight_s8(wq, cp), sw, wq
+
+
+def conv_s8_bound_ms(shape):
+    n, cin, h, w, co, k, stride = shape
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, \
+        (w + 2 * (k // 2) - k) // stride + 1
+    cp = -(-cin // 32) * 32
+    nbytes = n * h * w * cp + co * k * k * cp + 4 * co + 2 * n * co * ho * wo
+    ops = 2.0 * n * ho * wo * co * k * k * cin
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def _int8_kernel_checks(torch, conv_shapes):
+    """(a): conv_s8 bit-equal to its plain version at every distinct int8
+    conv shape of the serving batch and the ragged ones (bf16 output, and
+    f32 with a bias at the ragged ones); quantize_s8 bit-equal, per-tensor
+    and per-channel, NCHW and channels-last. Then the report rows' times."""
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import (conv_s8,
+                                                    conv_s8_reference,
+                                                    quantize_s8,
+                                                    quantize_s8_reference)
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    failures, n_cases = [], 0
+    cases = [(s, torch.bfloat16, False) for s in sorted(conv_shapes)]
+    cases += [(s, dt, True) for s in INT8_RAGGED
+              for dt in (torch.bfloat16, torch.float32)]
+    for shape, dt, with_bias in cases:
+        xq, w, sw, _ = _s8_conv_case(torch, gen, shape)
+        bias = torch.randn(shape[4], device='cuda', generator=gen) \
+            if with_bias else None
+        k, stride = shape[5], shape[6]
+        got = conv_s8(xq, w, sw, bias, k, stride, k // 2, shape[1],
+                      out_dtype=dt)
+        torch.cuda.synchronize()
+        want = conv_s8_reference(xq, w, sw, bias, k, stride, k // 2,
+                                 shape[1], out_dtype=dt)
+        n_cases += 1
+        if not torch.equal(got, want):
+            failures.append('conv_s8 at {} {}: max diff {}'.format(
+                shape, dt, _max_diff(got, want)))
+        del xq, w, got, want
+    for shape in (INT8_QUANT_REPORT, (BATCH, 32, 96, 32), (3, 5, 7, 9),
+                  (2, 70, 13, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = (3 * torch.randn(*shape, device='cuda', generator=gen)).to(dt)
+            for per_channel in (False, True):
+                scale = torch.rand(shape[1] if per_channel else 1,
+                                   device='cuda', generator=gen) * 0.05 + 0.01
+                want = quantize_s8_reference(x, scale)
+                for xin in (x, x.contiguous(
+                        memory_format=torch.channels_last)):
+                    n_cases += 1
+                    if not torch.equal(quantize_s8(xin, scale), want):
+                        failures.append('quantize_s8 at {} {} {}'.format(
+                            shape, dt, 'per-channel' if per_channel
+                            else 'per-tensor'))
+            del x
+    if failures:
+        raise AssertionError('12a: ' + '; '.join(failures[:10]))
+
+    rows = {}
+    xq, w, sw, wq = _s8_conv_case(torch, gen, INT8_CONV_REPORT)
+    n, cin, h, wd, co, k, stride = INT8_CONV_REPORT
+    xb = torch.randn(n, cin, h, wd, device='cuda', generator=gen) \
+        .to(torch.bfloat16)
+    wb = wq.to(torch.bfloat16)
+    row = {'shape': list(INT8_CONV_REPORT), 'max_abs_err': 0.0,
+           'distinct_conv_shapes': len(conv_shapes), 'cases': n_cases}
+    row['ms'] = time_ms(lambda: conv_s8(xq, w, sw, None, k, stride, k // 2,
+                                        cin), torch)
+    row['plain_ms'] = time_ms(lambda: conv_s8_reference(
+        xq, w, sw, None, k, stride, k // 2, cin), torch, warmup=1, iters=2,
+        repeats=3)
+    row['library_ms'] = time_ms(lambda: torch.nn.functional.conv2d(
+        xb, wb, None, stride, k // 2), torch)
+    row['bound_ms'], row['bound_by'] = conv_s8_bound_ms(INT8_CONV_REPORT)
+    rows['conv_s8'] = row
+    del xq, w, xb, wb
+    # a 1x1 stride-1 conv against torch._int_mm on its [N*H*W, Cin] x
+    # [Cin, Co] matrix, the same int32 function
+    xq, w, sw, wq = _s8_conv_case(torch, gen, INT8_MM_REPORT)
+    n, cin, h, wd, co, k, stride = INT8_MM_REPORT
+    a = xq.view(-1, cin)
+    b = wq.view(co, cin).t()
+    rows['int_mm'] = {
+        'shape': list(INT8_MM_REPORT),
+        'conv_s8_ms': time_ms(lambda: conv_s8(xq, w, sw, None, 1, 1, 0, cin),
+                              torch),
+        'int_mm_ms': time_ms(lambda: torch._int_mm(a, b), torch),
+        'bound_ms': conv_s8_bound_ms(INT8_MM_REPORT)[0]}
+    del xq, w, a, b
+    x = torch.randn(*INT8_QUANT_REPORT, device='cuda', generator=gen) \
+        .to(torch.bfloat16)
+    scale = torch.full((1,), 0.02, device='cuda')
+    nbytes = x.numel() * 2 + x.numel()
+    rows['quantize_s8'] = {
+        'shape': list(INT8_QUANT_REPORT), 'max_abs_err': 0.0,
+        'ms': time_ms(lambda: quantize_s8(x, scale), torch),
+        'plain_ms': time_ms(lambda: quantize_s8_reference(x, scale), torch),
+        'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
+        # no one PyTorch call writes the padded NHWC s8 copy
+        # (torch.quantize_per_tensor clips to -128 and keeps NCHW)
+        'library_ms': None}
+    del x
+    log('12a', json.dumps({k: v for k, v in rows.items()}))
+    return rows
+
+
+def _exact_bn(torch, model):
+    """Every batch norm of ``model`` normalizing exactly in f32 (mean 0,
+    bias 0, ``var + eps == 1``): its output is then the same on the card
+    and on the CPU, so the int8 graphs see the same values."""
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    var = float(np.float32(np.float32(1.0) - np.float32(1e-5)))
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FastBatchNorm):
+                m.running_mean.zero_()
+                m.running_var.fill_(var)
+                if m.bias is not None:
+                    m.bias.zero_()
+                m.weight.copy_(1.0 + 0.2 * torch.randn(
+                    m.weight.shape, generator=gen).to(m.weight.device))
+
+
+def _int8_card_vs_cpu(torch):
+    """(c): a small f32 int8 model (SMALL depth, all convs int8) on the
+    card against the same model on the CPU (plain versions), on the CPU's
+    calibration and exact batch norms: embeddings and the share of s8
+    values that differ in the branch outputs."""
+    from bpbreid_tpu_torch.config import get_default_config
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.ops.quant import int8_calibration, int8_inference
+    cfg = get_default_config()
+    cfg.model.compute_dtype = 'float32'
+    cfg.model.bpbreid.backbone = 'hrnet32'
+    cfg.model.bpbreid.masks.parts_num = 5
+    cfg.model.bpbreid.dim_reduce_output = 64
+    cfg.model.bpbreid.use_pallas_pooling = True
+    cfg.model.bpbreid.multires_pooling = False
+    stages = {'stage2': (1, 2, (2, 2), (32, 64)),
+              'stage3': (1, 3, (2, 2, 2), (32, 64, 128)),
+              'stage4': (1, 4, (2, 2, 2, 2), (32, 64, 128, 256))}
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(2, 3, 64, 32)).astype(np.float32))
+    outs, branch, amax = {}, {}, {}
+    for device in ('cpu', 'cuda'):
+        model = build_model('bpbreid', 7, config=cfg, device=device,
+                            seed=SEED, backbone_stages=stages)
+        _exact_bn(torch, model)
+        if device == 'cpu':
+            with torch.inference_mode(), int8_calibration(99.9):
+                model(x)
+            amax = {(n, k): b.clone() for n, m in model.named_modules()
+                    for k, b in m._buffers.items() if 'amax' in k}
+        else:
+            for (n, k), b in amax.items():
+                model.get_submodule(n).register_buffer(
+                    k, b.to(device), persistent=False)
+        caps = {}
+        hooks = [m.register_forward_hook(
+            lambda mod, _, out, name=name: caps.__setitem__(name, out))
+            for name, m in model.named_modules()
+            if name.rsplit('.', 2)[-2:-1] == ['branches']]
+        with torch.inference_mode(), int8_inference(skip_patterns=()):
+            outs[device] = model(x.to(device))[0]['bn_foreg'].float().cpu()
+        for h in hooks:
+            h.remove()
+        branch[device] = {k: v.q.cpu() for k, v in caps.items()}
+    n_diff = sum(int((branch['cuda'][k] != v).sum())
+                 for k, v in branch['cpu'].items())
+    n_all = sum(v.numel() for v in branch['cpu'].values())
+    err = float((outs['cuda'] - outs['cpu']).norm() / outs['cpu'].norm())
+    out = {'bn_foreg_rel_err': err, 's8_differ': n_diff, 's8_values': n_all,
+           's8_differ_share': n_diff / max(n_all, 1)}
+    log('12c', json.dumps(out))
+    if not (err <= 1e-3 and n_all):
+        raise AssertionError('12c: card vs CPU int8 embeddings rel. err {}'
+                             .format(err))
+    return out
+
+
+def phase_int8(torch, results):
+    """Phase 12 (see the module docstring). Returns the launch counts of
+    its main-path runs (the counted int8 eval step and the CLI's int8
+    test)."""
+    from bpbreid_tpu_torch.data.augment import mask_chain_kwargs
+    from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.models.common import FastBatchNorm, PConv
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.ops.quant import QTensor
+    from bpbreid_tpu_torch.tools import FeatureExtractor
+    t_phase = time.perf_counter()
+    out, checks, path_counts = {}, [], {}
+    cfg = serving_config()
+    cfg.test.int8 = True
+    cfg.test.int8_calib_batches = INT8_CALIB_BATCHES
+    model = build_model('bpbreid', 751, config=cfg, device='cuda', seed=SEED)
+    engine = ImagePartBasedEngine.from_config(cfg, model,
+                                              mask_chain_kwargs(cfg),
+                                              device='cuda')
+    rng = np.random.default_rng(SEED + 12)
+    base = rng.integers(0, 256, size=(N_IDS, HEIGHT, WIDTH, 3))
+    batches = make_batches(INT8_CALIB_BATCHES, rng, base, 0)
+    skip = tuple(cfg.test.int8_skip_patterns)
+    # the prediction, from the model: one conv_s8 a quantized PConv
+    pconvs = [m for m in model.modules() if isinstance(m, PConv)]
+    n_int8 = sum(1 for m in pconvs if m.quant
+                 and not any(p in m.quant_path for p in skip))
+    out['predicted_conv_s8'] = n_int8
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opts = engine.int8_quant_opts(batches)
+    torch.cuda.synchronize()
+    out['calibration_s'] = time.perf_counter() - t0
+    out['amax_buffers'] = sum(1 for m in model.modules()
+                              for k in m._buffers if 'amax' in k)
+    imgs = torch.as_tensor(batches[0]['image'], device='cuda')
+    masks = torch.as_tensor(batches[0]['mask'], device='cuda')
+    # warm-up: fills the weight caches (one quantize of each conv's
+    # weights, outside the counted run)
+    engine.eval_step(imgs, masks, opts)
+    shapes = set()
+
+    def record(mod, args):
+        x = args[0]
+        if mod.quant and not any(p in mod.quant_path for p in skip):
+            n, c, h, w = x.shape if isinstance(x, QTensor) else x.shape
+            shapes.add((n, c, h, w, mod.weight.shape[0],
+                        mod.weight.shape[-1], mod.stride))
+    bn_calls = []
+    hooks = [m.register_forward_pre_hook(record) for m in pconvs]
+    hooks += [m.register_forward_pre_hook(lambda *_: bn_calls.append(1))
+              for m in model.modules() if isinstance(m, FastBatchNorm)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    feats8, vis8 = engine.eval_step(imgs, masks, opts)[:2]
+    torch.cuda.synchronize()
+    step_counts = dict(launch_counts)
+    for h in hooks:
+        h.remove()
+    _add_counts(path_counts, step_counts)
+    n_bn = out['eval_bn_calls_per_step'] = len(bn_calls)
+    out['launches_per_step'] = step_counts
+    log('12b launches an int8 eval step', json.dumps(step_counts),
+        'predicted conv_s8', n_int8)
+    if step_counts.get('conv_s8', 0) != n_int8:
+        checks.append('conv_s8 launches {} != {} quantized PConvs'.format(
+            step_counts.get('conv_s8', 0), n_int8))
+    if step_counts.get('bn_apply', 0) != n_bn:
+        checks.append('bn_apply launches {} != {} BNs'.format(
+            step_counts.get('bn_apply', 0), n_bn))
+    if step_counts.get('attention_pool', 0) != 1:
+        checks.append('attention_pool launches {} != 1'.format(
+            step_counts.get('attention_pool', 0)))
+    if not step_counts.get('quantize_s8', 0):
+        checks.append('no quantize_s8 launch')
+    # the convs that reach cuDNN (profiler op names)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        engine.eval_step(imgs, masks, opts)
+        torch.cuda.synchronize()
+    n_cudnn = sum(e.count for e in prof.key_averages()
+                  if e.key == 'aten::cudnn_convolution')
+    out['cudnn_convs_per_step'] = n_cudnn
+    if n_cudnn != INT8_FLOAT_CONVS:
+        checks.append('{} cuDNN convs in an int8 step, expected {}'.format(
+            n_cudnn, INT8_FLOAT_CONVS))
+
+    # device time by kernel, int8 and bf16 steps (torch.profiler)
+    for what, o in (('int8', opts), ('bf16', None)):
+        prof_out = profile_steps(torch,
+                                 lambda: engine.eval_step(imgs, masks, o))
+        out['profile_' + what] = prof_out
+        log('12b profile', what, json.dumps(
+            {k: v for k, v in prof_out.items() if not k.startswith('top_')}))
+        for row in prof_out['top_kernels'][:5]:
+            log('  {:9.3f} ms {:5d} calls  {}'.format(row['ms'], row['calls'],
+                                                      row['name']))
+    # the bf16 step on the same batch: embeddings and time
+    featsf, visf = engine.eval_step(imgs, masks)[:2]
+    a, b = feats8[:, 0].float(), featsf[:, 0].float()
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp(min=1e-12)
+    out['bn_foreg_cosine_min'] = cos.min().item()
+    out['bn_foreg_cosine_mean'] = cos.mean().item()
+    out['parts_visibility_agreement'] = \
+        (vis8[:, 1:] == visf[:, 1:]).float().mean().item()
+    if not out['bn_foreg_cosine_min'] >= INT8_MIN_COSINE:
+        checks.append('int8 vs bf16 bn_foreg min cosine {} < {}'.format(
+            out['bn_foreg_cosine_min'], INT8_MIN_COSINE))
+    torch.cuda.reset_peak_memory_stats()
+    ms = {}
+    for what in ('bf16', 'int8', 'int8', 'bf16'):
+        o = opts if what == 'int8' else None
+        t = time_ms(lambda: engine.eval_step(imgs, masks, o), torch,
+                    warmup=1, iters=3, repeats=3)
+        ms.setdefault(what, []).append(t)
+    out['eval_step_ms'] = {k: statistics.median(v) for k, v in ms.items()}
+    out['images_per_s'] = {k: BATCH / v * 1e3
+                           for k, v in out['eval_step_ms'].items()}
+    out['peak_memory_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    log('12b', json.dumps({k: out[k] for k in (
+        'calibration_s', 'eval_step_ms', 'images_per_s',
+        'bn_foreg_cosine_min', 'bn_foreg_cosine_mean',
+        'parts_visibility_agreement', 'cudnn_convs_per_step',
+        'peak_memory_gb')}))
+
+    # (d) the extractor over the calibrated engine: its batch equals the
+    # engine's int8 eval_step on the same resized batch (no masks)
+    extractor = FeatureExtractor(cfg, engine=engine, verbose=False)
+    reset_launch_counts()
+    emb = extractor(batches[1]['image'])[0]
+    torch.cuda.synchronize()
+    _add_counts(path_counts, dict(launch_counts))
+    step = engine.eval_step(torch.as_tensor(batches[1]['image'],
+                                            device='cuda'), None, opts)[0]
+    out['extractor_vs_eval_step'] = max(
+        _max_diff(emb['bn_foreg'], step[:, 0]),
+        _max_diff(emb['parts'], step[:, 1:]))
+    if out['extractor_vs_eval_step'] != 0.0:
+        checks.append('extractor int8 batch differs from eval_step by {}'
+                      .format(out['extractor_vs_eval_step']))
+    del engine, model, extractor
+    torch.cuda.empty_cache()
+
+    # (d) the CLI: the test config with test.int8 True, and in bf16, on
+    # phase 9's set, the same seeded weights
+    register_cli_dataset()
+    cli = {}
+    for what, opts_ in (('int8', ('test.int8', 'True')), ('bf16', ())):
+        eng, res, counts, _rec, wall = drive_cli(
+            torch, '12d CLI test ' + what, inference_argv(
+                120 + len(cli), 'model.load_weights', '',
+                'model.load_config', 'False', *opts_))
+        cli[what] = {'mAP': float(res[1]), 'rank1': float(res[0][0]),
+                     'wall_s': wall, 'launches': counts}
+        if what == 'int8':
+            _add_counts(path_counts, counts)
+            if not eng.int8_calibrated or not counts.get('conv_s8'):
+                checks.append('the CLI int8 test launched no conv_s8')
+        if not (np.isfinite(res[1]) and 0.0 <= res[1] <= 1.0):
+            checks.append('CLI {} mAP {}'.format(what, res[1]))
+        del eng
+        torch.cuda.empty_cache()
+    out['cli'] = cli
+    out['card_vs_cpu'] = _int8_card_vs_cpu(torch)
+    out['kernels'] = _int8_kernel_checks(torch, shapes)
+    out['phase_s'] = time.perf_counter() - t_phase
+    results['int8'] = out
+    if checks:
+        raise AssertionError('phase 12: ' + '; '.join(checks))
+    return path_counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2604,6 +3026,8 @@ def main():
     log('phase 11: PCB config through the CLI, BoT, amsgrad / rmsprop / '
         'radam, the dropout dim-reduce')
     pcb_launches, bot_launches = phase_pcb(torch, results)
+    log('phase 12: calibrated int8 eval (conv_s8, quantize_s8)')
+    int8_launches = phase_int8(torch, results)
     # the launches of phases 10 and 11 (each its own path, counted from 0)
     path_launches = {}
     for counts in (inference_launches, pcb_launches, bot_launches):
@@ -2643,6 +3067,15 @@ def main():
         'max_abs_err': k1_row['max_abs_err'], 'ms': k1_row['ms'],
         'plain_ms': k1_row['plain_ms'], 'bound_ms': k1_row['bound_ms'],
         'bound_by': k1_row['bound_by'], 'library_ms': k1_row['library_ms']})
+    for name in ('conv_s8', 'quantize_s8'):
+        row = results['int8']['kernels'][name]
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': INT8_SOURCE,
+            'replaces': INT8_REPLACES[name],
+            'launches': int8_launches.get(name, 0),
+            'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+            'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
+            'bound_by': row['bound_by'], 'library_ms': row['library_ms']})
     results['kernels'] = kernels
     results['script_s'] = time.perf_counter() - t_script
     unlaunched = [k['name'] for k in kernels if not k['launches']]
@@ -2714,6 +3147,24 @@ def main():
                        for k, v in p['11c'].items()},
         'dropout_kept_share': p['11d']['kept_share'],
         'phase_s': p['phase_s'], 'gpu': gpu}))
+    q = results['int8']
+    log('int8', json.dumps({
+        'conv_s8_per_step': q['launches_per_step'].get('conv_s8', 0),
+        'predicted_conv_s8': q['predicted_conv_s8'],
+        'quantize_s8_per_step': q['launches_per_step'].get('quantize_s8', 0),
+        'bn_apply_per_step': q['launches_per_step'].get('bn_apply', 0),
+        'cudnn_convs_per_step': q['cudnn_convs_per_step'],
+        'calibration_s': q['calibration_s'],
+        'eval_step_ms': q['eval_step_ms'], 'images_per_s': q['images_per_s'],
+        'peak_memory_gb': q['peak_memory_gb'],
+        'bn_foreg_cosine_min': q['bn_foreg_cosine_min'],
+        'bn_foreg_cosine_mean': q['bn_foreg_cosine_mean'],
+        'parts_visibility_agreement': q['parts_visibility_agreement'],
+        'card_vs_cpu': q['card_vs_cpu'],
+        'cli': {k: {'mAP': v['mAP'], 'rank1': v['rank1']}
+                for k, v in q['cli'].items()},
+        'int_mm': q['kernels']['int_mm'], 'phase_s': q['phase_s'],
+        'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -160,7 +160,6 @@ def test_main_raises_without_cuda_when_use_gpu(tmp_path, monkeypatch):
     (['loss.name', 'softmax'], 'Queue 1 item 9'),
     (['train.n_devices', '2'], 'Queue 1 item 8'),
     (['test.vis_embedding_projection', 'True'], 'Queue 1 item 11'),
-    (['test.int8', 'True'], 'Queue 1 item 7'),
     (['data.sources', "['viper']"], 'Queue 1 item 9'),
 ])
 def test_main_refuses_unported_options(tmp_path, opts, match):

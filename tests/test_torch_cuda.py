@@ -637,3 +637,156 @@ def test_ranking_grid_from_card_tensors(cuda, tmp_path):
         assert text['r0c0'].startswith('query pid')
         assert len([k for k in text if k.startswith('r')]) == \
             5 * (streams + 1)
+
+
+# int8 eval (conv_s8.cu): (N, Cin, H, W, Co, kernel, stride), main-path
+# branch convs and ragged ones (Cin 3 and 40, Co 5, odd H and W, stride 2)
+S8_CONV_SHAPES = [(64, 32, 96, 32, 32, 3, 1), (8, 256, 24, 8, 64, 1, 1),
+                  (2, 3, 17, 9, 64, 3, 2), (3, 40, 7, 5, 5, 3, 1),
+                  (2, 64, 13, 11, 130, 1, 2), (1, 96, 6, 4, 72, 3, 2)]
+
+
+def _s8_conv_inputs(cuda, shape, seed):
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import (pack_weight_s8,
+                                                    padded_channels)
+    n, cin, h, w, co, k, _ = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    cp = padded_channels(cin)
+    xq = torch.zeros(n, h, w, cp, dtype=torch.int8, device=cuda)
+    xq[..., :cin] = torch.randint(-127, 128, (n, h, w, cin), device=cuda,
+                                  generator=gen).to(torch.int8)
+    wq = torch.randint(-127, 128, (co, cin, k, k), device=cuda,
+                       generator=gen).to(torch.int8)
+    sw = torch.rand(co, device=cuda, generator=gen) * 1e-3
+    bias = torch.randn(co, device=cuda, generator=gen)
+    return xq, pack_weight_s8(wq, cp), sw, bias
+
+
+@pytest.mark.parametrize('shape', S8_CONV_SHAPES)
+@pytest.mark.parametrize('out_dtype', [torch.float32, torch.bfloat16])
+def test_conv_s8_kernel_matches_plain(cuda, shape, out_dtype):
+    """The int32 sums are exact and the epilogue rounds as the plain
+    version: bit-equal, with and without a bias."""
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import conv_s8, conv_s8_reference
+    xq, w, sw, bias = _s8_conv_inputs(cuda, shape, 0)
+    k, stride, cin = shape[5], shape[6], shape[1]
+    for b in (None, bias):
+        before = launch_counts['conv_s8']
+        got = conv_s8(xq, w, sw, b, k, stride, k // 2, cin,
+                      out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert launch_counts['conv_s8'] == before + 1
+        want = conv_s8_reference(xq, w, sw, b, k, stride, k // 2, cin,
+                                 out_dtype=out_dtype)
+        assert got.shape == want.shape and got.dtype == out_dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('shape', [(64, 32, 96, 32), (3, 5, 7, 9),
+                                   (2, 70, 13, 1)])
+@pytest.mark.parametrize('per_channel', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_quantize_s8_kernel_matches_plain(cuda, shape, per_channel, dtype):
+    """A true division and round-half-even: bit-equal, from NCHW and from
+    channels-last memory; the pad channels are 0."""
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import (quantize_s8,
+                                                    quantize_s8_reference)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (3 * torch.randn(*shape, device=cuda, generator=gen)).to(dtype)
+    # values on the rounding ties of the scale
+    x.view(-1)[:64] = (torch.arange(64, device=cuda) - 32.5).to(dtype) * 0.5
+    c = shape[1]
+    scale = (torch.rand(c if per_channel else 1, device=cuda,
+                        generator=gen) * 0.05 + 0.01)
+    if not per_channel:
+        scale = scale.reshape(())
+    want = quantize_s8_reference(x, scale)
+    for xin in (x, x.contiguous(memory_format=torch.channels_last)):
+        got = quantize_s8(xin, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert not want[..., c:].any()
+
+
+def test_conv_s8_refuses_groups_and_bad_inputs_on_the_card(cuda):
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import conv_s8
+    xq, w, sw, _ = _s8_conv_inputs(cuda, (2, 64, 8, 8, 64, 1, 1), 2)
+    with pytest.raises(NotImplementedError, match='grouped'):
+        conv_s8(xq, w, sw, None, 1, 1, 0, 64, groups=2)
+    with pytest.raises(ValueError):
+        conv_s8(xq[..., :48].contiguous(), w, sw, None, 1, 1, 0, 48)
+    with pytest.raises(ValueError):
+        conv_s8(xq, w, sw.double(), None, 1, 1, 0, 64)
+
+
+def test_int8_model_on_the_card_matches_the_cpu(cuda):
+    """A small f32 BPBReID (HRNet-W32 widths, depth cut) in int8 on the
+    card and on the CPU (plain versions), every batch norm normalizing
+    exactly (mean 0, bias 0, var + eps = 1: the two devices' rsqrt and
+    rounding orders then agree): the card's own calibration within 1e-5
+    of each range's largest value; on the CPU's ranges the embeddings
+    within 1e-3 rel. L2 and the branch outputs' s8 values equal."""
+    import numpy as np
+    from bpbreid_tpu_torch.config import get_default_config
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    from bpbreid_tpu_torch.ops.quant import int8_calibration, int8_inference
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_default_config()
+    cfg.model.compute_dtype = 'float32'
+    cfg.model.bpbreid.backbone = 'hrnet32'
+    cfg.model.bpbreid.masks.parts_num = 5
+    cfg.model.bpbreid.dim_reduce_output = 64
+    cfg.model.bpbreid.use_pallas_pooling = True
+    cfg.model.bpbreid.multires_pooling = False
+    stages = {'stage2': (1, 2, (1, 1), (32, 64)),
+              'stage3': (1, 3, (1, 1, 1), (32, 64, 128)),
+              'stage4': (1, 4, (1, 1, 1, 1), (32, 64, 128, 256))}
+    var = float(np.float32(np.float32(1.0) - np.float32(1e-5)))
+    x = torch.randn(2, 3, 64, 32, generator=torch.Generator().manual_seed(0))
+    models, outs, ranges, branch = {}, {}, {}, {}
+    for device in ('cpu', 'cuda'):
+        model = build_model('bpbreid', 7, config=cfg, device=device, seed=0,
+                            backbone_stages=stages)
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, FastBatchNorm):
+                    m.running_mean.zero_()
+                    m.running_var.fill_(var)
+                    if m.bias is not None:
+                        m.bias.zero_()
+                    m.weight.copy_(1 + 0.2 * torch.randn(
+                        m.weight.shape, generator=gen).to(device))
+        with torch.inference_mode(), int8_calibration(99.9):
+            model(x.to(device))
+        ranges[device] = {(n, k): b.cpu() for n, m in model.named_modules()
+                          for k, b in m._buffers.items() if 'amax' in k}
+        models[device] = model
+    assert ranges['cpu'].keys() == ranges['cuda'].keys()
+    for key, a in ranges['cpu'].items():
+        err = (ranges['cuda'][key] - a).abs().max() \
+            / a.abs().max().clamp(min=1e-12)
+        assert err.item() <= 1e-5, (key, err.item())
+    for (n, k), b in ranges['cpu'].items():
+        models['cuda'].get_submodule(n).register_buffer(
+            k, b.to(cuda), persistent=False)
+    before = launch_counts['conv_s8']
+    for device, model in models.items():
+        caps = {}
+        hooks = [m.register_forward_hook(
+            lambda mod, _, out, name=name: caps.__setitem__(name, out.q))
+            for name, m in model.named_modules()
+            if name.rsplit('.', 2)[-2:-1] == ['branches']]
+        with torch.inference_mode(), int8_inference(skip_patterns=()):
+            outs[device] = model(x.to(device))[0]['bn_foreg'].cpu()
+        for h in hooks:
+            h.remove()
+        branch[device] = {k: v.cpu() for k, v in caps.items()}
+    assert launch_counts['conv_s8'] > before
+    assert branch['cpu'] and all(torch.equal(branch['cuda'][k], v)
+                                 for k, v in branch['cpu'].items())
+    err = (outs['cuda'] - outs['cpu']).norm() / outs['cpu'].norm()
+    assert err.item() <= 1e-3

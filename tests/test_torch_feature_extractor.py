@@ -173,14 +173,17 @@ def test_cli_inference_enabled_writes_the_features(rig, tmp_path):
 
 
 def test_entry_points_need_cuda_or_cpu_and_refuse_int8(rig, monkeypatch):
+    """CUDA or an explicit CPU; ``test.int8`` is no longer refused (ported
+    in ops/quant.py): the extractor calibrates on its first batch and
+    runs the int8 graph (held against JAX in tests/test_torch_int8*.py)."""
     cfg = _configs()[1]
     cfg.model.bpbreid.backbone = 'resnet18'
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
         FeatureExtractor(cfg, model=rig['got'].model)
     cfg.test.int8 = True
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
-        FeatureExtractor(cfg, model=rig['got'].model, device='cpu')
+    extractor = FeatureExtractor(cfg, model=rig['got'].model, device='cpu')
+    assert extractor.quant_opts is not None and not extractor.int8_ready
 
 
 def _chunk(kind, body):

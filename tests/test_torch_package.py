@@ -65,7 +65,9 @@ def test_port_imports_no_jax():
             'bpbreid_tpu_torch.utils.rerank',
             'bpbreid_tpu_torch.metrics.accuracy',
             'bpbreid_tpu_torch.utils.visualization.imaging',
-            'bpbreid_tpu_torch.utils.visualization.rankings'} <= set(names)
+            'bpbreid_tpu_torch.utils.visualization.rankings',
+            'bpbreid_tpu_torch.ops.quant',
+            'bpbreid_tpu_torch.ops.cuda.conv_s8'} <= set(names)
 
 
 def test_port_imports_no_cv2_or_pil():

@@ -97,3 +97,34 @@ def port_variables(jax_model, port_model, *init_args):
         return out
 
     return {coll: fill(tree, coll, ()) for coll, tree in shapes.items()}
+
+
+def exact_bn_variables(variables, seed):
+    """``variables`` with every batch norm's normalization exact in f32:
+    mean 0, bias 0 and ``var + 1e-5 == 1``, so ``rsqrt`` is 1 in every
+    implementation and ``(x - mean) * s + bias`` rounds once, with or
+    without an FMA; the scales are drawn from ``seed``. The int8 tests use
+    it: XLA's jitted BN contracts to an FMA and its f32 ``rsqrt`` differs
+    from torch's by an ulp in about a third of the values, and a
+    difference of one ulp ahead of a quantize can move an s8 value."""
+    rng = np.random.default_rng(seed)
+    var = np.float32(np.float32(1.0) - np.float32(1e-5))
+
+    def walk(tree, coll):
+        out, is_bn = {}, 'scale' in tree
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, coll)
+                continue
+            v = np.asarray(v, np.float32)
+            if coll == 'batch_stats':
+                v = np.zeros_like(v) if k == 'mean' else np.full_like(v, var)
+            elif is_bn and k == 'bias':
+                v = np.zeros_like(v)
+            elif is_bn and k == 'scale':
+                v = (1.0 + 0.2 * rng.standard_normal(v.shape)) \
+                    .astype(np.float32)
+            out[k] = v
+        return out
+
+    return {coll: walk(tree, coll) for coll, tree in variables.items()}
