@@ -45,7 +45,7 @@ KERNELS = {
                    [_P] * 7 + [_I] * 9 + [_P]),
     'conv_chain_bf16': ('conv_chain', 'bpbreid_conv_chain_bf16',
                         [_P] * 9 + [_I] * 10 + [_P]),
-    'conv_s8': ('conv_s8', 'bpbreid_conv_s8', [_P] * 5 + [_I] * 15 + [_P]),
+    'conv_s8': ('conv_s8', 'bpbreid_conv_s8', [_P] * 5 + [_I] * 28 + [_P]),
     'quantize_s8': ('conv_s8', 'bpbreid_quantize_s8',
                     [_P, _P, _I, _P] + [_I] * 6 + [_P]),
 }

@@ -48,8 +48,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from bpbreid_tpu_torch.ops.cuda.conv_s8 import (conv_s8, pack_weight_s8,
-                                                quantize_s8)
+from bpbreid_tpu_torch.ops.cuda.conv_s8 import (conv_s8,
+                                                expand_grouped_weight_s8,
+                                                pack_weight_s8, quantize_s8)
 
 __all__ = ['int8_inference', 'int8_calibration', 'quant_mode', 'quant_conv',
            'QTensor', 'QuantOpts', 'quantize_static', 'dequantize',
@@ -316,10 +317,16 @@ def _fold_act_scale(weight, sx, groups):
 
 def quant_weights(weight, sx, groups, cp):
     """The conv_s8 operands of float OIHW weights for activation scale
-    ``sx``: ``(packed s8 [Co, k*k*Kc], sw f32 [Co])``."""
+    ``sx``: ``(packed s8 [Co, k*k*Kc], sw f32 [Co])``. On the card a
+    grouped conv's weights are expanded to the dense block-diagonal
+    ``[Co, k*k*Cp]`` that the kernel runs, so a cache keeps that form."""
     wq, sw = _quantize_weight_per_channel(
         _fold_act_scale(weight.float(), sx, groups))
-    return pack_weight_s8(wq, cp, groups), sw.contiguous()
+    packed = pack_weight_s8(wq, cp, groups)
+    if groups > 1 and packed.is_cuda:
+        packed = expand_grouped_weight_s8(packed, weight.shape[-1], cp,
+                                          weight.shape[1] * groups, groups)
+    return packed, sw.contiguous()
 
 
 class QuantWeightCache:

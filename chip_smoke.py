@@ -122,8 +122,14 @@ and Market-1501 + 500k distractors scale. Phases:
    distinct int8 conv shape of a batch and at ragged ones (Cin 3 and 40,
    Co 5 and 130, odd H and W, stride 2; bf16 and f32 with a bias), and
    ``quantize_s8`` bit-equal (per-tensor and per-channel, NCHW and
-   channels-last), with their times, bounds and library calls
-   (``F.conv2d`` bf16; ``torch._int_mm`` beside a 1x1 conv); (b)
+   channels-last), with their times (eager, and device: CUDA graphs),
+   bounds and library calls (``F.conv2d`` bf16; ``torch._int_mm`` beside a 1x1
+   conv), and a per-shape table: for each ``conv_s8`` and
+   ``quantize_s8`` call shape of an int8 step (recorded on one more
+   step), its launches a step, eager and device ms, bound, cuDNN's bf16
+   conv and ``torch._int_mm`` (1x1), the sums launches x ms beside the
+   profiler's device time a step (``int8_bench.py`` prints the same
+   table without the model, for two checkouts in one call); (b)
    calibration on 4 batches, then an int8 eval step launches one
    ``conv_s8`` per quantized PConv (counted from the model before the
    run), ``quantize_s8``, one ``bn_apply`` per eval-mode BN and one K2,
@@ -149,6 +155,7 @@ line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Needs one CUDA card.
 """
+import collections
 import json
 import os
 import re
@@ -206,6 +213,10 @@ BN_KERNEL_SYMBOLS = ('reduce_rows_kernel', 'reduce_cols_kernel',
                      'ewise_rows_kernel', 'ewise_cols_kernel')
 # K3 alone: the reductions of bn_stats and bn_grad_stats
 K3_KERNEL_SYMBOLS = BN_KERNEL_SYMBOLS[:2]
+# the kernels of conv_s8.cu, for the profiles' int8 device time
+INT8_KERNEL_SYMBOLS = {'conv_s8': ('conv_s8_kernel',),
+                       'quantize_s8': ('quantize_nchw_kernel',
+                                       'quantize_nhwc_kernel')}
 # bn_apply and bn_dx take the elementwise code that XLA fused around the
 # sums on the TPU (bpbreid_tpu/models/common.py)
 K3_REPLACES = {
@@ -432,17 +443,30 @@ def _time_bn_calls(torch, calls, plain=True, iters=5):
 
 def graph_ms(torch, fn, calls=20):
     """Device time per call of ``fn``, from a CUDA graph of ``calls``
-    calls: launches back to back, no host time between them."""
+    calls: launches back to back, no host time between them. ``fn`` may
+    be a list of functions, called in turn (each on its own inputs, so
+    that they are not in L2 when it runs again)."""
+    fns = fn if isinstance(fn, list) else [fn]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for f in fns:
+            f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        for i in range(calls):
+            fns[i % len(fns)]()
     return time_ms(graph.replay, torch, warmup=1, iters=3, repeats=3) / calls
+
+
+L2_FLUSH_BYTES = 128e6             # more than the H100's 50 MB L2
+
+
+def cold_copies(nbytes):
+    """Input copies to cycle through so that a call's inputs left L2
+    (at least ``L2_FLUSH_BYTES`` of other inputs between two uses)."""
+    return min(20, 1 + int(-(-L2_FLUSH_BYTES // max(nbytes, 1))))
 
 
 def _k3_errors(torch, got, want, scales):
@@ -831,6 +855,9 @@ def profile_steps(torch, step, steps=3):
                                      if by_name else 'not measured'),
             'k3_device_ms': (device_ms(K3_KERNEL_SYMBOLS) if by_name
                              else 'not measured'),
+            'int8_device_ms': ({k: device_ms(v) for k, v in
+                                INT8_KERNEL_SYMBOLS.items()} if by_name
+                               else 'not measured'),
             'device_kernel_launches': sum(c for _, c in by_name.values()),
             'top_kernels': [{'name': name[:100], 'ms': ms, 'calls': calls}
                             for name, (ms, calls) in top],
@@ -2675,13 +2702,21 @@ def _int8_kernel_checks(torch, conv_shapes):
     wb = wq.to(torch.bfloat16)
     row = {'shape': list(INT8_CONV_REPORT), 'max_abs_err': 0.0,
            'distinct_conv_shapes': len(conv_shapes), 'cases': n_cases}
-    row['ms'] = time_ms(lambda: conv_s8(xq, w, sw, None, k, stride, k // 2,
-                                        cin), torch)
+    # ms and library_ms: eager calls (CUDA events), as every kernel of the
+    # kernels line; device_ms and library_device_ms beside them (CUDA
+    # graphs: no host time between launches)
+    def call():
+        return conv_s8(xq, w, sw, None, k, stride, k // 2, cin)
+
+    def library():
+        return torch.nn.functional.conv2d(xb, wb, None, stride, k // 2)
+    row['ms'] = time_ms(call, torch)
+    row['device_ms'] = graph_ms(torch, call)
     row['plain_ms'] = time_ms(lambda: conv_s8_reference(
         xq, w, sw, None, k, stride, k // 2, cin), torch, warmup=1, iters=2,
         repeats=3)
-    row['library_ms'] = time_ms(lambda: torch.nn.functional.conv2d(
-        xb, wb, None, stride, k // 2), torch)
+    row['library_ms'] = time_ms(library, torch)
+    row['library_device_ms'] = graph_ms(torch, library)
     row['bound_ms'], row['bound_by'] = conv_s8_bound_ms(INT8_CONV_REPORT)
     rows['conv_s8'] = row
     del xq, w, xb, wb
@@ -2693,9 +2728,12 @@ def _int8_kernel_checks(torch, conv_shapes):
     b = wq.view(co, cin).t()
     rows['int_mm'] = {
         'shape': list(INT8_MM_REPORT),
-        'conv_s8_ms': time_ms(lambda: conv_s8(xq, w, sw, None, 1, 1, 0, cin),
-                              torch),
+        'conv_s8_ms': time_ms(lambda: conv_s8(xq, w, sw, None, 1, 1, 0,
+                                              cin), torch),
         'int_mm_ms': time_ms(lambda: torch._int_mm(a, b), torch),
+        'conv_s8_device_ms': graph_ms(torch, lambda: conv_s8(
+            xq, w, sw, None, 1, 1, 0, cin)),
+        'int_mm_device_ms': graph_ms(torch, lambda: torch._int_mm(a, b)),
         'bound_ms': conv_s8_bound_ms(INT8_MM_REPORT)[0]}
     del xq, w, a, b
     x = torch.randn(*INT8_QUANT_REPORT, device='cuda', generator=gen) \
@@ -2705,14 +2743,177 @@ def _int8_kernel_checks(torch, conv_shapes):
     rows['quantize_s8'] = {
         'shape': list(INT8_QUANT_REPORT), 'max_abs_err': 0.0,
         'ms': time_ms(lambda: quantize_s8(x, scale), torch),
+        'device_ms': graph_ms(torch, lambda: quantize_s8(x, scale)),
         'plain_ms': time_ms(lambda: quantize_s8_reference(x, scale), torch),
         'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
         # no one PyTorch call writes the padded NHWC s8 copy
         # (torch.quantize_per_tensor clips to -128 and keeps NCHW)
-        'library_ms': None}
+        'library_ms': None, 'library_device_ms': None}
     del x
     log('12a', json.dumps({k: v for k, v in rows.items()}))
     return rows
+
+
+def _record_int8_calls(torch, step):
+    """The ``conv_s8`` and ``quantize_s8`` calls of one ``step``, counted
+    by key: conv (N, Cin, H, W, Co, k, stride, padding, groups, out
+    dtype, bias), quantize (N, C, H, W, dtype, layout, per-channel)."""
+    import bpbreid_tpu_torch.ops.quant as quant
+    conv_calls, quant_calls = collections.Counter(), collections.Counter()
+    conv, quantize = quant.conv_s8, quant.quantize_s8
+
+    def rec_conv(xq, w, sw, bias=None, kernel_size=1, stride=1, padding=0,
+                 channels=None, groups=1, out_dtype=torch.bfloat16):
+        n, h, wd, cp = xq.shape
+        conv_calls[(n, channels or cp, h, wd, w.shape[0], kernel_size,
+                    stride, padding, groups, str(out_dtype)[6:],
+                    bias is not None)] += 1
+        return conv(xq, w, sw, bias, kernel_size, stride, padding, channels,
+                    groups, out_dtype)
+
+    def rec_quant(x, scale):
+        layout = 'nhwc' if (not x.is_contiguous() and x.is_contiguous(
+            memory_format=torch.channels_last)) else 'nchw'
+        quant_calls[tuple(x.shape) + (str(x.dtype)[6:], layout,
+                                      scale.numel() > 1)] += 1
+        return quantize(x, scale)
+    quant.conv_s8, quant.quantize_s8 = rec_conv, rec_quant
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        quant.conv_s8, quant.quantize_s8 = conv, quantize
+    return conv_calls, quant_calls
+
+
+def serving_step_int8_calls():
+    """The int8 serving step's ``conv_s8`` and ``quantize_s8`` calls
+    (``ops/cuda/conv_s8.py SERVING_STEP_CONVS`` and
+    ``SERVING_STEP_QUANTS``), keyed as ``_record_int8_calls`` keys them."""
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import (SERVING_STEP_CONVS,
+                                                    SERVING_STEP_QUANTS)
+    conv_calls = collections.Counter(
+        {key + (1, 'bfloat16', False): n
+         for key, n in SERVING_STEP_CONVS.items()})
+    quant_calls = collections.Counter(
+        {key[:4] + ('bfloat16', key[4], False): n
+         for key, n in SERVING_STEP_QUANTS.items()})
+    return conv_calls, quant_calls
+
+
+def quantize_s8_bound_ms(shape, dtype_bytes):
+    n, c, h, w = shape
+    nbytes = n * c * h * w * dtype_bytes + n * h * w * (-(-c // 32) * 32)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _int8_shape_table(torch, conv_calls, quant_calls, prof=None):
+    """Phase 12a's per-shape table: for each ``conv_s8`` call shape of an
+    int8 step, its launches a step, the kernel's ms over back-to-back
+    eager calls (CUDA events, ``time_ms``: the host's launch cost shows at
+    small shapes), its device ms (``graph_ms``: a CUDA graph of 20
+    calls, inputs warm in L2) and its device ms with inputs out of L2 (the
+    graph cycling through copies, as in a step where the input was
+    written long before), its bound, cuDNN's bf16 ``F.conv2d`` device ms at the same
+    shape and, for a 1x1 stride-1 conv, ``torch._int_mm``'s on the
+    ``[N*H*W, Cin] x [Cin, Co]`` view; the same for each ``quantize_s8``
+    call shape and layout; the sums of launches x ms, launches x device
+    ms and launches x bound, beside the profiler's device time a step
+    (``prof``, ``profile_steps``' result, where given)."""
+    import torch.nn.functional as F
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import conv_s8, quantize_s8
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
+    conv_rows, quant_rows = [], []
+    for key, launches in sorted(conv_calls.items()):
+        n, cin, h, wd, co, k, stride, pad, groups, dt, has_bias = key
+        shape = (n, cin, h, wd, co, k, stride)
+        xq, w, sw, wq = _s8_conv_case(torch, gen, shape)
+        bias = torch.randn(co, device='cuda', generator=gen) \
+            if has_bias else None
+        out_dtype = getattr(torch, dt)
+        row = {'shape': list(shape), 'padding': pad, 'out_dtype': dt,
+               'bias': has_bias, 'launches': launches}
+        def call(x=xq):
+            return conv_s8(x, w, sw, bias, k, stride, pad, cin,
+                           out_dtype=out_dtype)
+        row['ms'] = time_ms(call, torch)
+        row['device_ms'] = graph_ms(torch, call)
+        copies = [xq.clone() for _ in range(cold_copies(xq.nbytes))]
+        row['cold_ms'] = graph_ms(torch, [lambda x=x: call(x)
+                                          for x in copies])
+        del copies
+        row['bound_ms'], row['bound_by'] = conv_s8_bound_ms(shape)
+        xb = torch.randn(n, cin, h, wd, device='cuda', generator=gen) \
+            .to(torch.bfloat16)
+        wb = wq.to(torch.bfloat16)
+        row['cudnn_bf16_ms'] = graph_ms(torch, lambda: F.conv2d(
+            xb, wb, None, stride, pad))
+        row['int_mm_ms'] = None
+        if k == 1 and stride == 1 and cin == xq.shape[-1] and co % 8 == 0:
+            a, b = xq.view(-1, cin), wq.view(co, cin).t()
+            row['int_mm_ms'] = graph_ms(torch, lambda: torch._int_mm(a, b))
+        conv_rows.append(row)
+        log('12a conv_s8 {} x{}: {:.4f} ms device ({:.4f} inputs out of '
+            'L2, {:.4f} eager), bound {:.4f} ms ({}), cuDNN bf16 {:.4f} '
+            'ms{}'.format(
+                shape, launches, row['device_ms'], row['cold_ms'], row['ms'],
+                row['bound_ms'], row['bound_by'], row['cudnn_bf16_ms'],
+                '' if row['int_mm_ms'] is None else
+                ', _int_mm {:.4f} ms'.format(row['int_mm_ms'])))
+        del xq, w, xb, wb
+    for key, launches in sorted(quant_calls.items()):
+        n, c, h, wd, dt, layout, per_channel = key
+        dtype = getattr(torch, dt)
+        fmt = (torch.channels_last if layout == 'nhwc'
+               else torch.contiguous_format)
+        # a ReLU's output (about half zeros), as most quantized
+        # activations of the step
+        x = torch.relu(3 * torch.randn(n, c, h, wd, device='cuda',
+                                       generator=gen)).to(dtype).contiguous(
+            memory_format=fmt)
+        scale = torch.rand(c if per_channel else 1, device='cuda',
+                           generator=gen) * 0.05 + 0.01
+        # N(0, 1) values, no zeros (the kernels line's input), beside it
+        xn = torch.randn(n, c, h, wd, device='cuda', generator=gen).to(
+            dtype).contiguous(memory_format=fmt)
+        row = {'shape': [n, c, h, wd], 'dtype': dt, 'layout': layout,
+               'per_channel': per_channel, 'launches': launches,
+               'ms': time_ms(lambda: quantize_s8(x, scale), torch),
+               'device_ms': graph_ms(torch, lambda: quantize_s8(x, scale)),
+               'normal_device_ms': graph_ms(torch,
+                                            lambda: quantize_s8(xn, scale)),
+               'cold_ms': graph_ms(torch, [
+                   lambda xc=xc: quantize_s8(xc, scale) for xc in
+                   [x.clone(memory_format=torch.preserve_format)
+                    for _ in range(cold_copies(x.nbytes))]]),
+               'bound_ms': quantize_s8_bound_ms((n, c, h, wd),
+                                                x.element_size()),
+               'bound_by': 'bytes'}
+        quant_rows.append(row)
+        log('12a quantize_s8 {} {} {} x{}: {:.4f} ms device ({:.4f} inputs '
+            'out of L2, {:.4f} eager, {:.4f} on N(0, 1) values), bound '
+            '{:.4f} ms'.format(row['shape'], dt, layout, launches,
+                               row['device_ms'], row['cold_ms'], row['ms'],
+                               row['normal_device_ms'], row['bound_ms']))
+        del x, xn
+    dev = prof['int8_device_ms'] if prof else None
+    out = {'conv_s8': conv_rows, 'quantize_s8': quant_rows}
+    for name, rows in list(out.items()):
+        out[name + '_sums'] = {
+            'launches': sum(r['launches'] for r in rows),
+            'shapes': len(rows),
+            'launches_x_ms': sum(r['launches'] * r['ms'] for r in rows),
+            'launches_x_device_ms': sum(r['launches'] * r['device_ms']
+                                        for r in rows),
+            'launches_x_cold_ms': sum(r['launches'] * r['cold_ms']
+                                      for r in rows),
+            'launches_x_bound_ms': sum(r['launches'] * r['bound_ms']
+                                       for r in rows),
+            'profiler_device_ms_per_step': (
+                dev[name] / prof['steps'] if isinstance(dev, dict)
+                else 'not measured')}
+        log('12a', name, json.dumps(out[name + '_sums']))
+    return out
 
 
 def _exact_bn(torch, model):
@@ -2800,7 +3001,6 @@ def phase_int8(torch, results):
     from bpbreid_tpu_torch.models.common import FastBatchNorm, PConv
     from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
                                                   reset_launch_counts)
-    from bpbreid_tpu_torch.ops.quant import QTensor
     from bpbreid_tpu_torch.tools import FeatureExtractor
     t_phase = time.perf_counter()
     out, checks, path_counts = {}, [], {}
@@ -2833,18 +3033,9 @@ def phase_int8(torch, results):
     # warm-up: fills the weight caches (one quantize of each conv's
     # weights, outside the counted run)
     engine.eval_step(imgs, masks, opts)
-    shapes = set()
-
-    def record(mod, args):
-        x = args[0]
-        if mod.quant and not any(p in mod.quant_path for p in skip):
-            n, c, h, w = x.shape if isinstance(x, QTensor) else x.shape
-            shapes.add((n, c, h, w, mod.weight.shape[0],
-                        mod.weight.shape[-1], mod.stride))
     bn_calls = []
-    hooks = [m.register_forward_pre_hook(record) for m in pconvs]
-    hooks += [m.register_forward_pre_hook(lambda *_: bn_calls.append(1))
-              for m in model.modules() if isinstance(m, FastBatchNorm)]
+    hooks = [m.register_forward_pre_hook(lambda *_: bn_calls.append(1))
+             for m in model.modules() if isinstance(m, FastBatchNorm)]
     torch.cuda.synchronize()
     reset_launch_counts()
     feats8, vis8 = engine.eval_step(imgs, masks, opts)[:2]
@@ -2868,6 +3059,16 @@ def phase_int8(torch, results):
             step_counts.get('attention_pool', 0)))
     if not step_counts.get('quantize_s8', 0):
         checks.append('no quantize_s8 launch')
+    # the int8 kernels' calls of one more step, by shape (not counted)
+    conv_calls, quant_calls = _record_int8_calls(
+        torch, lambda: engine.eval_step(imgs, masks, opts))
+    shapes = {key[:7] for key in conv_calls}
+    if sum(conv_calls.values()) != n_int8:
+        checks.append('{} conv_s8 calls recorded, {} launched'.format(
+            sum(conv_calls.values()), n_int8))
+    if (conv_calls, quant_calls) != serving_step_int8_calls():
+        checks.append('the step\'s int8 calls differ from SERVING_STEP_CONVS '
+                      'and SERVING_STEP_QUANTS')
     # the convs that reach cuDNN (profiler op names)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -2958,6 +3159,8 @@ def phase_int8(torch, results):
     out['cli'] = cli
     out['card_vs_cpu'] = _int8_card_vs_cpu(torch)
     out['kernels'] = _int8_kernel_checks(torch, shapes)
+    out['per_shape'] = _int8_shape_table(torch, conv_calls, quant_calls,
+                                         out['profile_int8'])
     out['phase_s'] = time.perf_counter() - t_phase
     results['int8'] = out
     if checks:
@@ -3075,7 +3278,9 @@ def main():
             'launches': int8_launches.get(name, 0),
             'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
             'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
-            'bound_by': row['bound_by'], 'library_ms': row['library_ms']})
+            'bound_by': row['bound_by'], 'library_ms': row['library_ms'],
+            'device_ms': row['device_ms'],
+            'library_device_ms': row['library_device_ms']})
     results['kernels'] = kernels
     results['script_s'] = time.perf_counter() - t_script
     unlaunched = [k['name'] for k in kernels if not k['launches']]
@@ -3163,7 +3368,10 @@ def main():
         'card_vs_cpu': q['card_vs_cpu'],
         'cli': {k: {'mAP': v['mAP'], 'rank1': v['rank1']}
                 for k, v in q['cli'].items()},
-        'int_mm': q['kernels']['int_mm'], 'phase_s': q['phase_s'],
+        'int_mm': q['kernels']['int_mm'],
+        'per_step': {k: q['per_shape'][k + '_sums']
+                     for k in ('conv_s8', 'quantize_s8')},
+        'phase_s': q['phase_s'],
         'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

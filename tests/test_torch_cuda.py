@@ -640,10 +640,24 @@ def test_ranking_grid_from_card_tensors(cuda, tmp_path):
 
 
 # int8 eval (conv_s8.cu): (N, Cin, H, W, Co, kernel, stride), main-path
-# branch convs and ragged ones (Cin 3 and 40, Co 5, odd H and W, stride 2)
+# branch convs and ragged ones (Cin 3 and 40, Co 5, odd H and W, stride 2);
+# the four HRNet-W32 branch 3x3s of the int8 serving step at its batch;
+# its strided fuse and transition convs and layer1's 1x1s at batch 16;
+# halo edge cases: N = 1, Ho and Wo not multiples of the tile, odd H and
+# W at stride 2, Cp 32 to 1024, Co not a multiple of the tile's channels
 S8_CONV_SHAPES = [(64, 32, 96, 32, 32, 3, 1), (8, 256, 24, 8, 64, 1, 1),
                   (2, 3, 17, 9, 64, 3, 2), (3, 40, 7, 5, 5, 3, 1),
-                  (2, 64, 13, 11, 130, 1, 2), (1, 96, 6, 4, 72, 3, 2)]
+                  (2, 64, 13, 11, 130, 1, 2), (1, 96, 6, 4, 72, 3, 2),
+                  (64, 64, 48, 16, 64, 3, 1), (64, 128, 24, 8, 128, 3, 1),
+                  (64, 256, 12, 4, 256, 3, 1),
+                  (16, 32, 96, 32, 64, 3, 2), (16, 32, 96, 32, 32, 3, 2),
+                  (16, 32, 48, 16, 128, 3, 2), (16, 64, 48, 16, 128, 3, 2),
+                  (16, 128, 24, 8, 256, 3, 2), (16, 256, 96, 32, 32, 3, 1),
+                  (16, 256, 96, 32, 64, 3, 2), (16, 64, 96, 32, 256, 1, 1),
+                  (16, 256, 96, 32, 64, 1, 1), (16, 256, 12, 4, 1024, 1, 1),
+                  (1, 32, 97, 33, 33, 3, 1), (2, 64, 25, 9, 96, 3, 2),
+                  (1, 1024, 13, 5, 200, 1, 1), (2, 512, 25, 9, 96, 3, 2),
+                  (1, 160, 3, 130, 40, 3, 1)]
 
 
 def _s8_conv_inputs(cuda, shape, seed):
@@ -684,7 +698,9 @@ def test_conv_s8_kernel_matches_plain(cuda, shape, out_dtype):
 
 
 @pytest.mark.parametrize('shape', [(64, 32, 96, 32), (3, 5, 7, 9),
-                                   (2, 70, 13, 1)])
+                                   (2, 70, 13, 1), (64, 256, 96, 32),
+                                   (2, 100, 11, 13), (3, 96, 9, 16),
+                                   (2, 36, 8, 8), (1, 1920, 3, 8)])
 @pytest.mark.parametrize('per_channel', [False, True])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_quantize_s8_kernel_matches_plain(cuda, shape, per_channel, dtype):
@@ -694,8 +710,10 @@ def test_quantize_s8_kernel_matches_plain(cuda, shape, per_channel, dtype):
                                                     quantize_s8_reference)
     gen = torch.Generator(device=cuda).manual_seed(1)
     x = (3 * torch.randn(*shape, device=cuda, generator=gen)).to(dtype)
-    # values on the rounding ties of the scale
+    # values on the rounding ties of the scale, zeros and negative zeros
     x.view(-1)[:64] = (torch.arange(64, device=cuda) - 32.5).to(dtype) * 0.5
+    x.view(-1)[64:80] = 0.0
+    x.view(-1)[80:96] = -0.0
     c = shape[1]
     scale = (torch.rand(c if per_channel else 1, device=cuda,
                         generator=gen) * 0.05 + 0.01)
@@ -709,11 +727,105 @@ def test_quantize_s8_kernel_matches_plain(cuda, shape, per_channel, dtype):
     assert not want[..., c:].any()
 
 
+@pytest.mark.parametrize('shape', [(4, 32, 24, 16, 32, 3, 1),
+                                   (3, 64, 13, 16, 96, 3, 2),
+                                   (2, 128, 12, 8, 64, 1, 1)])
+def test_conv_s8_other_tile_plans_are_bit_equal(cuda, shape):
+    """Plans other than the planner's (``conv_s8(..., plan=)``, as
+    int8_bench.py --box-rows times them): box rows grouped or one pixel's
+    channels, other chunks, stages, tiles and channel blocks; each laid out
+    by ``conv_layout`` and bit-equal to the plain version."""
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import (
+        check_conv_plan, conv_s8, conv_s8_reference, plan_conv_tiles)
+    xq, w, sw, bias = _s8_conv_inputs(cuda, shape, 4)
+    n, cin, h, wd, co, k, stride = shape
+    cp = xq.shape[-1]
+    want = conv_s8_reference(xq, w, sw, bias, k, stride, k // 2, cin)
+    base = plan_conv_tiles(n, h, wd, cp, co, k, stride, k // 2)
+    plans = {base, base._replace(grouped=not base.grouped),
+             base._replace(stages=5 - base.stages),
+             base._replace(th=base.th * base.tw // 8, tw=8),
+             base._replace(bn=96 - base.bn)}
+    plans |= {base._replace(kc=kc, grouped=False) for kc in (32, 64, 128)
+              if cp % kc == 0}
+    tried = 0
+    for plan in plans:
+        try:
+            check_conv_plan(plan, k, stride, k // 2, cp, wd)
+        except ValueError:
+            continue
+        got = conv_s8(xq, w, sw, bias, k, stride, k // 2, cin, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+        tried += 1
+    assert tried >= 4
+
+
+def test_conv_s8_entry_point_checks_the_layout_it_is_given(cuda):
+    """The C entry point takes ``conv_layout``'s layout as given and
+    refuses one whose regions cannot hold what the kernel stores there
+    (cudaErrorInvalidValue), launching nothing."""
+    from bpbreid_tpu_torch.ops.cuda.build import load_kernel
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import conv_layout, plan_conv_tiles
+    shape = (2, 32, 16, 16, 32, 3, 1)
+    xq, w, sw, _ = _s8_conv_inputs(cuda, shape, 5)
+    n, cin, h, wd, co, k, stride = shape
+    plan = plan_conv_tiles(n, h, wd, 32, co, k, stride, 1)
+    good = conv_layout(plan, k, stride, 1, 32)
+    y = torch.zeros(n, co, h, wd, dtype=torch.bfloat16, device=cuda)
+    _, fn = load_kernel('conv_s8')
+
+    def launch(layout):
+        code = fn(xq.data_ptr(), w.data_ptr(), sw.data_ptr(), None,
+                  y.data_ptr(), n, h, wd, 32, co, h, wd, k, stride, 1, 1,
+                  *plan[:5], int(plan.grouped), *layout,
+                  torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return code
+    assert launch(good) == 0 and y.abs().sum() > 0
+    y.zero_()
+    for bad in (good._replace(smem=good.bar_offset),
+                good._replace(tile_offset=good.b_offset),
+                good._replace(box_rows=good.box_rows - 1),
+                good._replace(halo_bytes=good.halo_bytes - 1024),
+                good._replace(b_ld=good.b_ld - 32),
+                good._replace(smem=232448 + 1024)):
+        assert launch(bad) == 1         # cudaErrorInvalidValue
+    assert not y.any()
+
+
 def test_conv_s8_refuses_groups_and_bad_inputs_on_the_card(cuda):
-    from bpbreid_tpu_torch.ops.cuda.conv_s8 import conv_s8
+    """Grouped convs (ResNeXt's Bottleneck.conv2) now run on the card as
+    one dense launch over block-diagonal weights, bit-equal to the plain
+    grouped version, from the grouped packing and from the expanded one
+    (what the int8 weight cache keeps); bad inputs are still refused."""
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    from bpbreid_tpu_torch.ops.cuda.conv_s8 import (
+        conv_s8, conv_s8_reference, expand_grouped_weight_s8, pack_weight_s8)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for n, cin, hw, co, k, stride, groups in ((2, 64, 9, 64, 3, 1, 2),
+                                              (2, 128, 12, 128, 3, 2, 32),
+                                              (3, 96, 7, 48, 1, 1, 4)):
+        cp = -(-cin // 32) * 32
+        xq = torch.zeros(n, hw, hw, cp, dtype=torch.int8, device=cuda)
+        xq[..., :cin] = torch.randint(-127, 128, (n, hw, hw, cin),
+                                      device=cuda, generator=gen)
+        wq = torch.randint(-127, 128, (co, cin // groups, k, k), device=cuda,
+                           generator=gen).to(torch.int8)
+        w = pack_weight_s8(wq, cp, groups)
+        sw = torch.rand(co, device=cuda, generator=gen) * 1e-3
+        want = conv_s8_reference(xq.cpu(), w.cpu(), sw.cpu(), None, k,
+                                 stride, k // 2, cin, groups)
+        dense = expand_grouped_weight_s8(w, k, cp, cin, groups)
+        for wk in (w, dense):
+            before = launch_counts['conv_s8']
+            got = conv_s8(xq, wk, sw, None, k, stride, k // 2, cin, groups)
+            torch.cuda.synchronize()
+            assert launch_counts['conv_s8'] == before + 1
+            assert torch.equal(got.cpu(), want)
     xq, w, sw, _ = _s8_conv_inputs(cuda, (2, 64, 8, 8, 64, 1, 1), 2)
-    with pytest.raises(NotImplementedError, match='grouped'):
-        conv_s8(xq, w, sw, None, 1, 1, 0, 64, groups=2)
+    with pytest.raises(ValueError):
+        conv_s8(xq, w, sw, None, 1, 1, 0, 64, groups=3)
     with pytest.raises(ValueError):
         conv_s8(xq[..., :48].contiguous(), w, sw, None, 1, 1, 0, 48)
     with pytest.raises(ValueError):
