@@ -19,13 +19,21 @@ import numpy as np
 import torch
 
 from bpbreid_tpu_torch.utils.avgmeter import MetricsSummary, TimeMeter
+from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
 from bpbreid_tpu_torch.utils.engine_state import EngineState
 
-__all__ = ['Engine', 'device_prefetch']
+__all__ = ['Engine', 'device_prefetch', 'normalize']
 
 DEVICE_KEYS = ('image', 'mask', 'pid')
 # batches copied ahead of the one the step reads
 PREFETCH_DEPTH = 2
+
+
+def normalize(features, dim=-1):
+    """L2-normalize along ``dim`` in f32 (JAX ``Engine.normalize``
+    :352)."""
+    f = features.float()
+    return f / f.norm(dim=dim, keepdim=True).clamp(min=1e-12)
 
 
 def device_prefetch(loader, device, keys=DEVICE_KEYS):
@@ -89,7 +97,9 @@ def device_prefetch(loader, device, keys=DEVICE_KEYS):
 
 class Engine:
     """The host control flow of training and testing; subclasses supply
-    ``forward_backward``, ``_evaluate`` and ``save_model``."""
+    ``forward_backward`` (through ``optimizer_step``) and ``_evaluate``,
+    and set ``model``, ``optimizer``, ``scheduler``, ``open_layers`` and
+    ``save_model_flag``."""
 
     def __init__(self, config=None, datamanager=None, writer=None,
                  engine_state=None):
@@ -103,6 +113,11 @@ class Engine:
         self.max_epoch = stop
         self.scheduler = None
         self._preempted = False
+        # what the shared train-step parts read; subclasses set them
+        self.model = self.optimizer = None
+        self.open_layers = []
+        self._freeze_base = False
+        self.save_model_flag = False
 
     def _request_preemption(self, signum=None, frame=None):
         del frame
@@ -136,15 +151,59 @@ class Engine:
                   gallery_loader=None, **kwargs):
         raise NotImplementedError
 
+    # ------------------------------------------------------------------
+    # the train step's and the checkpoints' shared parts
+    # ------------------------------------------------------------------
     def set_freeze_base(self, freeze):
-        """Two-stepped transfer learning: train only ``open_layers``."""
+        """Two-stepped transfer learning: while frozen, only parameters
+        named by ``open_layers`` get their gradient; the others get zeros
+        (the optimizer still applies weight decay to them, as the JAX
+        step does)."""
+        self._freeze_base = bool(freeze)
 
     def apply_lr(self, epoch):
-        pass
+        """Set the optimizer's learning rate for ``epoch``."""
+        if self.scheduler is not None and self.optimizer is not None:
+            self.scheduler.set_in_optimizer(self.optimizer, epoch)
+
+    def require_optimizer(self):
+        """Raise for a train step of an engine built without an
+        optimizer."""
+        if self.optimizer is None:
+            raise RuntimeError('the engine has no optimizer: build it with '
+                               'one to train')
+
+    def optimizer_step(self, loss):
+        """Backward of ``loss``, the frozen-base gradient mask, then the
+        optimizer's step. A parameter with no path to the loss gets a zero
+        gradient, as JAX gives, so the optimizer's weight decay and
+        moments still apply to it."""
+        self.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        for name, p in self.model.named_parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif self._freeze_base and not any(ol in name
+                                               for ol in self.open_layers):
+                p.grad.zero_()
+        self.optimizer.step()
 
     def save_model(self, epoch, save_dir, cmc=None, mAP=None, ssmd=None,
                    is_best=False, force=False):
-        pass
+        """Write a checkpoint (``utils/checkpoint.py``) when
+        ``save_model_flag`` or ``force`` (preemption) is set; returns its
+        path or None."""
+        if not self.save_model_flag and not force:
+            return None
+        meta = {'epoch': epoch,
+                'rank1': float(cmc[0]) if cmc is not None else None,
+                'mAP': float(mAP) if mAP is not None else None,
+                'ssmd': float(ssmd) if ssmd is not None else None,
+                'config': (self.config.to_dict()
+                           if self.config is not None else None)}
+        job_id = self.config.project.job_id if self.config is not None else 0
+        return save_checkpoint(self.model, self.optimizer, meta, save_dir,
+                               job_id=job_id, epoch=epoch, is_best=is_best)
 
     def update_lr(self, epoch):
         if self.scheduler is None:

@@ -54,7 +54,8 @@ from bpbreid_tpu_torch.constants import (PIXELS, bn_correspondants,
 from bpbreid_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
                                             eval_preprocess,
                                             sample_train_draws, train_augment)
-from bpbreid_tpu_torch.engine.engine import Engine, device_prefetch
+from bpbreid_tpu_torch.engine.engine import (Engine, device_prefetch,
+                                             normalize)
 from bpbreid_tpu_torch.losses.bpa import BodyPartAttentionLoss
 from bpbreid_tpu_torch.losses.gilt import GiLtLoss
 from bpbreid_tpu_torch.metrics.distance import \
@@ -65,7 +66,6 @@ from bpbreid_tpu_torch.ops.quant import (QuantOpts, clear_calibration,
                                          int8_calibration)
 from bpbreid_tpu_torch.ops.ranking import cmc_map, cmc_map_counting
 from bpbreid_tpu_torch.ops.resize import resize_bilinear_align_corners
-from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
 from bpbreid_tpu_torch.utils.distribution import (
     compute_ssmd, plot_pairs_distance_distribution)
 from bpbreid_tpu_torch.utils.rerank import re_ranking
@@ -73,12 +73,6 @@ from bpbreid_tpu_torch.utils.visualization.rankings import \
     visualize_ranking_grid
 
 __all__ = ['ImagePartBasedEngine', 'normalize', 'refuse_unported_test_options']
-
-
-def normalize(features, dim=-1):
-    """L2-normalize along ``dim`` in f32 (engine/engine.py:352)."""
-    f = features.float()
-    return f / f.norm(dim=dim, keepdim=True).clamp(min=1e-12)
 
 
 def refuse_unported_test_options(vis_embedding_projection=False):
@@ -147,7 +141,6 @@ class ImagePartBasedEngine(Engine):
         self.transforms = tuple(transforms)
         self.cj = dict(cj or {})
         self.open_layers = list(open_layers or [])
-        self._freeze_base = False
         self.generator = torch.Generator(self.device).manual_seed(seed)
         # the after-pooling dropout draws its masks from this generator
         set_dropout_generator(model, self.generator)
@@ -211,34 +204,6 @@ class ImagePartBasedEngine(Engine):
     # ------------------------------------------------------------------
     # train step
     # ------------------------------------------------------------------
-    def set_freeze_base(self, freeze):
-        """While frozen, only parameters named by ``open_layers`` get
-        their gradient; the others get zeros (the optimizer still
-        applies weight decay to them, as the JAX step does)."""
-        self._freeze_base = bool(freeze)
-
-    def apply_lr(self, epoch):
-        """Set the optimizer's learning rate for ``epoch``."""
-        if self.scheduler is not None and self.optimizer is not None:
-            self.scheduler.set_in_optimizer(self.optimizer, epoch)
-
-    def save_model(self, epoch, save_dir, cmc=None, mAP=None, ssmd=None,
-                   is_best=False, force=False):
-        """Write a checkpoint (``utils/checkpoint.py``) when
-        ``save_model_flag`` or ``force`` (preemption) is set; returns its
-        path or None."""
-        if not self.save_model_flag and not force:
-            return None
-        meta = {'epoch': epoch,
-                'rank1': float(cmc[0]) if cmc is not None else None,
-                'mAP': float(mAP) if mAP is not None else None,
-                'ssmd': float(ssmd) if ssmd is not None else None,
-                'config': (self.config.to_dict()
-                           if self.config is not None else None)}
-        job_id = self.config.project.job_id if self.config is not None else 0
-        return save_checkpoint(self.model, self.optimizer, meta, save_dir,
-                               job_id=job_id, epoch=epoch, is_best=is_best)
-
     def loss_fn(self, outputs, masks, pids):
         """GiLt + bpa_w * BPA of the train-mode model outputs; the BPA
         target is the grouped masks resized to the pixel logits' grid
@@ -264,9 +229,7 @@ class ImagePartBasedEngine(Engine):
         (``data.augment.sample_train_draws``), taken from the engine's
         generator when None. Returns ``(loss, summary)`` as tensors on
         the device (no host sync)."""
-        if self.optimizer is None:
-            raise RuntimeError('the engine has no optimizer: build it with '
-                               'one to train')
+        self.require_optimizer()
         imgs_u8 = torch.as_tensor(batch['image']).to(self.device)
         raw_masks = torch.as_tensor(batch['mask']).to(self.device) \
             if batch.get('mask') is not None else None
@@ -281,17 +244,7 @@ class ImagePartBasedEngine(Engine):
                                     mask_kwargs=self.mask_kwargs)
         self.model.train()
         loss, summary = self.loss_fn(self.model(imgs, masks), masks, pids)
-        self.optimizer.zero_grad(set_to_none=False)
-        loss.backward()
-        for name, p in self.model.named_parameters():
-            if p.grad is None:
-                # no path to the loss: a zero gradient, as JAX gives, so
-                # the optimizer's weight decay and moments still apply
-                p.grad = torch.zeros_like(p)
-            elif self._freeze_base and not any(ol in name
-                                               for ol in self.open_layers):
-                p.grad.zero_()
-        self.optimizer.step()
+        self.optimizer_step(loss)
         return loss.detach(), summary
 
     @torch.inference_mode()

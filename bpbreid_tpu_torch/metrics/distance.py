@@ -1,16 +1,51 @@
-"""Part-based query-gallery distance matrices (port of
-bpbreid_tpu/metrics/distance.py:71-193).
+"""Global and part-based query-gallery distance matrices (port of
+bpbreid_tpu/metrics/distance.py).
 
-Per-part distances are one batched matmul (``[K, Nq, Ng]``); the
-gallery is processed in chunks of ``batch_size_pairwise_dist_matrix``
-to bound device memory. Pairs with no mutually visible part get the
-``-1`` sentinel, later replaced by ``max + 1`` so they rank last.
+Global: one matmul between two ``[M, D]`` and ``[N, D]`` feature
+matrices, the squared euclidean distance or 1 - cosine similarity
+(``compute_distance_matrix`` :50). Per-part distances are one batched
+matmul (``[K, Nq, Ng]``); the gallery is processed in chunks of
+``batch_size_pairwise_dist_matrix`` to bound device memory. Pairs with
+no mutually visible part get the ``-1`` sentinel, later replaced by
+``max + 1`` so they rank last.
 """
 import torch
 
 from bpbreid_tpu_torch.ops.tensortools import masked_mean, replace_values
 
-__all__ = ['compute_distance_matrix_using_bp_features']
+__all__ = ['compute_distance_matrix', 'euclidean_squared_distance',
+           'cosine_distance', 'compute_distance_matrix_using_bp_features']
+
+
+def euclidean_squared_distance(input1, input2):
+    """``[M, D]``, ``[N, D]`` -> ``[M, N]`` squared euclidean distances in
+    f32."""
+    a, b = input1.float(), input2.float()
+    return (a * a).sum(dim=1, keepdim=True) - 2.0 * (a @ b.T) \
+        + (b * b).sum(dim=1)[None, :]
+
+
+def cosine_distance(input1, input2):
+    """1 - the cosine similarity of the L2-normalized rows, in f32."""
+    a, b = input1.float(), input2.float()
+    a = a / a.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    b = b / b.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    return 1.0 - a @ b.T
+
+
+def compute_distance_matrix(input1, input2, metric='euclidean'):
+    """Distance matrix between two 2-D feature matrices on one device."""
+    if input1.dim() != 2 or input2.dim() != 2:
+        raise ValueError('Expected 2-D tensors, got {}-D and {}-D'.format(
+            input1.dim(), input2.dim()))
+    if input1.shape[1] != input2.shape[1]:
+        raise ValueError('Feature dims mismatch: {} vs {}'.format(
+            input1.shape[1], input2.shape[1]))
+    if metric == 'euclidean':
+        return euclidean_squared_distance(input1, input2)
+    if metric == 'cosine':
+        return cosine_distance(input1, input2)
+    raise ValueError('Unknown distance metric: {}'.format(metric))
 
 
 def _part_dist_matrices(qf, gf, metric='euclidean'):

@@ -24,10 +24,12 @@ classifier's virtual multires statistics, the binary training
 visibility, and no test-time mask refinement. The fused K2 kernel has no
 backward: on the card it refuses inputs that require grad.
 
-Backbones: HRNet-W32 and the ResNet family (``models/resnet.py``). The
-multires path is HRNet's; a ResNet backbone returns one map, which a
-``before_pooling`` dim-reduce (1x1 conv + BN + ReLU) shrinks when its
-width differs from ``dim_reduce_output``.
+Backbones: every feature-map model of the registry
+(``models.BACKBONES``: HRNet-W32, the ResNets, the OSNets, the IBN-Net
+ResNets, ResNet-mid and the fastreid trunks). The multires path is
+HRNet's; another backbone returns one map, which a ``before_pooling``
+dim-reduce (1x1 conv + BN + ReLU) shrinks when its width differs from
+``dim_reduce_output``.
 
 PCB stripes (``horizontal_stripes``; the ``pcb`` and ``bot``
 constructors, and ``masks.type: 'stripes'`` configs): the attention is a
@@ -52,10 +54,9 @@ import torch.nn.functional as F
 from bpbreid_tpu_torch.constants import (
     BACKGROUND, BN_BACKGROUND, BN_CONCAT_PARTS, BN_FOREGROUND, BN_GLOBAL,
     BN_PARTS, CONCAT_PARTS, FOREGROUND, GLOBAL, PARTS)
+from bpbreid_tpu_torch.models import BACKBONES
 from bpbreid_tpu_torch.models.common import (BN_EPS, BN_MOMENTUM, Dense,
                                              FastBatchNorm, PConv)
-from bpbreid_tpu_torch.models.hrnet import hrnet32
-from bpbreid_tpu_torch.models.resnet import RESNETS
 from bpbreid_tpu_torch.ops.cuda.pooling import fused_attention_pool
 from bpbreid_tpu_torch.ops.masks import pcb_stripe_masks
 from bpbreid_tpu_torch.ops.pooling import parts_pooling
@@ -269,11 +270,10 @@ class BPBreID(nn.Module):
                  multires_pooling=True, backbone_stages=None,
                  dtype=torch.float32):
         super().__init__()
-        if backbone != 'hrnet32' and backbone not in RESNETS:
+        if backbone not in BACKBONES:
             raise NotImplementedError(
-                "backbone '{}' is not ported yet (ported: hrnet32, {}; "
-                "ROADMAP Queue 1 item 9)".format(backbone,
-                                                 ', '.join(RESNETS)))
+                "backbone '{}' is not ported yet (ROADMAP Queue 1 item 9; "
+                "ported: {})".format(backbone, ', '.join(BACKBONES)))
         if normalization != 'identity':
             raise NotImplementedError(
                 "pooling normalization '{}' is not supported (the reference "
@@ -300,18 +300,19 @@ class BPBreID(nn.Module):
                          and pooling in ('gwap', 'gap')
                          and dim_reduce != 'before_pooling')
 
-        if self.hrnet:
-            self.backbone_appearance_feature_extractor = hrnet32(
-                enable_dim_reduction=(dim_reduce == 'before_pooling'),
-                dim_reduction_channels=dim_reduce_output,
-                stages=backbone_stages, dtype=dtype)
-        else:
-            self.backbone_appearance_feature_extractor = RESNETS[backbone](
-                num_classes, loss='part_based', last_stride=last_stride,
-                dtype=dtype)
+        # through the registry, as in JAX (:304); each constructor ignores
+        # the arguments it has no use for
+        backbone_kwargs = {} if backbone_stages is None \
+            else {'stages': backbone_stages}
+        self.backbone_appearance_feature_extractor = BACKBONES[backbone](
+            num_classes, loss='part_based', pretrained=False,
+            last_stride=last_stride,
+            enable_dim_reduction=(dim_reduce == 'before_pooling'),
+            dim_reduction_channels=dim_reduce_output, dtype=dtype,
+            **backbone_kwargs)
         spatial_dim = self.backbone_appearance_feature_extractor.feature_dim
-        # the HRNet reduces inside its head (cls_head); a ResNet's map
-        # goes through its own 1x1 conv + BN + ReLU
+        # the HRNet reduces inside its head (cls_head); another backbone's
+        # map goes through its own 1x1 conv + BN + ReLU
         self.use_before_reduce = (not self.hrnet
                                   and dim_reduce == 'before_pooling'
                                   and spatial_dim != dim_reduce_output)

@@ -41,8 +41,8 @@ from bpbreid_tpu_torch.ops.quant import (QTensor, QuantWeightCache,
                                          set_quant_paths)
 
 __all__ = ['BN_EPS', 'BN_MOMENTUM', 'PConv', 'Dense', 'FastBatchNorm',
-           'BasicBlock', 'Bottleneck', 'ResLayer', 'calibrated_quant',
-           'init_parameters']
+           'InstanceNorm', 'BasicBlock', 'Bottleneck', 'ResLayer',
+           'calibrated_quant', 'init_parameters']
 
 BN_EPS = 1e-5
 # flax lecun_normal: truncated normal in [-2, 2] rescaled to unit variance
@@ -254,6 +254,31 @@ class FastBatchNorm(nn.Module):
                                     self.bias, self.channel_dim, self.dtype)
 
 
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel norm of an NCHW map with an affine
+    ``weight`` and ``bias`` (torch ``InstanceNorm2d(affine=True)``, no
+    running statistics; flax ``GroupNorm(num_groups=C)`` in JAX). It
+    normalizes in f32 and casts to ``dtype``, as flax does.
+
+    ``F.instance_norm`` takes the variance as the mean of squared
+    deviations; flax's ``GroupNorm`` takes E[x^2] - E[x]^2 (clipped at
+    0). The two agree up to f32 rounding of that difference: a relative
+    error of about 1e-7 * E[x^2] / var in the variance, so the outputs
+    agree to about 1e-6 of their magnitude where a channel's mean is
+    small beside its spread (the tests hold them to 1e-4).
+    """
+
+    def __init__(self, num_features, eps=1e-5, dtype=torch.float32):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.empty(num_features))
+        self.bias = nn.Parameter(torch.empty(num_features))
+
+    def forward(self, x):
+        return F.instance_norm(x.float(), weight=self.weight, bias=self.bias,
+                               eps=self.eps).to(self.dtype)
+
+
 def _conv_bn(cin, cout, kernel, stride, dtype):
     return nn.Sequential(
         PConv(cin, cout, kernel, stride, kernel // 2, bias=False, dtype=dtype),
@@ -370,15 +395,18 @@ def _lecun_normal_(weight, fan_in, generator):
 @torch.no_grad()
 def init_parameters(module, generator):
     """Seeded init with the flax defaults: lecun-normal conv/dense
-    kernels, zero biases, unit BN scales; BN running statistics reset to
-    mean 0 / var 1. Visits modules in registration order, so the same
-    generator state gives the same weights."""
+    kernels, zero biases, unit BN and instance-norm scales; BN running
+    statistics reset to mean 0 / var 1. Visits modules in registration
+    order, so the same generator state gives the same weights."""
     for m in module.modules():
         if isinstance(m, (PConv, Dense)):
             w = m.weight
             _lecun_normal_(w, w[0].numel(), generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, InstanceNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, FastBatchNorm):
             m.weight.fill_(1.0)
             if m.bias is not None:

@@ -4,11 +4,14 @@
 
 Config (YAML merge, then ``key value`` overrides, then the parts count
 from the mask grouping) -> data manager -> model -> optimizer and
-schedule -> ``ImagePartBasedEngine`` -> ``engine.run``, then, with
+schedule -> the engine of ``loss.name`` -> ``engine.run``, then, with
 ``--inference-enabled``, the features of ``inference.input_folder``
-(``tools.extract_reid_features``). The device is the config's own
-``use_gpu``: True (the default) runs on ``cuda`` and raises where CUDA
-is missing; ``use_gpu False`` runs on the CPU.
+(``tools.extract_reid_features``). The engines: ``part_based``
+(``ImagePartBasedEngine``, BPBReID), ``softmax`` and ``triplet``
+(``engine/image/``: a zoo model such as ``osnet_x1_0`` trained on its
+global embedding, computing in ``model.compute_dtype``). The device is
+the config's own ``use_gpu``: True (the default) runs on ``cuda`` and
+raises where CUDA is missing; ``use_gpu False`` runs on the CPU.
 
 ``model.load_weights`` takes the port's checkpoints (``.pt``,
 ``utils/checkpoint.py``) and torchreid ``.pth`` files
@@ -22,9 +25,8 @@ the activation ranges of the first ``test.int8_calib_batches`` query
 batches, then every backbone convolution that ``test.int8_skip_patterns``
 does not keep in float as an s8 x s8 -> s32 product (``ops/quant.py``).
 Not ported, and raising with their ROADMAP Queue 1 item: data
-parallelism over several cards (8), the softmax and triplet engines and
-video data (9), and the figures of ``test.vis_embedding_projection`` and
-``train.batch_debug_freq`` (11).
+parallelism over several cards (8), video data (9), and the figures of
+``test.vis_embedding_projection`` and ``train.batch_debug_freq`` (11).
 ``test.visrank`` draws its ranking grids without matplotlib
 (``utils/visualization/rankings.py``).
 """
@@ -43,6 +45,8 @@ from bpbreid_tpu_torch.config import (display_config_diff, engine_run_kwargs,
                                       lr_scheduler_kwargs, optimizer_kwargs)
 from bpbreid_tpu_torch.data.datamanager import ImageDataManager
 from bpbreid_tpu_torch.data.datasets import get_image_dataset
+from bpbreid_tpu_torch.engine.image import (ImageSoftmaxEngine,
+                                           ImageTripletEngine)
 from bpbreid_tpu_torch.engine.part_based import (ImagePartBasedEngine,
                                                  refuse_unported_test_options)
 from bpbreid_tpu_torch.models import build_model
@@ -58,7 +62,10 @@ from bpbreid_tpu_torch.utils.torch_weights import (load_torch_state_dict,
                                                    load_torchreid_state_dict)
 from bpbreid_tpu_torch.utils.writer import Writer
 
-__all__ = ['build_config', 'build_model_engine', 'main']
+__all__ = ['build_config', 'build_engine', 'build_model_engine', 'main']
+
+ENGINES = {'part_based': ImagePartBasedEngine, 'softmax': ImageSoftmaxEngine,
+           'triplet': ImageTripletEngine}
 
 
 def set_random_seed(seed):
@@ -72,11 +79,11 @@ def refuse_unported(cfg):
     that the port does not have yet."""
     if cfg.data.type != 'image':
         raise NotImplementedError('video data is not ported yet (ROADMAP '
-                                  'Queue 1 item 9)')
-    if cfg.loss.name != 'part_based':
-        raise NotImplementedError(
-            "the '{}' engine is not ported yet (ROADMAP Queue 1 item 9: "
-            "engine/image/{{softmax,triplet}}.py)".format(cfg.loss.name))
+                                  'Queue 1 item 9: data/video.py, '
+                                  'engine/video/)')
+    if cfg.loss.name not in ENGINES:
+        raise ValueError('unknown loss {} (one of {})'.format(
+            cfg.loss.name, ', '.join(ENGINES)))
     if cfg.train.n_devices > 1:
         raise NotImplementedError(
             'train.n_devices {}: data parallelism is not ported yet (ROADMAP '
@@ -202,6 +209,24 @@ def maybe_load_hrnet_imagenet(engine, cfg):
     return matched, discarded
 
 
+def build_engine(cfg, datamanager, model, optimizer, scheduler, writer,
+                 engine_state, device):
+    """The engine of ``loss.name`` (JAX ``build_engine`` :116)."""
+    common = dict(optimizer=optimizer, scheduler=scheduler,
+                  writer=writer, engine_state=engine_state,
+                  save_model_flag=cfg.model.save_model_flag, device=device)
+    if cfg.loss.name == 'part_based':
+        return ImagePartBasedEngine.from_config(
+            cfg, model, datamanager=datamanager, **common)
+    kwargs = dict(label_smooth=cfg.loss.softmax.label_smooth, config=cfg,
+                  **common)
+    if cfg.loss.name == 'triplet':
+        kwargs.update(margin=cfg.loss.triplet.margin,
+                      weight_t=cfg.loss.triplet.weight_t,
+                      weight_x=cfg.loss.triplet.weight_x)
+    return ENGINES[cfg.loss.name](datamanager, model, **kwargs)
+
+
 def build_model_engine(cfg):
     """Data manager, model, optimizer, schedule and engine of ``cfg`` (from
     ``build_config``, which refuses the unported options) on the device
@@ -220,10 +245,8 @@ def build_model_engine(cfg):
                         config=cfg, device=device, seed=cfg.train.seed)
     optimizer = build_optimizer(model, **optimizer_kwargs(cfg))
     scheduler = build_lr_scheduler(lr=cfg.train.lr, **lr_scheduler_kwargs(cfg))
-    engine = ImagePartBasedEngine.from_config(
-        cfg, model, device=device, optimizer=optimizer, scheduler=scheduler,
-        datamanager=datamanager, writer=writer, engine_state=engine_state,
-        save_model_flag=cfg.model.save_model_flag)
+    engine = build_engine(cfg, datamanager, model, optimizer, scheduler,
+                          writer, engine_state, device)
     if cfg.model.load_weights and osp.isfile(cfg.model.load_weights):
         load_pretrained_weights(engine, cfg.model.load_weights)
     elif cfg.model.pretrained and cfg.model.bpbreid.backbone == 'hrnet32':

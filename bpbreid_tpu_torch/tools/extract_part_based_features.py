@@ -8,7 +8,10 @@ a part stream counting one per part), ``visibility_scores_<name>.npy``
 ``[N, E]`` float32, ``parts_masks_<name>.npy`` ``[N, Hf, Wf, K]`` (the
 JAX package's channel-last layout) and ``image_list_<name>.txt``.
 Arrays are saved float32 where the model computes in bfloat16, which
-numpy has no type for.
+numpy has no type for. A global-embedding model of the zoo
+(``osnet_x1_0`` with ``loss.name softmax``, say) has no parts: its
+``embeddings_<name>.npy`` is ``[N, D]``, and no visibility or mask file
+is written.
 """
 import glob
 import os
@@ -28,8 +31,8 @@ def extract_reid_features(cfg, input_folder, output_folder, model=None,
     """Features of every ``.jpg`` and ``.png`` under ``input_folder``
     (recursively, in sorted order), ``chunk_size`` images a batch.
     ``device`` as ``FeatureExtractor``'s. Returns ``(embeddings,
-    visibility, parts masks)`` as saved, or None when the folder holds
-    no image."""
+    visibility, parts masks)`` as saved (visibility and masks None for a
+    global-embedding model), or None when the folder holds no image."""
     extractor = FeatureExtractor(cfg, model=model, engine=engine,
                                  device=device)
     image_list = sorted(
@@ -42,8 +45,11 @@ def extract_reid_features(cfg, input_folder, output_folder, model=None,
     test_embeddings = cfg.model.bpbreid.test_embeddings
     all_embeddings, all_vis, all_masks = [], [], []
     for i in range(0, len(image_list), chunk_size):
-        embeddings, visibility, _cls, _pix, _feat, masks = extractor(
-            image_list[i:i + chunk_size])
+        outputs = extractor(image_list[i:i + chunk_size])
+        if isinstance(outputs, torch.Tensor):      # a global embedding
+            all_embeddings.append(outputs.float().cpu().numpy())
+            continue
+        embeddings, visibility, _cls, _pix, _feat, masks = outputs
         emb_list, vis_list = [], []
         for key in test_embeddings:
             e = embeddings[key]
@@ -59,12 +65,15 @@ def extract_reid_features(cfg, input_folder, output_folder, model=None,
     name = osp.basename(osp.normpath(input_folder))
     os.makedirs(output_folder, exist_ok=True)
     emb = np.concatenate(all_embeddings)
-    vis = np.concatenate(all_vis)
-    msk = np.concatenate(all_masks)
     np.save(osp.join(output_folder, 'embeddings_{}.npy'.format(name)), emb)
-    np.save(osp.join(output_folder,
-                     'visibility_scores_{}.npy'.format(name)), vis)
-    np.save(osp.join(output_folder, 'parts_masks_{}.npy'.format(name)), msk)
+    vis = msk = None
+    if all_vis:
+        vis = np.concatenate(all_vis)
+        msk = np.concatenate(all_masks)
+        np.save(osp.join(output_folder,
+                         'visibility_scores_{}.npy'.format(name)), vis)
+        np.save(osp.join(output_folder, 'parts_masks_{}.npy'.format(name)),
+                msk)
     with open(osp.join(output_folder,
                        'image_list_{}.txt'.format(name)), 'w') as f:
         f.write('\n'.join(image_list))

@@ -11,6 +11,11 @@ data.width`` with ``resize_linear`` (what the JAX extractor's
 graph (``ops/quant.py``): the activation ranges are recorded on the first
 batch, at ``test.int8_calib_percentile`` (JAX ``_ensure_int8`` :85), or
 taken from the engine when it has calibrated the shared model.
+
+Without part masks the model runs on the images alone, as JAX's
+``forward_nomask`` (:70) does: a BPBReID gives its output tuple, a
+global-embedding model of the zoo (``osnet_x1_0`` with ``loss.name
+softmax``, say) its ``[N, D]`` embedding.
 """
 import numpy as np
 import torch
@@ -39,7 +44,8 @@ class FeatureExtractor:
             engine's device.
         num_classes: identity classes of a model built here.
         model: a built port model to use instead of building one.
-        engine: an ``ImagePartBasedEngine`` whose model, device and mask
+        engine: an engine (``ImagePartBasedEngine``, or the softmax or
+            triplet engine of a zoo model) whose model, device and mask
             parameters to use.
     """
 
@@ -86,9 +92,9 @@ class FeatureExtractor:
 
     @torch.inference_mode()
     def __call__(self, inputs, external_parts_masks=None):
-        """The model's raw output tuple for the batch, on the device:
-        (embeddings, visibility scores, id scores, pixel scores, spatial
-        features, masks).
+        """The model's raw output for the batch, on the device: a BPBReID's
+        tuple (embeddings, visibility scores, id scores, pixel scores,
+        spatial features, masks), a zoo model's ``[N, D]`` embedding.
 
         Args:
             inputs: a list of image paths or ``[H, W, 3]`` uint8 arrays,
@@ -110,12 +116,13 @@ class FeatureExtractor:
                                       norm_std=self.norm_std,
                                       mask_kwargs=self.mask_kwargs)
         self.model.eval()
+        args = (imgs,) if masks is None else (imgs, masks)
         if self.quant_opts is None:
-            return self.model(imgs, masks)
+            return self.model(*args)
         if not self.int8_ready:
             clear_calibration(self.model)
             with int8_calibration(percentile=self.calib_percentile):
-                self.model(imgs, masks)
+                self.model(*args)
             self.int8_ready = True
         with self.quant_opts.inference_context():
-            return self.model(imgs, masks)
+            return self.model(*args)

@@ -142,16 +142,38 @@ and Market-1501 + 500k distractors scale. Phases:
    embeddings within 1e-3, the s8 values of the branch outputs counted;
    (d) a ``FeatureExtractor`` batch over the calibrated engine equal to
    its int8 ``eval_step``, and the test CLI with ``test.int8 True`` beside
-   its bf16 test.
+   its bf16 test;
+13. Torchreid's global-embedding engines (``engine/image/``) through
+   ``scripts.main.main`` on a registered synthetic set of 32 identities
+   at 256x128 (one epoch of 5-6 steps of 64, then the test on 384 query
+   and 768 gallery images), bf16, seeded weights, every launch count set
+   to 0 just before each run and read just after: (a) ``osnet_x1_0``
+   with torchreid's OSNet recipe (softmax, label smoothing, amsgrad at
+   0.0015, cosine, random flip, classifier-only epochs); (b)
+   ``resnet50_ibn_a`` with batch-hard triplet (margin 0.3) + CE on 16
+   ids x 4. Each: the step ms (host clock between step entries) and
+   images/s, the BN launches of every step and of the eval batches
+   against the model's ``FastBatchNorm`` count (and forward hooks), 20
+   steps on one batch whose loss must fall, a profile of three steps
+   (busy share, the depthwise convs' kernels), the depthwise convs of a
+   step timed alone, and one f32 step at 4 ids x 4 on the card against
+   the CPU (TF32 off; phase 7's tolerances); (c) the flagship BPBReID
+   config on ``fastreid_resnet_ibn_nl`` at 384x128, batch 64: one eval
+   batch through K2 (fused pooling, multires off), K2 held against its
+   plain version on the ``[64, 2048, 24, 8]`` map it was given and timed,
+   then one train step, each with its launches and IBN copies; (d) each
+   distinct BN input of (a) and (b)'s train step against the plain
+   versions, with times against the byte bound and ``F.batch_norm``, as
+   phase 6b.
 
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
 throughput line, the CLI line (phase 9), the inference line (phase 10),
-the PCB line (phase 11), the int8 line (phase 12), the kernels line
-(launches: the BN kernels' in run 9a, phase 10 and phase 11a-b, K2's in
-run 9c and phase 10, K1's in phase 3b, ``conv_s8`` and ``quantize_s8``'s
-in phase 12's int8 step, extractor batch and CLI test) and the result
-line
+the PCB line (phase 11), the int8 line (phase 12), the global line
+(phase 13), the kernels line (launches: the BN kernels' in run 9a, phase
+10, phase 11a-b and phase 13, K2's in run 9c, phase 10 and phase 13c,
+K1's in phase 3b, ``conv_s8`` and ``quantize_s8``'s in phase 12's int8
+step, extractor batch and CLI test) and the result line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``. Needs one CUDA card.
 """
@@ -164,6 +186,7 @@ import struct
 import subprocess
 import sys
 import time
+import types
 import zlib
 
 import numpy as np
@@ -297,8 +320,6 @@ def attention_pool_bound_ms(features, logits):
 
 def phase_kernels(torch):
     """K2 against its plain version at the main-path and ragged shapes."""
-    from bpbreid_tpu_torch.ops.cuda.pooling import (attention_pool_reference,
-                                                    fused_attention_pool)
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     # (N, D, H, W, K+1, feature dtype); logits are bf16 as on the path
     shapes = [(BATCH, 1920, 96, 32, 6, torch.float32),
@@ -310,40 +331,56 @@ def phase_kernels(torch):
               (1, 100, 13, 11, 64, torch.float32)]
     # f32 sums over up to 3072 pixels in another order than the plain
     # version: tolerance relative to the largest output magnitude
-    rtol = 2e-5
     rows, failures = [], []
     for n, d, h, w, k1, dt in shapes:
         feats = torch.randn(n, d, h, w, device='cuda', generator=gen).to(dt)
         logits = (3 * torch.randn(n, k1, h, w, device='cuda',
                                   generator=gen)).to(torch.bfloat16)
-        got = fused_attention_pool(feats, logits)
-        torch.cuda.synchronize()
-        want = attention_pool_reference(feats, logits)
-        errs = []
-        for name, a, b in zip(('num', 'den', 'vismax'), got, want):
-            err = (a - b).abs().max().item()
-            tol = rtol * b.abs().max().item() + 1e-6
-            errs.append(err)
-            if not (err <= tol) or not torch.isfinite(a).all():
-                failures.append('K2 {} at {}: err {} > tol {}'.format(
-                    name, (n, d, h, w, k1, str(dt)), err, tol))
-        row = {'shape': [n, d, h, w, k1], 'dtype': str(dt),
-               'max_abs_err': max(errs), 'errs': errs}
-        if (h * w, d) == (96 * 32, 1920):
-            row['ms'] = time_ms(lambda: fused_attention_pool(feats, logits),
-                                torch)
-            row['plain_ms'] = time_ms(
-                lambda: attention_pool_reference(feats, logits), torch)
-            row['library_ms'] = time_ms(
-                lambda: attention_pool_library(feats, logits), torch)
-            row['bound_ms'], row['bound_by'] = attention_pool_bound_ms(
-                feats, logits)
+        row, failed = k2_row(torch, feats, logits,
+                             timed=(h * w, d) == (96 * 32, 1920))
+        failures += failed
         log('K2', json.dumps(row))
         rows.append(row)
-        del feats, logits, got, want
+        del feats, logits
     if failures:
         raise AssertionError('\n'.join(failures))
     return rows
+
+
+def k2_row(torch, feats, logits, timed=True):
+    """K2 against its plain version on ``feats``, ``logits`` (f32 sums
+    over the pixels in another order: 2e-5 of the largest output
+    magnitude), with its times, the plain version's and the library
+    call's (CUDA events) and its bound when ``timed``. Returns the row
+    and the failed checks."""
+    from bpbreid_tpu_torch.ops.cuda.pooling import (attention_pool_reference,
+                                                    fused_attention_pool)
+    rtol = 2e-5
+    got = fused_attention_pool(feats, logits)
+    torch.cuda.synchronize()
+    want = attention_pool_reference(feats, logits)
+    errs, failures = [], []
+    for name, a, b in zip(('num', 'den', 'vismax'), got, want):
+        err = (a - b).abs().max().item()
+        tol = rtol * b.abs().max().item() + 1e-6
+        errs.append(err)
+        if not (err <= tol) or not torch.isfinite(a).all():
+            failures.append('K2 {} at {}: err {} > tol {}'.format(
+                name, tuple(feats.shape) + (logits.shape[1],
+                                            str(feats.dtype)), err, tol))
+    row = {'shape': list(feats.shape) + [logits.shape[1]],
+           'dtype': str(feats.dtype), 'max_abs_err': max(errs),
+           'errs': errs}
+    if timed:
+        row['ms'] = time_ms(lambda: fused_attention_pool(feats, logits),
+                            torch)
+        row['plain_ms'] = time_ms(
+            lambda: attention_pool_reference(feats, logits), torch)
+        row['library_ms'] = time_ms(
+            lambda: attention_pool_library(feats, logits), torch)
+        row['bound_ms'], row['bound_by'] = attention_pool_bound_ms(
+            feats, logits)
+    return row, failures
 
 
 def _nc(x, cd):
@@ -819,11 +856,13 @@ def serving_config():
     return cfg
 
 
-def profile_steps(torch, step, steps=3):
+def profile_steps(torch, step, steps=3, symbols=None):
     """Device time by kernel over ``steps`` calls of ``step``
     (torch.profiler): the device's busy share of the host-clock window
-    and the kernels that take the most time. Kernels run on one stream,
-    so their summed durations are the busy time."""
+    and the kernels that take the most time, and with ``symbols`` (name
+    -> substrings of kernel names) the device time of those kernels.
+    Kernels run on one stream, so their summed durations are the busy
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -858,6 +897,9 @@ def profile_steps(torch, step, steps=3):
             'int8_device_ms': ({k: device_ms(v) for k, v in
                                 INT8_KERNEL_SYMBOLS.items()} if by_name
                                else 'not measured'),
+            'symbol_device_ms': ({k: device_ms(v) for k, v in
+                                 (symbols or {}).items()} if by_name
+                                else 'not measured'),
             'device_kernel_launches': sum(c for _, c in by_name.values()),
             'top_kernels': [{'name': name[:100], 'ms': ms, 'calls': calls}
                             for name, (ms, calls) in top],
@@ -1469,17 +1511,20 @@ def _whole_bn_ms(torch, x, dy, cd):
     return out
 
 
-def phase_k3_step_shapes(torch, shapes, results):
-    """The BN kernels at each distinct BN input of the train step (the
-    shapes that phase 6's forward hooks recorded), with their launches a
-    step: times (CUDA events over back-to-back calls, which at the small
-    shapes is the host's rate; and the device time from a CUDA graph)
-    against their bounds and library calls, and the whole BN against
-    ``F.batch_norm``. Per step: launches x ms, launches x bound
-    and launches x (ms - bound), for K3 (bn_stats, bn_grad_stats) and for
+def phase_k3_step_shapes(torch, shapes, results,
+                         result_key='k3_step_shapes', check=False):
+    """The BN kernels at each distinct BN input of a train step (the
+    shapes that forward hooks recorded: phase 6's, or with ``check``
+    phase 13's, whose kernels are first held against their plain
+    versions as phase 2 holds them), with their launches a step: times
+    (CUDA events over back-to-back calls, which at the small shapes is
+    the host's rate; and the device time from a CUDA graph) against
+    their bounds and library calls, and the whole BN against
+    ``F.batch_norm``. Per step: launches x ms, launches x bound and
+    launches x (ms - bound), for K3 (bn_stats, bn_grad_stats) and for
     all four kernels."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
-    rows = []
+    rows, failures = [], []
     for (shape, dt, cd), (n_fwd, n_bwd) in shapes:
         x = (0.5 + torch.randn(shape, device='cuda', generator=gen)).to(dt)
         dy = torch.randn(shape, device='cuda', generator=gen).to(dt)
@@ -1487,6 +1532,11 @@ def phase_k3_step_shapes(torch, shapes, results):
         row = {'shape': list(shape), 'dtype': str(dt), 'channel_dim': cd,
                'view': [o['a'], o['c'], o['b']], 'fwd_launches': n_fwd,
                'bwd_launches': n_bwd}
+        if check:
+            torch.cuda.synchronize()
+            errs, failed = _check_bn_kernels(torch, x, dy, cd, o)
+            row.update(errs)
+            failures += ['{} at {} {}'.format(f, shape, dt) for f in failed]
         calls = _bn_calls(torch, x, dy, cd, o)
         row.update(_time_bn_calls(torch, calls, plain=False, iters=10))
         for name, (kernel, *_) in calls.items():
@@ -1519,7 +1569,56 @@ def phase_k3_step_shapes(torch, shapes, results):
         r['bwd_launches'] * r['library_bn_fwd_bwd_ms']
         + nf(r) * r['library_bn_fwd_ms'] for r in rows)
     log('K3 step summary', json.dumps(summary))
-    results['k3_step_shapes'] = {'rows': rows, 'summary': summary}
+    results[result_key] = {'rows': rows, 'summary': summary}
+    if failures:
+        raise AssertionError('\n'.join(failures))
+
+
+def compare_train_steps(card, cpu):
+    """One f32 train step on the card against the same on the CPU (each a
+    dict of the loss, the parameters before, the gradients and the state
+    after; Adam at ``LR``, ``WEIGHT_DECAY``): the summary and the failed
+    checks, at phase 7's tolerances."""
+    checks = []
+    loss_rel = abs(card['loss'] - cpu['loss']) / abs(cpu['loss'])
+    if not loss_rel <= 1e-5:
+        checks.append('loss {} vs {}'.format(card['loss'], cpu['loss']))
+    num = den = 0.0
+    worst_grad = 0.0
+    for k, g in cpu['grads'].items():
+        d = card['grads'][k] - g
+        num += float((d.double() ** 2).sum())
+        den += float((g.double() ** 2).sum())
+        scale = g.abs().max().item()
+        if scale > 1e-6:
+            worst_grad = max(worst_grad, d.abs().max().item() / scale)
+    grad_rel_l2 = (num / den) ** 0.5
+    if not (grad_rel_l2 <= 4e-2 and worst_grad <= 0.3):
+        checks.append('gradients differ: rel L2 {}, worst tensor {}'.format(
+            grad_rel_l2, worst_grad))
+    worst_param = worst_bn = 0.0
+    for k, w in cpu['state'].items():
+        got = card['state'][k]
+        diff = (got - w).abs()
+        if k.endswith(('running_mean', 'running_var')):
+            worst_bn = max(worst_bn, diff.max().item()
+                           / (1 + w.abs().max().item()))
+            continue
+        if k not in cpu['grads']:
+            continue
+        p0 = cpu['before'][k]
+        u = [(g + WEIGHT_DECAY * p0) / ((g + WEIGHT_DECAY * p0).abs() + 1e-8)
+             for g in (card['grads'][k], cpu['grads'][k])]
+        worst_param = max(worst_param, (diff - LR * (u[0] - u[1]).abs())
+                          .abs().max().item())
+    if not worst_bn <= 1e-4:
+        checks.append('BN running statistics differ by {}'.format(worst_bn))
+    if not worst_param <= 1e-6:
+        checks.append('parameters differ from the Adam update by {}'
+                      .format(worst_param))
+    return {'loss_card': card['loss'], 'loss_cpu': cpu['loss'],
+            'grad_rel_l2': grad_rel_l2, 'grad_worst_tensor': worst_grad,
+            'bn_stats_worst': worst_bn, 'param_worst': worst_param}, checks
 
 
 def phase_small_train_reference(torch, results):
@@ -1561,47 +1660,7 @@ def phase_small_train_reference(torch, results):
                       for k, v in model.named_parameters()},
             'state': {k: v.detach().cpu().clone()
                       for k, v in model.state_dict().items()}}
-    card, cpu = out['cuda'], out['cpu']
-    checks = []
-    loss_rel = abs(card['loss'] - cpu['loss']) / abs(cpu['loss'])
-    if not loss_rel <= 1e-5:
-        checks.append('loss {} vs {}'.format(card['loss'], cpu['loss']))
-    num = den = 0.0
-    worst_grad = 0.0
-    for k, g in cpu['grads'].items():
-        d = card['grads'][k] - g
-        num += float((d.double() ** 2).sum())
-        den += float((g.double() ** 2).sum())
-        scale = g.abs().max().item()
-        if scale > 1e-6:
-            worst_grad = max(worst_grad, d.abs().max().item() / scale)
-    grad_rel_l2 = (num / den) ** 0.5
-    if not (grad_rel_l2 <= 4e-2 and worst_grad <= 0.3):
-        checks.append('gradients differ: rel L2 {}, worst tensor {}'.format(
-            grad_rel_l2, worst_grad))
-    worst_param = worst_bn = 0.0
-    for k, w in cpu['state'].items():
-        got = card['state'][k]
-        diff = (got - w).abs()
-        if k.endswith(('running_mean', 'running_var')):
-            worst_bn = max(worst_bn, diff.max().item()
-                           / (1 + w.abs().max().item()))
-            continue
-        if k not in cpu['grads']:
-            continue
-        p0 = cpu['before'][k]
-        u = [(g + WEIGHT_DECAY * p0) / ((g + WEIGHT_DECAY * p0).abs() + 1e-8)
-             for g in (card['grads'][k], cpu['grads'][k])]
-        worst_param = max(worst_param, (diff - LR * (u[0] - u[1]).abs())
-                          .abs().max().item())
-    if not worst_bn <= 1e-4:
-        checks.append('BN running statistics differ by {}'.format(worst_bn))
-    if not worst_param <= 1e-6:
-        checks.append('parameters differ from the Adam update by {}'
-                      .format(worst_param))
-    small = {'loss_card': card['loss'], 'loss_cpu': cpu['loss'],
-             'grad_rel_l2': grad_rel_l2, 'grad_worst_tensor': worst_grad,
-             'bn_stats_worst': worst_bn, 'param_worst': worst_param}
+    small, checks = compare_train_steps(out['cuda'], out['cpu'])
     log('small_f32_train_card_vs_cpu', json.dumps(small))
     results['small_train_card_vs_cpu'] = small
     if checks:
@@ -1657,29 +1716,35 @@ def cli_argv(job_id, *opts, config=CLI_CONFIG):
 
 
 class CliRecorder:
-    """Wraps ``ImagePartBasedEngine.forward_backward``, ``save_model``
-    and ``_visrank`` for one CLI run: each step's host entry time, loss
+    """Wraps ``forward_backward``, ``save_model`` and (the part-based
+    engine's) ``_visrank`` of the engine class ``cls`` (the part-based
+    engine by default) for one CLI run: each step's host entry time, loss
     tensor and BN launches, the train-mode FastBatchNorm calls of each
-    step (forward hooks, set on the first step), the first batch as the
+    step (forward hooks, set on the first step) and the first step's BN
+    inputs (shape, dtype, channel_dim -> calls), the first batch as the
     prefetch put it on the card, the checkpoint's path and write
     seconds, and the ranking grids' files, seconds and launches (the
     ``eval_step`` run again for their attention maps). Reads nothing
     back from the card during the steps."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, cls=None):
         from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
-        self.torch, self.cls = torch, ImagePartBasedEngine
-        self.fb = ImagePartBasedEngine.forward_backward
-        self.save = ImagePartBasedEngine.save_model
-        self.visrank = ImagePartBasedEngine._visrank
+        self.torch, self.cls = torch, cls or ImagePartBasedEngine
+        self.fb = self.cls.forward_backward
+        self.save = self.cls.save_model
+        self.visrank = getattr(self.cls, '_visrank', None)
         self.entries, self.losses, self.launches = [], [], []
         self.bn_calls = {'train': 0, 'eval': 0}
         self.train_bn_calls = []
+        self.bn_inputs = collections.Counter()
         self.first_batch = self.checkpoint = self.save_s = None
         self.visrank_paths, self.visrank_s, self.visrank_launches = [], 0.0, {}
 
     def _hook(self, mod, inp):
         self.bn_calls['train' if mod.training else 'eval'] += 1
+        if mod.training and len(self.entries) == 1:
+            self.bn_inputs[(tuple(inp[0].shape), inp[0].dtype,
+                            mod.channel_dim)] += 1
 
     def __enter__(self):
         from bpbreid_tpu_torch.models.common import FastBatchNorm
@@ -1693,7 +1758,7 @@ class CliRecorder:
                         m.register_forward_pre_hook(rec._hook)
                 rec.first_batch = {k: batch[k].cpu().clone()
                                    for k in ('image', 'mask', 'pid')
-                                   if k in batch}
+                                   if batch.get(k) is not None}
             rec.entries.append(time.perf_counter())
             before = dict(launch_counts)
             calls = rec.bn_calls['train']
@@ -1727,25 +1792,28 @@ class CliRecorder:
 
         self.cls.forward_backward = forward_backward
         self.cls.save_model = save_model
-        self.cls._visrank = visrank
+        if self.visrank is not None:
+            self.cls._visrank = visrank
         return self
 
     def __exit__(self, *exc):
         self.cls.forward_backward, self.cls.save_model = self.fb, self.save
-        self.cls._visrank = self.visrank
+        if self.visrank is not None:
+            self.cls._visrank = self.visrank
         return False
 
 
-def drive_cli(torch, what, argv):
+def drive_cli(torch, what, argv, cls=None):
     """``scripts.main.main(argv)`` with every launch count set to 0 just
-    before and read just after. Returns the engine, ``(cmc, mAP, ssmd,
+    before and read just after, the engine class ``cls`` (the part-based
+    engine by default) recorded. Returns the engine, ``(cmc, mAP, ssmd,
     pixel accuracy)``, the counts, the recorder and the wall seconds."""
     from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
     from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
                                                   reset_launch_counts)
     from bpbreid_tpu_torch.scripts.main import main as cli_main
     clear_dataset_cache()
-    with CliRecorder(torch) as rec:
+    with CliRecorder(torch, cls) as rec:
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -3168,6 +3236,378 @@ def phase_int8(torch, results):
     return path_counts
 
 
+# phase 13: Torchreid's global-embedding engines (engine/image/) at full
+# width through the CLI, on a registered synthetic set of 32 identities x
+# 3 cameras x 4 images of 128x64 a camera, which the loader upsamples to
+# 256x128: 384 train images (an epoch of 6 steps of 64 with the random
+# sampler, 5 with the identity sampler), 384 query and 768 gallery images
+# (18 eval batches of 64)
+GLOBAL_DATASET = 'smoke_global_crops'
+GLOBAL_IDS = 32
+GLOBAL_HW = (256, 128)
+GLOBAL_EVAL_BATCHES = 6 + 12
+# (a) torchreid's OSNet recipe (configs/im_osnet_x1_0_softmax_256x128_
+# amsgrad_cosine.yaml in KaiyangZhou/deep-person-reid): random flip,
+# label-smoothed CE, amsgrad at 0.0015 with a cosine schedule, only the
+# classifier open in the first 10 epochs, a random sampler, unnormalized
+# euclidean distances
+OSNET_RECIPE = ('model.name', 'osnet_x1_0', 'loss.name', 'softmax',
+                'loss.softmax.label_smooth', 'True',
+                'data.transforms', "['random_flip']",
+                'train.optim', 'amsgrad', 'train.lr', '0.0015',
+                'train.lr_scheduler', 'cosine', 'train.fixbase_epoch', '10',
+                'train.open_layers', "['classifier']",
+                'sampler.train_sampler', 'RandomSampler',
+                'test.normalize_feature', 'False',
+                'test.dist_metric', 'euclidean')
+# (b) ResNet50-IBN-a with batch-hard triplet (margin 0.3) + CE, 16 ids x 4
+IBN_TRIPLET = ('model.name', 'resnet50_ibn_a', 'loss.name', 'triplet',
+               'loss.triplet.margin', '0.3', 'loss.triplet.weight_t', '1.0',
+               'loss.triplet.weight_x', '1.0',
+               'data.transforms', "['random_flip', 'random_crop']",
+               'sampler.train_sampler', 'RandomIdentitySampler',
+               'sampler.num_instances', '4')
+# (c) the flagship BPBReID config on the fastreid IBN + non-local trunk
+FLAGSHIP_BACKBONE = 'fastreid_resnet_ibn_nl'
+# kernel names of depthwise convolutions in the profiles (PyTorch's own
+# depthwise kernels and cuDNN's grouped ones)
+DEPTHWISE_SYMBOLS = {'depthwise': ('depthwise', 'Depthwise', 'dwconv',
+                                   'grouped')}
+
+
+def register_global_dataset():
+    """A ``SyntheticDataset`` with the counts and crop size above, in the
+    port's registry."""
+    from bpbreid_tpu_torch.data.datasets import (get_image_dataset,
+                                                 register_image_dataset)
+    from bpbreid_tpu_torch.data.datasets.image_datasets import \
+        SyntheticDataset
+
+    class SmokeGlobalCrops(SyntheticDataset):
+        dataset_dir = GLOBAL_DATASET
+
+        def __init__(self, **kwargs):
+            super().__init__(num_pids=GLOBAL_IDS, num_cams=CLI_CAMS,
+                             imgs_per_pid_cam=CLI_IMGS,
+                             height=CLI_SRC_HW[0], width=CLI_SRC_HW[1],
+                             seed=SEED + 13, **kwargs)
+    try:
+        get_image_dataset(GLOBAL_DATASET)
+    except ValueError:
+        register_image_dataset(GLOBAL_DATASET, SmokeGlobalCrops)
+
+
+def global_argv(job_id, *opts):
+    """The CLI's argv for a zoo model at 256x128, bf16, batch 64, one
+    epoch and the final test on the set above."""
+    return (['--save_dir', CLI_SAVE_DIR, '--job-id', str(job_id),
+             'data.sources', "['{}']".format(GLOBAL_DATASET),
+             'data.targets', "['{}']".format(GLOBAL_DATASET),
+             'data.height', str(GLOBAL_HW[0]),
+             'data.width', str(GLOBAL_HW[1]),
+             'model.compute_dtype', 'bfloat16', 'model.pretrained', 'False',
+             'train.batch_size', str(BATCH), 'train.max_epoch', '1',
+             'train.eval_freq', '-1', 'test.batch_size', str(BATCH),
+             'test.visrank', 'False'] + list(opts))
+
+
+def _depthwise_ms(torch, engine, batch):
+    """The train step's depthwise convolutions (``groups`` = channels,
+    cuDNN through ``F.conv2d``): their inputs captured on one step, then
+    their forward, and forward + backward, timed alone (CUDA events)."""
+    import torch.nn.functional as F
+    from bpbreid_tpu_torch.models.common import PConv
+    convs = [m for m in engine.model.modules() if isinstance(m, PConv)
+             and m.groups > 1 and m.groups == m.weight.shape[0]]
+    if not convs:
+        return None
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: seen.append((mod, inp[0].detach())))
+        for m in convs]
+    try:
+        engine.forward_backward(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    cases = []
+    for mod, x in seen:
+        w = mod.weight.detach().to(mod.dtype).requires_grad_(True)
+        xg = x.to(mod.dtype).requires_grad_(True)
+        args = (mod.stride, mod.padding, 1, mod.groups)
+        dy = torch.randn_like(F.conv2d(xg.detach(), w.detach(), None, *args))
+        cases.append((xg, w, args, dy))
+
+    def fwd():
+        with torch.no_grad():
+            for xg, w, args, _ in cases:
+                F.conv2d(xg, w, None, *args)
+
+    def fwd_bwd():
+        for xg, w, args, dy in cases:
+            torch.autograd.grad(F.conv2d(xg, w, None, *args), (xg, w), dy)
+    out = {'calls_per_step': len(cases),
+           'shapes': sorted({tuple(c[0].shape) for c in cases}),
+           'fwd_ms_per_step': time_ms(fwd, torch, warmup=1, iters=3,
+                                      repeats=3),
+           'fwd_bwd_ms_per_step': time_ms(fwd_bwd, torch, warmup=1, iters=3,
+                                          repeats=3)}
+    del cases, seen
+    return out
+
+
+def _global_card_vs_cpu(torch, name, loss):
+    """One f32 train step of ``name`` at 256x128 on 4 identities x 4 on the
+    card and on the CPU (TF32 off), the same seeded weights and batch, no
+    augmentation, Adam: ``compare_train_steps``."""
+    from bpbreid_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
+    from bpbreid_tpu_torch.engine.image import (ImageSoftmaxEngine,
+                                               ImageTripletEngine)
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.optim import build_optimizer
+    cls = ImageTripletEngine if loss == 'triplet' else ImageSoftmaxEngine
+    dm = types.SimpleNamespace(transforms=(), norm_mean=IMAGENET_MEAN,
+                               norm_std=IMAGENET_STD)
+    cpu_batch = make_train_batch(np.random.default_rng(SEED + 13), 4, 4,
+                                 *GLOBAL_HW, 'cpu')
+    out = {}
+    for device in ('cuda', 'cpu'):
+        model = build_model(name, 10, loss=loss, device=device, seed=SEED,
+                            dtype=torch.float32)
+        engine = cls(dm, model, build_optimizer(
+            model, optim='adam', lr=LR, weight_decay=WEIGHT_DECAY),
+            device=device)
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.named_parameters()}
+        loss_t, _ = engine.forward_backward(
+            {k: cpu_batch[k].to(device) for k in ('image', 'pid')})
+        out[device] = {
+            'loss': loss_t.item(), 'before': before,
+            'grads': {k: v.grad.detach().cpu().clone()
+                      for k, v in model.named_parameters()},
+            'state': {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+        del model, engine
+    return compare_train_steps(out['cuda'], out['cpu'])
+
+
+def _global_run(torch, what, job_id, opts, cls, name, loss):
+    """One CLI run of a global-embedding engine (see the module
+    docstring, phase 13a-b): its numbers, its launch counts, its first
+    step's BN inputs and the failed checks."""
+    from bpbreid_tpu_torch.data.augment import sample_train_draws
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    engine, (cmc, mAP, _, _), counts, rec, wall = drive_cli(
+        torch, what, global_argv(job_id, *opts), cls=cls)
+    checks = []
+    n_bn = sum(isinstance(m, FastBatchNorm) for m in engine.model.modules())
+    want = {k: n_bn for k in BN_KERNELS}
+    checks += ['{}: BN launches a step {} != {} FastBatchNorms'.format(
+        what, c, n_bn) for c in rec.launches if c != want][:1]
+    checks += ['{}: {} train-mode BN calls a step by hooks, {} '
+               'FastBatchNorms'.format(what, n, n_bn)
+               for n in set(rec.train_bn_calls) if n != n_bn]
+    losses = [float(v) for v in rec.losses]
+    steps = len(losses)
+    # the identity sampler's length is an upper bound (torchreid's): an
+    # epoch ends when fewer identities than a batch holds are left
+    if not 3 <= steps <= len(engine.datamanager.train_loader) \
+            or not all(np.isfinite(losses)):
+        checks.append('{}: {} steps, losses {}'.format(what, steps, losses))
+    eval_apply = counts.get('bn_apply', 0) - steps * n_bn
+    if not (eval_apply == rec.bn_calls['eval']
+            == GLOBAL_EVAL_BATCHES * n_bn):
+        checks.append('{}: eval bn_apply {} for {} eval-mode BN calls, {} '
+                      'x {} FastBatchNorms'.format(
+                          what, eval_apply, rec.bn_calls['eval'],
+                          GLOBAL_EVAL_BATCHES, n_bn))
+    if counts.get('attention_pool', 0) or not 0.0 <= float(mAP) <= 1.0:
+        checks.append('{}: K2 launches {}, mAP {}'.format(
+            what, counts.get('attention_pool', 0), mAP))
+    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    step_ms = statistics.median(intervals)
+    # learning: 20 steps on one batch with one set of draws, every layer
+    # open (the recipe's run had only the classifier open)
+    engine.set_freeze_base(False)
+    batch = make_train_batch(np.random.default_rng(SEED + 14), TRAIN_IDS,
+                             TRAIN_INSTANCES, *GLOBAL_HW, 'cuda')
+    batch = {k: batch[k] for k in ('image', 'pid')}
+    draws = sample_train_draws(engine.generator, BATCH, *GLOBAL_HW,
+                               engine.transforms, **engine.cj)
+    learn = [float(engine.forward_backward(batch, draws)[0])
+             for _ in range(TRAIN_LEARN)]
+    if not (all(np.isfinite(learn))
+            and np.mean(learn[-3:]) < np.mean(learn[:3])):
+        checks.append('{}: loss did not fall over {} steps: {}'.format(
+            what, TRAIN_LEARN, learn))
+    profile = profile_steps(torch, lambda: engine.forward_backward(batch),
+                            symbols=DEPTHWISE_SYMBOLS)
+    depthwise = _depthwise_ms(torch, engine, batch)
+    del engine, batch
+    torch.cuda.empty_cache()
+    small, bad = _global_card_vs_cpu(torch, name, loss)
+    checks += ['{} card vs CPU: {}'.format(what, b) for b in bad]
+    out = {'model': name, 'loss': loss, 'steps': steps, 'losses': losses,
+           'step_ms_median': step_ms, 'step_ms': intervals,
+           'images_per_s': BATCH / step_ms * 1e3,
+           'fastbatchnorm_modules': n_bn,
+           'bn_launches_per_step': rec.launches[0] if rec.launches else {},
+           'eval_bn_apply_per_batch': eval_apply / GLOBAL_EVAL_BATCHES,
+           'rank1': float(cmc[0]), 'mAP': float(mAP),
+           'learning_losses': learn, 'card_vs_cpu': small,
+           'profile': {k: v for k, v in profile.items()
+                       if k != 'top_host_ops'},
+           'depthwise': depthwise, 'launches': counts, 'wall_s': wall}
+    log('13 {}'.format(what), json.dumps({
+        k: v for k, v in out.items()
+        if k not in ('losses', 'step_ms', 'learning_losses', 'profile')}))
+    for row in profile['top_kernels'][:8]:
+        log('  {:9.3f} ms {:5d} calls  {}'.format(row['ms'], row['calls'],
+                                                  row['name']))
+    shapes = {key: [n, n] for key, n in rec.bn_inputs.items()}
+    return out, counts, shapes, checks
+
+
+def _flagship_on_fastreid(torch, checks):
+    """Phase 13c: the flagship BPBReID config on the fastreid IBN +
+    non-local trunk at 384x128, batch 64, bf16: one eval batch through K2
+    (fused pooling, multires off) with K2 held against its plain version
+    on the 2048-channel map it was given, then one train step (the
+    materialized pooling). Counts set to 0 before each and read after."""
+    import bpbreid_tpu_torch.models.bpbreid as bpbreid_module
+    from bpbreid_tpu_torch.data.augment import mask_chain_kwargs
+    from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.models.resnet_fastreid import IBNLayer
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.optim import build_optimizer
+    cfg = serving_config()
+    cfg.model.bpbreid.backbone = FLAGSHIP_BACKBONE
+    model = build_model('bpbreid', 751, config=cfg, device='cuda', seed=SEED)
+    engine = ImagePartBasedEngine.from_config(
+        cfg, model, mask_chain_kwargs(cfg), device='cuda',
+        optimizer=build_optimizer(model, optim='adam', lr=LR,
+                                  weight_decay=WEIGHT_DECAY))
+    batch = make_train_batch(np.random.default_rng(SEED + 15), TRAIN_IDS,
+                             TRAIN_INSTANCES, HEIGHT, WIDTH, 'cuda')
+    calls = {'train': 0, 'eval': 0}
+
+    def hook(mod, inp):
+        calls['train' if mod.training else 'eval'] += 1
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, FastBatchNorm)]
+    ibn = [m for m in model.modules() if isinstance(m, IBNLayer)]
+    k2, seen = bpbreid_module.fused_attention_pool, []
+
+    def capture(feats, logits, *args, **kwargs):
+        seen.append((feats.clone(), logits.clone()))
+        return k2(feats, logits, *args, **kwargs)
+    bpbreid_module.fused_attention_pool = capture
+    try:
+        torch.cuda.synchronize()
+        copies = sum(m.copies for m in ibn)
+        reset_launch_counts()
+        feats = engine.eval_step(batch['image'], batch['mask'])[0]
+        torch.cuda.synchronize()
+        eval_counts = dict(launch_counts)
+        eval_copies = sum(m.copies for m in ibn) - copies
+    finally:
+        bpbreid_module.fused_attention_pool = k2
+    want = {'attention_pool': 1, 'bn_apply': calls['eval']}
+    if {k: v for k, v in eval_counts.items() if v} != want \
+            or not torch.isfinite(feats.float()).all():
+        checks.append('13c eval: launches {} != {}'.format(eval_counts, want))
+    if len(seen) != 1 or tuple(seen[0][0].shape) != (
+            BATCH, 2048, HEIGHT // 16, WIDTH // 16):
+        checks.append('13c: K2 inputs {}'.format(
+            [tuple(f.shape) for f, _ in seen]))
+    k2_out, failed = k2_row(torch, *seen[0])
+    checks += ['13c: ' + f for f in failed]
+    log('13c K2', json.dumps(k2_out))
+    del seen
+    # one train step: K2 has no backward, the materialized map trains
+    model.use_pallas_pooling = False
+    bn, no_grad = _bn_split(model, engine.losses_weights)
+    calls['train'] = 0
+    torch.cuda.synchronize()
+    copies = sum(m.copies for m in ibn)
+    reset_launch_counts()
+    loss, _ = engine.forward_backward(batch)
+    loss = loss.item()
+    train_counts = dict(launch_counts)
+    train_copies = sum(m.copies for m in ibn) - copies
+    for h in hooks:
+        h.remove()
+    want = {'bn_stats': len(bn), 'bn_apply': len(bn),
+            'bn_grad_stats': len(bn) - len(no_grad),
+            'bn_dx': len(bn) - len(no_grad)}
+    got = {k: train_counts.get(k, 0) for k in BN_KERNELS}
+    if got != want or calls['train'] != len(bn) or not np.isfinite(loss) \
+            or train_counts.get('attention_pool', 0):
+        checks.append('13c train: launches {} != {} ({} BN calls by hooks, '
+                      'loss {})'.format(train_counts, want, calls['train'],
+                                        loss))
+    if not eval_copies == train_copies == len(ibn):
+        checks.append('13c: IBN copies {} (eval), {} (train) for {} '
+                      'IBNLayers'.format(eval_copies, train_copies, len(ibn)))
+    out = {'backbone': FLAGSHIP_BACKBONE, 'k2': k2_out,
+           'eval_launches': eval_counts, 'train_launches': train_counts,
+           'train_bn_want': want, 'train_loss': loss,
+           'ibn_layers': len(ibn), 'ibn_copies_eval': eval_copies,
+           'ibn_copies_train': train_copies}
+    log('13c', json.dumps({k: v for k, v in out.items() if k != 'k2'}))
+    del model, engine, batch, feats
+    torch.cuda.empty_cache()
+    counts = dict(eval_counts)
+    for k, v in train_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    return out, counts
+
+
+def phase_global(torch, results):
+    """Phase 13 (see the module docstring). Returns the launch counts of
+    its runs, each counted from 0."""
+    import shutil
+    from bpbreid_tpu_torch.engine.image import (ImageSoftmaxEngine,
+                                               ImageTripletEngine)
+    t_phase = time.perf_counter()
+    register_global_dataset()
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out, checks, launches = {}, [], {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    out['13a'], counts, shapes_a, bad = _global_run(
+        torch, 'osnet softmax', 131, OSNET_RECIPE, ImageSoftmaxEngine,
+        'osnet_x1_0', 'softmax')
+    add(counts)
+    checks += bad
+    out['13b'], counts, shapes_b, bad = _global_run(
+        torch, 'resnet50_ibn_a triplet', 132, IBN_TRIPLET,
+        ImageTripletEngine, 'resnet50_ibn_a', 'triplet')
+    add(counts)
+    checks += bad
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out['13c'], counts = _flagship_on_fastreid(torch, checks)
+    add(counts)
+    for what, shapes in (('osnet', shapes_a), ('ibn', shapes_b)):
+        try:
+            phase_k3_step_shapes(
+                torch, sorted(shapes.items(),
+                              key=lambda kv: -np.prod(kv[0][0])),
+                out, result_key='13d_' + what, check=True)
+        except AssertionError as e:
+            checks.append('13d {}: {}'.format(what, e))
+    out['phase_s'] = time.perf_counter() - t_phase
+    results['global'] = out
+    if checks:
+        raise AssertionError('phase 13: ' + '; '.join(checks))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3231,9 +3671,14 @@ def main():
     pcb_launches, bot_launches = phase_pcb(torch, results)
     log('phase 12: calibrated int8 eval (conv_s8, quantize_s8)')
     int8_launches = phase_int8(torch, results)
-    # the launches of phases 10 and 11 (each its own path, counted from 0)
+    log('phase 13: the softmax and triplet engines (OSNet, ResNet50-IBN-a) '
+        'and BPBReID on the fastreid IBN + non-local trunk')
+    global_launches = phase_global(torch, results)
+    # the launches of phases 10, 11 and 13 (each its own path, counted
+    # from 0)
     path_launches = {}
-    for counts in (inference_launches, pcb_launches, bot_launches):
+    for counts in (inference_launches, pcb_launches, bot_launches,
+                   global_launches):
         for k, v in counts.items():
             path_launches[k] = path_launches.get(k, 0) + v
 
@@ -3373,6 +3818,35 @@ def main():
                      for k in ('conv_s8', 'quantize_s8')},
         'phase_s': q['phase_s'],
         'gpu': gpu}))
+    g = results['global']
+    log('global', json.dumps({
+        **{k: {'model': g[k]['model'], 'loss': g[k]['loss'],
+               'steps': g[k]['steps'],
+               'step_ms_median': g[k]['step_ms_median'],
+               'images_per_s': g[k]['images_per_s'],
+               'fastbatchnorm_modules': g[k]['fastbatchnorm_modules'],
+               'bn_launches_per_step': g[k]['bn_launches_per_step'],
+               'eval_bn_apply_per_batch': g[k]['eval_bn_apply_per_batch'],
+               'mAP': g[k]['mAP'], 'rank1': g[k]['rank1'],
+               'learning_first_last': [g[k]['learning_losses'][0],
+                                       g[k]['learning_losses'][-1]],
+               'card_vs_cpu': g[k]['card_vs_cpu'],
+               'busy_share': g[k]['profile']['busy_share'],
+               'device_busy_ms': g[k]['profile']['device_busy_ms'],
+               'depthwise': g[k]['depthwise'],
+               'depthwise_kernels_device_ms':
+                   g[k]['profile']['symbol_device_ms']}
+           for k in ('13a', '13b')},
+        '13c': {'k2_ms': g['13c']['k2']['ms'],
+                'k2_plain_ms': g['13c']['k2']['plain_ms'],
+                'k2_library_ms': g['13c']['k2']['library_ms'],
+                'k2_bound_ms': g['13c']['k2']['bound_ms'],
+                'k2_max_abs_err': g['13c']['k2']['max_abs_err'],
+                'eval_launches': g['13c']['eval_launches'],
+                'train_launches': g['13c']['train_launches'],
+                'ibn_copies_train': g['13c']['ibn_copies_train']},
+        '13d': {k: g['13d_' + k]['summary'] for k in ('osnet', 'ibn')},
+        'phase_s': g['phase_s'], 'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

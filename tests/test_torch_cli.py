@@ -157,7 +157,7 @@ def test_main_raises_without_cuda_when_use_gpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('opts, match', [
-    (['loss.name', 'softmax'], 'Queue 1 item 9'),
+    (['data.type', 'video'], 'Queue 1 item 9'),
     (['train.n_devices', '2'], 'Queue 1 item 8'),
     (['test.vis_embedding_projection', 'True'], 'Queue 1 item 11'),
     (['data.sources', "['viper']"], 'Queue 1 item 9'),

@@ -75,6 +75,13 @@ def test_attention_pool_refuses_inputs_that_require_grad(cuda):
 K3_SHAPES = [((64, 32, 96, 32), 1), ((64, 256, 12, 4), 1), ((64, 512), -1),
              ((320, 512), -1), ((3, 7, 5, 3), 1), ((1, 33, 9, 7), 1),
              ((2, 3, 7, 1), 1), ((1, 5), -1), ((5, 3, 6), -1)]
+# the global-embedding models' BN inputs at 256x128, batch 64: OSNet's
+# stem, its stages' mid and output widths and fc.1; ResNet-IBN's IBN-a
+# half of layer1 and its layer4 output
+K3_SHAPES += [((64, 64, 128, 64), 1), ((64, 64, 64, 32), 1),
+              ((64, 96, 32, 16), 1), ((64, 128, 16, 8), 1),
+              ((64, 512, 16, 8), 1), ((64, 32, 64, 32), 1),
+              ((64, 2048, 8, 4), 1)]
 
 
 def _k3_inputs(cuda, shape, dtype, seed):
@@ -285,6 +292,71 @@ def test_eval_batch_norm_on_the_card_is_one_launch(cuda, shape, channel_dim,
             assert sum(launch_counts.values()) == sum(before.values()) + 1
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(out['cuda'], out['cpu'], atol=1e-5, rtol=tol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_ibn_layer_on_the_card_matches_the_cpu(cuda, dtype):
+    """IBN-a's half instance norm, half batch norm in train mode: the BN
+    half is copied once (counted), goes through the four BN kernels, and
+    the output, the input gradient and the running statistics equal the
+    CPU's (f32 1e-4; bf16 2 ulps of the output, 1e-2 of the gradient)."""
+    from bpbreid_tpu_torch.models.common import init_parameters
+    from bpbreid_tpu_torch.models.resnet_fastreid import IBNLayer
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    x, dy = _k3_inputs(cuda, (8, 64, 16, 8), dtype, 5)
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        layer = IBNLayer(64, dtype=dtype)
+        init_parameters(layer, torch.Generator().manual_seed(0))
+        layer.train().to(dev)
+        xi = x.detach().clone().to(dev).requires_grad_(True)
+        before = dict(launch_counts)
+        y = layer(xi)
+        y.backward(dy.to(dev))
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+            for name in ('bn_stats', 'bn_apply', 'bn_grad_stats', 'bn_dx'):
+                assert launch_counts[name] == before.get(name, 0) + 1, name
+        assert layer.copies == 1
+        out[dev.type] = [t.detach().float().cpu() for t in (
+            y, xi.grad, layer.BN.running_mean, layer.BN.running_var)]
+    f32 = dtype == torch.float32
+    for a, b, tol in zip(out['cuda'], out['cpu'], (
+            1e-4 if f32 else 2 ** -6, 1e-4 if f32 else 1e-2, 1e-4, 1e-4)):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize('name', ['osnet_x0_25', 'resnet50_ibn_a'])
+def test_global_model_train_step_launches_the_bn_kernels(cuda, name):
+    """A zoo model's train-mode forward and backward on the card: two BN
+    kernels forward and two backward for each ``FastBatchNorm`` call, the
+    class scores finite; eval mode one ``bn_apply`` a call."""
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    model = build_model(name, 10, loss='softmax', dtype=torch.bfloat16)
+    calls = []
+    for m in model.modules():
+        if isinstance(m, FastBatchNorm):
+            m.register_forward_pre_hook(lambda mod, inp: calls.append(1))
+    x = torch.randn(8, 3, 128, 64, device=cuda)
+    before = dict(launch_counts)
+    model.train()
+    scores = model(x)
+    scores.float().sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(scores.float()).all()
+    n = len(calls)
+    assert n > 0
+    for kernel in ('bn_stats', 'bn_apply', 'bn_grad_stats', 'bn_dx'):
+        assert launch_counts[kernel] - before.get(kernel, 0) == n, kernel
+    calls.clear()
+    before = dict(launch_counts)
+    with torch.inference_mode():
+        model.eval()(x)
+    assert launch_counts['bn_apply'] - before.get('bn_apply', 0) \
+        == len(calls) == n
+    assert launch_counts['bn_stats'] == before.get('bn_stats', 0)
 
 
 # K1: the main path's branch chains (N=64 at 384x128) and ragged shapes

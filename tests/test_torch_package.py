@@ -34,7 +34,7 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     assert next(model.parameters()).device.type == 'cpu'
     assert not model.training
     with pytest.raises(NotImplementedError, match='not ported'):
-        build_model('osnet_x1_0', 1, device='cpu')
+        build_model('senet154', 1, device='cpu')
 
 
 def test_build_model_is_seeded():

@@ -1,6 +1,9 @@
 """Shared helpers of the bpbreid_tpu_torch parity tests: inputs made
 from a numpy seed go through the JAX function and its port; weights
 cross over with ``bpbreid_tpu_torch.utils.weights``."""
+import functools
+import types
+
 import jax
 import numpy as np
 import torch
@@ -128,3 +131,67 @@ def exact_bn_variables(variables, seed):
         return out
 
     return {coll: walk(tree, coll) for coll, tree in variables.items()}
+
+
+def assert_close(got, want, tol):
+    """``got`` within ``tol`` of ``want``'s largest magnitude."""
+    got, want = to_np(got), to_np(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-6)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, (err, scale)
+
+
+def jax_layout(t):
+    """A port output (NCHW map, vector or tuple of them) in JAX's layout,
+    as numpy."""
+    if isinstance(t, tuple):
+        return tuple(jax_layout(v) for v in t)
+    return to_nhwc(t) if t.dim() == 4 else to_np(t)
+
+
+def seeded_variables(jmodule, tmodule, *init_args, seed=1, **init_kwargs):
+    """JAX variables for ``jmodule``'s tree (traced, not compiled:
+    ``port_variables``) from ``tmodule``'s seeded init, with the affines,
+    biases and BN statistics perturbed (``randomize_variables``); loaded
+    into ``tmodule`` too. ``init_kwargs`` (``train=True``: the train-mode
+    heads) stay static."""
+    from bpbreid_tpu_torch.models.common import init_parameters
+    from bpbreid_tpu_torch.utils.weights import load_jax_variables
+    init_parameters(tmodule, torch.Generator().manual_seed(seed))
+    traced = types.SimpleNamespace(
+        init=functools.partial(jmodule.init, **init_kwargs))
+    variables = randomize_variables(
+        port_variables(traced, tmodule, *init_args), seed)
+    load_jax_variables(tmodule, variables)
+    return variables
+
+
+def check_against_jax(jmodule, tmodule, x, eval_tol=1e-4, train_tol=1e-4,
+                      stats_tol=1e-4):
+    """``tmodule`` against ``jmodule`` (its ``__call__(x, train)``) on the
+    same seeded variables: the eval output, then the train-mode output
+    and every running statistic after it, each to its tolerance of the
+    largest magnitude. JAX jits each mode: on the CPU that takes less
+    time than dispatching the same model's primitives one by one."""
+    from bpbreid_tpu_torch.utils.weights import jax_variables_to_state_dict
+    x = np.asarray(x)
+    variables = seeded_variables(jmodule, tmodule, x, train=True)
+    want = jax.jit(functools.partial(jmodule.apply, train=False))(
+        variables, x)
+    with torch.no_grad():
+        got = tmodule.eval()(nchw(x))
+    jax.tree_util.tree_map(lambda g, w: assert_close(g, w, eval_tol),
+                           jax_layout(got), want)
+    want, state = jax.jit(functools.partial(
+        jmodule.apply, train=True, mutable=['batch_stats']))(variables, x)
+    with torch.no_grad():
+        got = tmodule.train()(nchw(x))
+    jax.tree_util.tree_map(lambda g, w: assert_close(g, w, train_tol),
+                           jax_layout(got), want)
+    stats = jax_variables_to_state_dict({'batch_stats': state['batch_stats']})
+    own = tmodule.state_dict()
+    assert stats
+    for key, value in stats.items():
+        assert_close(own[key], value, stats_tol)
+    return tmodule
