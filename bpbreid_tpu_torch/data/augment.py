@@ -378,14 +378,24 @@ def eval_preprocess(imgs_u8, masks=None, norm_mean=IMAGENET_MEAN,
     return imgs, masks
 
 
-def mask_chain_kwargs(cfg):
-    """Mask-chain parameters from the config for PifPaf-style disk masks
-    (bpbreid_tpu/data/datamanager.py:158; datasets whose masks carry
-    their own background channel are not ported yet)."""
+def mask_chain_kwargs(cfg, has_background=False):
+    """Mask-chain parameters from the config (JAX
+    ``ImageDataManager.mask_chain_kwargs``, datamanager.py:158): the
+    grouping of ``masks.preprocess`` for PifPaf-style disk masks; for
+    masks that carry their own background channel (``has_background``,
+    the dataset's ``masks_dirs`` entry, e.g. Occluded-Duke's
+    ``isp_6_parts``) no grouping and the ``'sum'`` background. The chain
+    still prepends a background there, as JAX's does, so such a file's
+    K + 1 channels leave it as K + 2 (ROADMAP, "The JAX package at
+    fault")."""
     mc = cfg.model.bpbreid.masks
     kw = dict(background_strategy=mc.background_computation_strategy,
               softmax_weight=mc.softmax_weight,
               mask_filtering_threshold=mc.mask_filtering_threshold)
+    if has_background:
+        kw.update(grouping_matrix=None, special=None,
+                  background_strategy='sum')
+        return kw
     name = mc.preprocess
     if name == 'none':
         kw.update(grouping_matrix=None, special=None)

@@ -1,9 +1,10 @@
 """Dataset registry (port of bpbreid_tpu/data/datasets/__init__.py).
 
 One parser run is shared by the train, query and gallery modes through
-shallow copies with a mode override (``init_image_dataset``). Only the
-ported parsers are registered; the small datasets (``viper``, ``cuhk03``,
-...) and the video datasets raise, naming ROADMAP Queue 1 item 9.
+shallow copies with a mode override (``init_image_dataset``). Every
+image dataset of the JAX package is registered, under the same name and
+nickname; the video datasets have their own registry
+(``data/video.py``).
 """
 import copy
 
@@ -18,10 +19,23 @@ from bpbreid_tpu_torch.data.datasets.image_datasets import (
     SyntheticDataset,
     SyntheticHardDataset,
 )
+from bpbreid_tpu_torch.data.datasets.small_datasets import (
+    CUHK01,
+    CUHK02,
+    CUHK03,
+    GRID,
+    PETHZ,
+    PRID,
+    PartialiLIDS,
+    PartialREID,
+    SenseReID,
+    VIPeR,
+    iLIDS,
+)
 
 __all__ = ['Dataset', 'ImageDataset', 'get_image_dataset',
-           'init_image_dataset', 'register_image_dataset',
-           'clear_dataset_cache']
+           'get_dataset_nickname', 'init_image_dataset',
+           'register_image_dataset', 'clear_dataset_cache']
 
 _image_datasets = {
     'market1501': Market1501,
@@ -32,21 +46,36 @@ _image_datasets = {
     'msmt17': MSMT17,
     'synthetic': SyntheticDataset,
     'synthetic_hard': SyntheticHardDataset,
+    'viper': VIPeR,
+    'ilids': iLIDS,
+    'cuhk01': CUHK01,
+    'cuhk02': CUHK02,
+    'cuhk03': CUHK03,
+    'prid': PRID,
+    'grid': GRID,
+    'sensereid': SenseReID,
+    'partial_reid': PartialREID,
+    'partial_ilids': PartialiLIDS,
+    'p_ETHZ': PETHZ,
 }
 
-# registered in the JAX package, not ported yet
-_NOT_PORTED = ('viper', 'ilids', 'cuhk01', 'cuhk02', 'cuhk03', 'prid', 'grid',
-               'sensereid', 'partial_reid', 'partial_ilids', 'p_ETHZ',
-               'mars', 'ilidsvid', 'prid2011', 'dukemtmcvidreid')
+_datasets_nicknames = {
+    'market1501': 'mk', 'dukemtmcreid': 'du', 'occluded_duke': 'od',
+    'occluded_reid': 'or', 'p_dukemtmc_reid': 'pd', 'msmt17': 'ms',
+    'synthetic': 'sy', 'synthetic_hard': 'sh', 'viper': 'vi', 'ilids': 'il',
+    'cuhk01': 'c1', 'cuhk02': 'c2', 'cuhk03': 'c3', 'prid': 'pr',
+    'grid': 'gr', 'sensereid': 'se', 'partial_reid': 'pa',
+    'partial_ilids': 'pi', 'p_ETHZ': 'pe',
+}
 
 _dataset_cache = {}
 
 
+def get_dataset_nickname(name):
+    return _datasets_nicknames.get(name, name)
+
+
 def get_image_dataset(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            "dataset '{}' is not ported yet (ROADMAP Queue 1 item 9: the "
-            "small and video datasets)".format(name))
     if name not in _image_datasets:
         raise ValueError('Invalid dataset name. Received "{}", available: {}'
                          .format(name, sorted(_image_datasets)))
@@ -66,11 +95,12 @@ def init_image_dataset(name, mode='train', **kwargs):
     return ds
 
 
-def register_image_dataset(name, dataset_cls):
+def register_image_dataset(name, dataset_cls, nickname=None):
     """Register a new dataset class under ``name``."""
     if name in _image_datasets:
         raise ValueError('dataset {} already registered'.format(name))
     _image_datasets[name] = dataset_cls
+    _datasets_nicknames[name] = nickname or name
 
 
 def clear_dataset_cache():

@@ -31,7 +31,7 @@ class Market1501(ImageDataset):
         self.masks_dir = masks_dir
         cfg = self.masks_dirs.get(masks_dir)
         self.masks_parts_numbers, self.has_background, self.masks_suffix = \
-            cfg if cfg else (None, None, None)
+            cfg[:3] if cfg else (None, None, None)
         self.root = osp.abspath(osp.expanduser(root))
         self.dataset_dir = osp.join(self.root, type(self).dataset_dir)
         self.train_dir = osp.join(self.dataset_dir, 'bounding_box_train')
@@ -80,7 +80,7 @@ class _DukeStyle(ImageDataset):
         self.masks_dir = masks_dir
         cfg = self.masks_dirs.get(masks_dir)
         self.masks_parts_numbers, self.has_background, self.masks_suffix = \
-            cfg if cfg else (None, None, None)
+            cfg[:3] if cfg else (None, None, None)
         self.root = osp.abspath(osp.expanduser(root))
         self.dataset_dir = osp.join(self.root, type(self).dataset_dir)
         self.train_dir = osp.join(self.dataset_dir, 'bounding_box_train')
@@ -121,7 +121,11 @@ class DukeMTMCreID(_DukeStyle):
 
 
 class OccludedDuke(_DukeStyle):
-    """(reference: image/occluded_dukemtmc.py:16-80)"""
+    """(reference: image/occluded_dukemtmc.py:16-80). ``isp_6_parts``
+    files carry their own background channel ahead of the five parts;
+    its fourth entry names the parts, which the parsers skip (JAX's
+    unpacks all four and raises: ROADMAP, "The JAX package at
+    fault")."""
     dataset_dir = 'Occluded_Duke'
     masks_base_dir = 'masks'
     masks_dirs = {
@@ -152,7 +156,7 @@ class OccludedReID(ImageDataset):
         self.masks_dir = masks_dir
         cfg = self.masks_dirs.get(masks_dir)
         self.masks_parts_numbers, self.has_background, self.masks_suffix = \
-            cfg if cfg else (None, None, None)
+            cfg[:3] if cfg else (None, None, None)
         self.root = osp.abspath(osp.expanduser(root))
         self.dataset_dir = osp.join(self.root, type(self).dataset_dir)
         self.query_dir = osp.join(self.dataset_dir, 'occluded_body_images')
@@ -193,7 +197,7 @@ class PDukemtmcReid(ImageDataset):
         self.masks_dir = masks_dir
         cfg = self.masks_dirs.get(masks_dir)
         self.masks_parts_numbers, self.has_background, self.masks_suffix = \
-            cfg if cfg else (None, None, None)
+            cfg[:3] if cfg else (None, None, None)
         self.root = osp.abspath(osp.expanduser(root))
         self.dataset_dir = osp.join(self.root, type(self).dataset_dir)
         train_dir = osp.join(self.dataset_dir, 'train')
@@ -243,7 +247,7 @@ class MSMT17(ImageDataset):
         self.masks_dir = masks_dir
         cfg = self.masks_dirs.get(masks_dir)
         self.masks_parts_numbers, self.has_background, self.masks_suffix = \
-            cfg if cfg else (None, None, None)
+            cfg[:3] if cfg else (None, None, None)
         self.root = osp.abspath(osp.expanduser(root))
         self.dataset_dir = osp.join(self.root, type(self).dataset_dir)
         if osp.exists(osp.join(self.dataset_dir, 'MSMT17_V1')):

@@ -6,6 +6,15 @@ and stay numpy (the engine copies them to the device, ``engine/engine.py
 device_prefetch``, and augments them there, ``data/augment.py``).
 Evaluation batches are padded to the batch size, with ``valid`` False on
 the padding rows, so every eval step sees one shape.
+
+A ``host_transform`` (the ``ro`` random occlusion, whose patch shapes
+vary per draw) runs on the host on each image of a train batch. JAX
+calls it on each sample in the worker threads, which share its
+generator, so with more than one worker its draws follow the threads'
+order. Here one more thread applies it to the assembled batches in
+batch order and to their images in sample order: the draws are those of
+JAX's loader with one worker, whatever ``num_workers`` is, and a run
+repeats.
 """
 import itertools
 from concurrent.futures import ThreadPoolExecutor
@@ -27,11 +36,13 @@ class BatchLoader:
     split), and ``mask`` [B,h,w,C] f32 (``h, w`` the image grid over
     ``MASK_GRID_SCALE``) when the dataset carries masks. A short last
     batch is dropped (``drop_last``) or padded with copies of its last
-    sample, ``valid`` False on them.
+    sample, ``valid`` False on them. ``host_transform`` maps one
+    ``[H, W, 3]`` uint8 image to another (see the module docstring).
     """
 
     def __init__(self, dataset, mode, batch_size, height, width,
-                 sampler=None, num_workers=4, drop_last=False):
+                 sampler=None, num_workers=4, drop_last=False,
+                 host_transform=None):
         self.dataset = dataset
         self.mode = mode
         self.batch_size = batch_size
@@ -42,6 +53,7 @@ class BatchLoader:
         self.sampler = sampler
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
+        self.host_transform = host_transform
 
     def __len__(self):
         n = len(self.sampler) if self.sampler is not None \
@@ -94,14 +106,30 @@ class BatchLoader:
                 samples.append(s)
             return self._assemble(samples, n_valid)
 
-        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+        def transformed(future):
+            batch = future.result()
+            batch['image'] = np.stack([self.host_transform(img)
+                                       for img in batch['image']])
+            return batch
+
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool, \
+                ThreadPoolExecutor(max_workers=1) as ordered:
+
+            def submit(args):
+                future = pool.submit(load_batch, args)
+                if self.host_transform is None:
+                    return future
+                # one thread, fed in batch order: the transform's draws
+                # follow the samples' order
+                return ordered.submit(transformed, future)
+
             # bounded prefetch of 2*workers batches
             it = iter(batches)
-            futures = [pool.submit(load_batch, b)
+            futures = [submit(b)
                        for b in itertools.islice(it, 2 * self.num_workers)]
             while futures:
                 fut = futures.pop(0)
                 nxt = next(it, None)
                 if nxt is not None:
-                    futures.append(pool.submit(load_batch, nxt))
+                    futures.append(submit(nxt))
                 yield fut.result()

@@ -29,7 +29,10 @@ Backbones: every feature-map model of the registry
 ResNets, ResNet-mid and the fastreid trunks). The multires path is
 HRNet's; another backbone returns one map, which a ``before_pooling``
 dim-reduce (1x1 conv + BN + ReLU) shrinks when its width differs from
-``dim_reduce_output``.
+``dim_reduce_output``; ``before_and_after_pooling`` reduces it to twice
+``dim_reduce_output`` under the same condition, then each stream's
+pooled embeddings to ``dim_reduce_output``, and on HRNet-W32 only after
+pooling, as JAX does.
 
 PCB stripes (``horizontal_stripes``; the ``pcb`` and ``bot``
 constructors, and ``masks.type: 'stripes'`` configs): the attention is a
@@ -279,9 +282,9 @@ class BPBreID(nn.Module):
                 "pooling normalization '{}' is not supported (the reference "
                 "marks it obsolete; use 'identity')".format(normalization))
         if dim_reduce not in ('none', 'after_pooling', 'before_pooling',
+                              'before_and_after_pooling',
                               'after_pooling_with_dropout'):
-            raise NotImplementedError(
-                "dim_reduce '{}' is not ported yet".format(dim_reduce))
+            raise ValueError("unknown dim_reduce '{}'".format(dim_reduce))
         self.parts_num = parts_num
         self.pooling = pooling
         self.learnable_attention_enabled = learnable_attention_enabled
@@ -311,16 +314,24 @@ class BPBreID(nn.Module):
             dim_reduction_channels=dim_reduce_output, dtype=dtype,
             **backbone_kwargs)
         spatial_dim = self.backbone_appearance_feature_extractor.feature_dim
-        # the HRNet reduces inside its head (cls_head); another backbone's
-        # map goes through its own 1x1 conv + BN + ReLU
-        self.use_before_reduce = (not self.hrnet
-                                  and dim_reduce == 'before_pooling'
-                                  and spatial_dim != dim_reduce_output)
+        # the HRNet reduces inside its head (cls_head) for
+        # before_pooling, and not at all before pooling for
+        # before_and_after_pooling (JAX :312-315); another backbone's map
+        # goes through its own 1x1 conv + BN + ReLU, to twice the output
+        # width when the after-pooling reductions follow (JAX :316-318),
+        # unless the map already has the output width
+        self.use_before_reduce = (
+            not self.hrnet
+            and dim_reduce in ('before_pooling', 'before_and_after_pooling')
+            and spatial_dim != dim_reduce_output)
         if self.use_before_reduce:
+            before_out = dim_reduce_output * (
+                2 if dim_reduce == 'before_and_after_pooling' else 1)
             self.before_pooling_dim_reduce = BeforePoolingDimReduce(
-                spatial_dim, dim_reduce_output, dtype)
-            spatial_dim = dim_reduce_output
+                spatial_dim, before_out, dtype)
+            spatial_dim = before_out
         self.use_after_reduce = dim_reduce in ('after_pooling',
+                                               'before_and_after_pooling',
                                                'after_pooling_with_dropout')
         dropout = DIM_REDUCE_DROPOUT \
             if dim_reduce == 'after_pooling_with_dropout' else None

@@ -24,8 +24,13 @@ when that file exists. ``test.int8 True`` tests (and, with
 the activation ranges of the first ``test.int8_calib_batches`` query
 batches, then every backbone convolution that ``test.int8_skip_patterns``
 does not keep in float as an s8 x s8 -> s32 product (``ops/quant.py``).
+``data.type video`` trains and tests a zoo model on tracklets
+(``data/video.py``: ``VideoDataManager`` over ``mars``, ``ilidsvid``,
+``prid2011``, ``dukemtmcvidreid`` or ``synthetic_video``;
+``engine/video/``: ``loss.name`` ``softmax`` or ``triplet``, the frame
+embeddings pooled by ``video.pooling_method``), with no masks.
 Not ported, and raising with their ROADMAP Queue 1 item: data
-parallelism over several cards (8), video data (9), and the figures of
+parallelism over several cards (8), and the figures of
 ``test.vis_embedding_projection`` and ``train.batch_debug_freq`` (11).
 ``test.visrank`` draws its ranking grids without matplotlib
 (``utils/visualization/rankings.py``).
@@ -42,11 +47,15 @@ import torch
 from bpbreid_tpu_torch import resolve_device
 from bpbreid_tpu_torch.config import (display_config_diff, engine_run_kwargs,
                                       get_default_config, imagedata_kwargs,
-                                      lr_scheduler_kwargs, optimizer_kwargs)
+                                      lr_scheduler_kwargs, optimizer_kwargs,
+                                      videodata_kwargs)
 from bpbreid_tpu_torch.data.datamanager import ImageDataManager
 from bpbreid_tpu_torch.data.datasets import get_image_dataset
+from bpbreid_tpu_torch.data.video import VideoDataManager
 from bpbreid_tpu_torch.engine.image import (ImageSoftmaxEngine,
                                            ImageTripletEngine)
+from bpbreid_tpu_torch.engine.video import (VideoSoftmaxEngine,
+                                           VideoTripletEngine)
 from bpbreid_tpu_torch.engine.part_based import (ImagePartBasedEngine,
                                                  refuse_unported_test_options)
 from bpbreid_tpu_torch.models import build_model
@@ -66,6 +75,9 @@ __all__ = ['build_config', 'build_engine', 'build_model_engine', 'main']
 
 ENGINES = {'part_based': ImagePartBasedEngine, 'softmax': ImageSoftmaxEngine,
            'triplet': ImageTripletEngine}
+# data.type video: the engines of loss.name (JAX main.py:121-139 builds
+# the triplet one for any loss but softmax)
+VIDEO_ENGINES = {'softmax': VideoSoftmaxEngine, 'triplet': VideoTripletEngine}
 
 
 def set_random_seed(seed):
@@ -77,10 +89,12 @@ def set_random_seed(seed):
 def refuse_unported(cfg):
     """Raise, before anything is built, for the options of the JAX CLI
     that the port does not have yet."""
-    if cfg.data.type != 'image':
-        raise NotImplementedError('video data is not ported yet (ROADMAP '
-                                  'Queue 1 item 9: data/video.py, '
-                                  'engine/video/)')
+    if cfg.data.type not in ('image', 'video'):
+        raise ValueError("data.type must be 'image' or 'video', got "
+                         "{}".format(cfg.data.type))
+    if cfg.data.type == 'video' and cfg.loss.name not in VIDEO_ENGINES:
+        raise ValueError('data.type video takes loss.name {}, got {}'.format(
+            ' or '.join(VIDEO_ENGINES), cfg.loss.name))
     if cfg.loss.name not in ENGINES:
         raise ValueError('unknown loss {} (one of {})'.format(
             cfg.loss.name, ', '.join(ENGINES)))
@@ -127,9 +141,11 @@ def build_config(args=None, config_file=None, config=None, makedirs=True):
         if getattr(args, 'opts', None):
             cfg.merge_from_list(args.opts)
     refuse_unported(cfg)
-    ds_cls = get_image_dataset(cfg.data.sources[0])
-    compute_parts_num_and_names(
-        cfg, ds_cls.get_masks_config(cfg.model.bpbreid.masks.dir))
+    masks_config = None          # video datasets carry no part masks
+    if cfg.data.type == 'image':
+        masks_config = get_image_dataset(
+            cfg.data.sources[0]).get_masks_config(cfg.model.bpbreid.masks.dir)
+    compute_parts_num_and_names(cfg, masks_config)
 
     if cfg.model.load_weights and osp.isfile(cfg.model.load_weights) \
             and cfg.model.load_config:
@@ -224,6 +240,10 @@ def build_engine(cfg, datamanager, model, optimizer, scheduler, writer,
         kwargs.update(margin=cfg.loss.triplet.margin,
                       weight_t=cfg.loss.triplet.weight_t,
                       weight_x=cfg.loss.triplet.weight_x)
+    if cfg.data.type == 'video':
+        return VIDEO_ENGINES[cfg.loss.name](
+            datamanager, model, pooling_method=cfg.video.pooling_method,
+            **kwargs)
     return ENGINES[cfg.loss.name](datamanager, model, **kwargs)
 
 
@@ -236,7 +256,9 @@ def build_model_engine(cfg):
     set_random_seed(cfg.train.seed)
     if cfg.project.debug_mode:
         torch.autograd.set_detect_anomaly(True)
-    datamanager = ImageDataManager(**imagedata_kwargs(cfg))
+    datamanager = VideoDataManager(**videodata_kwargs(cfg)) \
+        if cfg.data.type == 'video' \
+        else ImageDataManager(**imagedata_kwargs(cfg))
     engine_state = EngineState(cfg.train.start_epoch, cfg.train.max_epoch)
     writer = Writer(cfg, logger=logger, engine_state=engine_state)
     print('Building model: {}'.format(cfg.model.name))

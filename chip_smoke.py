@@ -166,12 +166,48 @@ and Market-1501 + 500k distractors scale. Phases:
    versions, with times against the byte bound and ``F.batch_norm``, as
    phase 6b.
 
+14. the video path and the last data options, every launch count set
+   to 0 just before each run and read just after: (a) ``data.type video``
+   through ``scripts.main.main`` with torchreid's documented video recipe
+   (``resnet50``, softmax, 15 frames sampled evenly, 3 tracklets a batch:
+   45 frames a step, random sampler, random flip, adam 0.0003) on a
+   registered synthetic set of 16 identities x 2 cameras, tracklets of 24
+   frames at 256x128, bf16: one epoch (10 steps) and the test (22 padded
+   batches of 3 tracklets), the step ms (host clock between step
+   entries) and frames/s, the BN launches of every step and of the eval
+   batches against the model's ``FastBatchNorm`` count (53), 20 steps on
+   one batch whose loss must fall, a profile of three steps (busy
+   share), one f32 step of 4 tracklets x 4 frames on the card against
+   the CPU (phase 7's tolerances), then 3 ``VideoTripletEngine`` steps on
+   batches of 2 identities x 2 tracklets with their BN launches, and the
+   BN kernels held against their plain versions (as phase 2 holds them)
+   and timed at each distinct BN input of the softmax and the triplet
+   step (45 and 60 frames), as phase 13d; (b) the
+   shipped ``configs/bpbreid/bpbreid_occ_duke_train.yaml`` with
+   ``masks.dir isp_6_parts`` and ``data.transforms ['rc', 're', 'ro']``
+   (HRNet-W32, 384x128, batch 64) on a fabricated Occluded-Duke tree whose
+   mask files carry their own background channel: two train steps and
+   the test with the BN launches of every step against the model's
+   kernel-backed BNs, the channels of the first batch's masks on disk
+   (6) and after the mask chain on the card (7: JAX's second
+   background), the ``ro`` transform's host ms a batch of 64, then
+   a test-only run through K2 (fused pooling, multires off), one K2 a
+   test batch; (c) BPBReID on ``resnet50`` with ``dim_reduce
+   before_and_after_pooling``, f32 at 256x128: one eval batch (1e-3) and
+   one train step (phase 7's tolerances) on the card against the CPU;
+   (d) a test-only CLI run (``resnet50``, softmax engine) on a fabricated,
+   extracted CUHK03 tree (labeled, new protocol): one ``bn_apply`` per
+   ``FastBatchNorm`` a batch, mAP and rank-1 finite, and the BN kernels
+   held against their plain versions and timed at each distinct BN input
+   of the first eval batch.
+
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
 throughput line, the CLI line (phase 9), the inference line (phase 10),
 the PCB line (phase 11), the int8 line (phase 12), the global line
-(phase 13), the kernels line (launches: the BN kernels' in run 9a, phase
-10, phase 11a-b and phase 13, K2's in run 9c, phase 10 and phase 13c,
+(phase 13), the video line (phase 14), the kernels line (launches: the
+BN kernels' in run 9a, phase 10, phase 11a-b, phase 13 and phase 14, K2's
+in run 9c, phase 10, phase 13c and phase 14b,
 K1's in phase 3b, ``conv_s8`` and ``quantize_s8``'s in phase 12's int8
 step, extractor batch and CLI test) and the result line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -1574,18 +1610,25 @@ def phase_k3_step_shapes(torch, shapes, results,
         raise AssertionError('\n'.join(failures))
 
 
-def compare_train_steps(card, cpu):
+def compare_train_steps(card, cpu, zero_in_exact=()):
     """One f32 train step on the card against the same on the CPU (each a
     dict of the loss, the parameters before, the gradients and the state
     after; Adam at ``LR``, ``WEIGHT_DECAY``): the summary and the failed
-    checks, at phase 7's tolerances."""
+    checks, at phase 7's tolerances. Gradients whose names end in one of
+    ``zero_in_exact`` are zero in exact arithmetic (the bias of a conv or
+    Dense ahead of a train-mode BN): there both sides must stay below
+    1e-5, float noise, and their ratio is not compared."""
     checks = []
     loss_rel = abs(card['loss'] - cpu['loss']) / abs(cpu['loss'])
     if not loss_rel <= 1e-5:
         checks.append('loss {} vs {}'.format(card['loss'], cpu['loss']))
     num = den = 0.0
-    worst_grad = 0.0
+    worst_grad = worst_zero = 0.0
     for k, g in cpu['grads'].items():
+        if zero_in_exact and k.endswith(tuple(zero_in_exact)):
+            worst_zero = max(worst_zero, g.abs().max().item(),
+                             card['grads'][k].abs().max().item())
+            continue
         d = card['grads'][k] - g
         num += float((d.double() ** 2).sum())
         den += float((g.double() ** 2).sum())
@@ -1616,9 +1659,15 @@ def compare_train_steps(card, cpu):
     if not worst_param <= 1e-6:
         checks.append('parameters differ from the Adam update by {}'
                       .format(worst_param))
-    return {'loss_card': card['loss'], 'loss_cpu': cpu['loss'],
-            'grad_rel_l2': grad_rel_l2, 'grad_worst_tensor': worst_grad,
-            'bn_stats_worst': worst_bn, 'param_worst': worst_param}, checks
+    if not worst_zero <= 1e-5:
+        checks.append('gradients zero in exact arithmetic reach {}'.format(
+            worst_zero))
+    summary = {'loss_card': card['loss'], 'loss_cpu': cpu['loss'],
+               'grad_rel_l2': grad_rel_l2, 'grad_worst_tensor': worst_grad,
+               'bn_stats_worst': worst_bn, 'param_worst': worst_param}
+    if zero_in_exact:
+        summary['zero_in_exact_grad_max'] = worst_zero
+    return summary, checks
 
 
 def phase_small_train_reference(torch, results):
@@ -3608,6 +3657,579 @@ def phase_global(torch, results):
     return launches
 
 
+# phase 14: the video path (data/video.py, engine/video/) through the CLI
+# on a registered synthetic tracklet set of 16 identities x 2 cameras, one
+# tracklet of 24 frames at 256x128 a camera in each split: 32 train
+# tracklets (10 steps of 3 with the random sampler), 32 query and 32
+# gallery tracklets (11 padded eval batches of 3 each)
+VIDEO_DATASET = 'smoke_video_tracklets'
+VIDEO_IDS, VIDEO_CAMS, VIDEO_FRAMES = 16, 2, 24
+VIDEO_HW = (256, 128)
+VIDEO_SEQ, VIDEO_BATCH = 15, 3
+VIDEO_EVAL_BATCHES = 2 * 11
+# torchreid's documented video recipe (its user guide's VideoDataManager
+# example, KaiyangZhou/deep-person-reid docs/user_guide.rst): resnet50,
+# softmax, 15 frames sampled evenly a tracklet, 3 tracklets a batch (45
+# frames a step), the random sampler, random flip, adam at 0.0003, the
+# frame embeddings averaged
+VIDEO_RECIPE = ('data.type', 'video', 'model.name', 'resnet50',
+                'loss.name', 'softmax', 'video.seq_len', str(VIDEO_SEQ),
+                'video.sample_method', 'evenly',
+                'video.pooling_method', 'avg',
+                'train.batch_size', str(VIDEO_BATCH),
+                'test.batch_size', str(VIDEO_BATCH),
+                'train.optim', 'adam', 'train.lr', '0.0003',
+                'sampler.train_sampler', 'RandomSampler',
+                'data.transforms', "['random_flip']")
+VIDEO_TRIPLET_STEPS = 3
+# (b) the shipped Occluded-Duke train config with ISP masks (their own
+# background channel) and the random occlusion, HRNet-W32 at 384x128 on
+# a fabricated tree: 32 identities x 4 train images (2 steps of 16 x 4),
+# 32 query and 64 gallery images (one eval batch of 64 each), PNG bytes
+# under the dataset's .jpg names (the card's machine has no JPEG
+# decoder), fields of 6 channels at 48x16
+OCC_CONFIG = 'configs/bpbreid/bpbreid_occ_duke_train.yaml'
+OCC_IDS, OCC_IMGS = 32, 4
+OCC_SRC_HW = (128, 64)
+OCC_PARTS = 5
+OCC_EVAL_BATCHES = 2
+# (d) an extracted CUHK03 tree (labeled images, the new protocol): 16
+# train identities x 4 images, 20 test identities with one query (view 1)
+# and two gallery images (view 2) each
+CUHK03_TRAIN_IDS, CUHK03_TEST_IDS = 16, 20
+CUHK03_EVAL_BATCHES = 2
+DATA_DIR = os.path.join('_scratch', 'chip_smoke_data')
+
+
+def register_video_dataset():
+    """A ``SyntheticVideoDataset`` with the counts and frame size above,
+    in the port's video registry."""
+    from bpbreid_tpu_torch.data.video import (SyntheticVideoDataset,
+                                              register_video_dataset as reg)
+
+    class SmokeVideoTracklets(SyntheticVideoDataset):
+        def __init__(self, seed=0, **kwargs):
+            super().__init__(num_pids=VIDEO_IDS, num_cams=VIDEO_CAMS,
+                             tracklet_len=VIDEO_FRAMES, height=VIDEO_HW[0],
+                             width=VIDEO_HW[1], seed=SEED + 20, **kwargs)
+    reg(VIDEO_DATASET, SmokeVideoTracklets)
+
+
+def video_argv(job_id, *opts):
+    return (['--save_dir', CLI_SAVE_DIR, '--job-id', str(job_id),
+             'data.sources', "['{}']".format(VIDEO_DATASET),
+             'data.targets', "['{}']".format(VIDEO_DATASET),
+             'data.height', str(VIDEO_HW[0]), 'data.width', str(VIDEO_HW[1]),
+             'model.compute_dtype', 'bfloat16', 'model.pretrained', 'False',
+             'train.max_epoch', '1', 'train.eval_freq', '-1',
+             'test.visrank', 'False'] + list(opts))
+
+
+def _fastbatchnorms(model):
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    return sum(isinstance(m, FastBatchNorm) for m in model.modules())
+
+
+def _video_card_vs_cpu(torch):
+    """One f32 ``VideoSoftmaxEngine`` step of resnet50 on 4 tracklets of 4
+    frames at 256x128 (2 identities), card and CPU (TF32 off), the same
+    seeded weights and batch, no augmentation: ``compare_train_steps``."""
+    from bpbreid_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
+    from bpbreid_tpu_torch.engine.video import VideoSoftmaxEngine
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.optim import build_optimizer
+    dm = types.SimpleNamespace(transforms=(), norm_mean=IMAGENET_MEAN,
+                               norm_std=IMAGENET_STD)
+    rng = np.random.default_rng(SEED + 21)
+    batch = {'image': torch.as_tensor(rng.integers(
+                 0, 256, (4, 4) + VIDEO_HW + (3,), dtype=np.uint8)),
+             'pid': torch.as_tensor(np.repeat(np.arange(2), 2))}
+    out = {}
+    for device in ('cuda', 'cpu'):
+        model = build_model('resnet50', 10, loss='softmax', device=device,
+                            seed=SEED, dtype=torch.float32)
+        engine = VideoSoftmaxEngine(dm, model, build_optimizer(
+            model, optim='adam', lr=LR, weight_decay=WEIGHT_DECAY),
+            device=device)
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.named_parameters()}
+        loss, _ = engine.forward_backward(
+            {k: v.to(device) for k, v in batch.items()})
+        out[device] = {
+            'loss': loss.item(), 'before': before,
+            'grads': {k: v.grad.detach().cpu().clone()
+                      for k, v in model.named_parameters()},
+            'state': {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+        del model, engine
+    return compare_train_steps(out['cuda'], out['cpu'])
+
+
+def _video_triplet_steps(torch, checks):
+    """``VideoTripletEngine`` steps (resnet50, bf16, batch-hard triplet +
+    CE) on batches of 4 tracklets (2 identities x 2, 60 frames), each
+    counted from 0: the BN kernels once per FastBatchNorm a step."""
+    from bpbreid_tpu_torch.data.video import VideoDataManager
+    from bpbreid_tpu_torch.engine.engine import device_prefetch
+    from bpbreid_tpu_torch.engine.video import VideoTripletEngine
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.optim import build_optimizer
+    dm = VideoDataManager(sources=[VIDEO_DATASET], height=VIDEO_HW[0],
+                          width=VIDEO_HW[1], transforms=['random_flip'],
+                          batch_size_train=4, batch_size_test=4, workers=4,
+                          num_instances=2,
+                          train_sampler='RandomIdentitySampler',
+                          seq_len=VIDEO_SEQ)
+    model = build_model('resnet50', dm.num_train_pids, loss='triplet',
+                        device='cuda', seed=SEED, dtype=torch.bfloat16)
+    engine = VideoTripletEngine(dm, model, build_optimizer(
+        model, optim='adam', lr=3e-4), device='cuda')
+    n_bn = _fastbatchnorms(model)
+    losses, per_step, total, shapes = [], [], {}, {}
+    for i, batch in enumerate(device_prefetch(dm.train_loader, 'cuda')):
+        if i == VIDEO_TRIPLET_STEPS:
+            break
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with bn_inputs(model) as inputs:
+            loss, summary = engine.forward_backward(batch)
+        if i == 0:
+            shapes = {key: [n, n] for key, n in inputs.items()}
+        losses.append(loss.item())
+        per_step.append({k: launch_counts[k] for k in BN_KERNELS})
+        for k, v in launch_counts.items():
+            total[k] = total.get(k, 0) + v
+    if any(c != {k: n_bn for k in BN_KERNELS} for c in per_step) \
+            or not np.isfinite(losses).all() or len(losses) < 3:
+        checks.append('14a triplet: launches {} for {} FastBatchNorms, '
+                      'losses {}'.format(per_step, n_bn, losses))
+    del model, engine
+    return {'steps': len(losses), 'losses': losses,
+            'frames_per_step': 4 * VIDEO_SEQ,
+            'bn_launches_per_step': per_step[0] if per_step else {},
+            'fastbatchnorm_modules': n_bn}, total, shapes
+
+
+def bn_inputs(model):
+    """A context that counts the inputs of ``model``'s FastBatchNorms
+    (shape, dtype, channel_dim -> calls) while it is open: forward hooks,
+    removed when it closes."""
+    import contextlib
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+
+    @contextlib.contextmanager
+    def hooked():
+        inputs = collections.Counter()
+
+        def hook(mod, inp):
+            inputs[(tuple(inp[0].shape), inp[0].dtype, mod.channel_dim)] += 1
+        hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+                 if isinstance(m, FastBatchNorm)]
+        try:
+            yield inputs
+        finally:
+            for h in hooks:
+                h.remove()
+    return hooked()
+
+
+def check_k3_at(torch, what, shapes, results, result_key, checks):
+    """``phase_k3_step_shapes`` with ``check`` on ``shapes`` (``(shape,
+    dtype, channel_dim) -> [forward, backward calls]``), largest first:
+    each BN kernel held against its plain version at a path's own BN
+    inputs, and timed. A failure goes to ``checks``."""
+    try:
+        phase_k3_step_shapes(
+            torch, sorted(shapes.items(), key=lambda kv: -np.prod(kv[0][0])),
+            results, result_key=result_key, check=True)
+    except AssertionError as e:
+        checks.append('{}: {}'.format(what, e))
+
+
+def _phase_video(torch, checks):
+    """Phase 14a (see the module docstring)."""
+    from bpbreid_tpu_torch.data.augment import sample_train_draws
+    from bpbreid_tpu_torch.engine.video import VideoSoftmaxEngine
+    register_video_dataset()
+    engine, (cmc, mAP, _, _), counts, rec, wall = drive_cli(
+        torch, '14a video softmax', video_argv(141, *VIDEO_RECIPE),
+        cls=VideoSoftmaxEngine)
+    n_bn = _fastbatchnorms(engine.model)
+    steps = len(rec.losses)
+    losses = [float(v) for v in rec.losses]
+    if steps != VIDEO_IDS * VIDEO_CAMS // VIDEO_BATCH \
+            or not all(np.isfinite(losses)):
+        checks.append('14a: {} steps, losses {}'.format(steps, losses))
+    checks += ['14a: BN launches a step {} != {} FastBatchNorms'.format(
+        c, n_bn) for c in rec.launches
+        if c != {k: n_bn for k in BN_KERNELS}][:1]
+    eval_apply = counts.get('bn_apply', 0) - steps * n_bn
+    if not (eval_apply == rec.bn_calls['eval']
+            == VIDEO_EVAL_BATCHES * n_bn):
+        checks.append('14a: eval bn_apply {} for {} eval-mode BN calls, {} '
+                      'x {}'.format(eval_apply, rec.bn_calls['eval'],
+                                    VIDEO_EVAL_BATCHES, n_bn))
+    if counts.get('attention_pool', 0) or not (
+            np.isfinite(float(mAP)) and np.isfinite(float(cmc[0]))):
+        checks.append('14a: K2 {}, mAP {}, rank-1 {}'.format(
+            counts.get('attention_pool', 0), mAP, cmc[0]))
+    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    step_ms = statistics.median(intervals)
+    frames = VIDEO_BATCH * VIDEO_SEQ
+    batch = {k: rec.first_batch[k].to('cuda') for k in ('image', 'pid')}
+    draws = sample_train_draws(engine.generator, frames, *VIDEO_HW,
+                               engine.transforms, **engine.cj)
+    learn = [float(engine.forward_backward(batch, draws)[0])
+             for _ in range(TRAIN_LEARN)]
+    if not (all(np.isfinite(learn))
+            and np.mean(learn[-3:]) < np.mean(learn[:3])):
+        checks.append('14a: loss did not fall over {} steps: {}'.format(
+            TRAIN_LEARN, learn))
+    profile = profile_steps(torch, lambda: engine.forward_backward(batch))
+    del engine, batch
+    torch.cuda.empty_cache()
+    small, bad = _video_card_vs_cpu(torch)
+    checks += ['14a card vs CPU: ' + b for b in bad]
+    triplet, triplet_counts, triplet_shapes = _video_triplet_steps(
+        torch, checks)
+    k3 = {}
+    check_k3_at(torch, '14a softmax K3', {
+        key: [n, n] for key, n in rec.bn_inputs.items()}, k3, 'softmax',
+        checks)
+    check_k3_at(torch, '14a triplet K3', triplet_shapes, k3, 'triplet',
+                checks)
+    out = {'model': 'resnet50', 'steps': steps, 'losses': losses,
+           'frames_per_step': frames, 'step_ms_median': step_ms,
+           'step_ms': intervals, 'frames_per_s': frames / step_ms * 1e3,
+           'fastbatchnorm_modules': n_bn,
+           'bn_launches_per_step': rec.launches[0] if rec.launches else {},
+           'eval_bn_apply_per_batch': eval_apply / VIDEO_EVAL_BATCHES,
+           'rank1': float(cmc[0]), 'mAP': float(mAP),
+           'learning_losses': learn, 'card_vs_cpu': small,
+           'busy_share': profile['busy_share'],
+           'device_busy_ms': profile['device_busy_ms'],
+           'profile': {k: v for k, v in profile.items()
+                       if k != 'top_host_ops'},
+           'triplet': triplet, 'k3': k3, 'launches': counts,
+           'wall_s': wall}
+    log('14a', json.dumps({k: v for k, v in out.items()
+                           if k not in ('losses', 'step_ms', 'profile',
+                                        'learning_losses', 'k3')}))
+    for row in profile['top_kernels'][:6]:
+        log('  {:9.3f} ms {:5d} calls  {}'.format(row['ms'], row['calls'],
+                                                  row['name']))
+    totals = dict(counts)
+    for k, v in triplet_counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return out, totals
+
+
+def make_occluded_duke_tree(root):
+    """The fabricated Occluded-Duke tree of (b): seeded RGB crops and
+    6-channel ISP fields (background first, the channels summing to 1) at
+    each image's ``isp_6_parts`` path."""
+    rng = np.random.default_rng(SEED + 22)
+    base = os.path.join(root, 'Occluded_Duke')
+    layout = {'bounding_box_train': [(pid, i % 8 + 1) for pid in
+                                     range(1, OCC_IDS + 1)
+                                     for i in range(OCC_IMGS)],
+              'query': [(1000 + pid, 1) for pid in range(OCC_IDS)],
+              'bounding_box_test': [(1000 + pid, cam) for pid in
+                                    range(OCC_IDS) for cam in (2, 3)]}
+    for sub, items in layout.items():
+        os.makedirs(os.path.join(base, sub))
+        os.makedirs(os.path.join(base, 'masks', 'isp_6_parts', sub))
+        for j, (pid, cam) in enumerate(items):
+            name = '{:04d}_c{}_f{:07d}'.format(pid, cam, j)
+            write_png(os.path.join(base, sub, name + '.jpg'),
+                      rng.integers(0, 256, OCC_SRC_HW + (3,),
+                                   dtype=np.uint8))
+            fields = rng.gamma(0.3, size=(OCC_PARTS + 1, HEIGHT // 8,
+                                          WIDTH // 8)).astype(np.float32)
+            np.save(os.path.join(base, 'masks', 'isp_6_parts', sub,
+                                 name + '.jpg.confidence_fields.npy'),
+                    fields / fields.sum(axis=0, keepdims=True))
+
+
+def _ro_batch_ms(transform):
+    """The random occlusion's host ms on a batch of 64 crops at 384x128
+    (median of 5 batches; the loader runs it on one thread)."""
+    rng = np.random.default_rng(SEED + 23)
+    imgs = rng.integers(0, 256, (BATCH, HEIGHT, WIDTH, 3), dtype=np.uint8)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for img in imgs:
+            transform(img)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _phase_occluded(torch, checks):
+    """Phase 14b (see the module docstring)."""
+    import shutil
+    from bpbreid_tpu_torch.data.augment import train_augment
+    from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    root = os.path.join(DATA_DIR, 'occluded')
+    shutil.rmtree(root, ignore_errors=True)
+    make_occluded_duke_tree(root)
+    opts = ['--config-file', OCC_CONFIG, '--root', root,
+            '--save_dir', CLI_SAVE_DIR, 'model.bpbreid.masks.dir',
+            'isp_6_parts', 'data.transforms', "['rc', 're', 'ro']",
+            'model.pretrained', 'False', 'train.max_epoch', '1',
+            'train.eval_freq', '-1']
+    engine, (cmc, mAP, _, _), counts, rec, wall = drive_cli(
+        torch, '14b occluded train', ['--job-id', '142'] + opts)
+    model = engine.model
+    bn, no_grad = _bn_split(model, engine.losses_weights)
+    want, bad = _step_launch_checks(rec, bn, no_grad, '14b')
+    checks += bad
+    losses = [float(v) for v in rec.losses]
+    first_mask = rec.first_batch.get('mask')
+    mask_channels = None if first_mask is None else first_mask.shape[-1]
+    if len(losses) != OCC_IDS * OCC_IMGS // BATCH \
+            or not all(np.isfinite(losses)) \
+            or model.parts_num != OCC_PARTS or mask_channels != OCC_PARTS + 1:
+        checks.append('14b: losses {}, parts {}, mask channels {}'.format(
+            losses, model.parts_num, mask_channels))
+    if counts.get('attention_pool', 0) or not np.isfinite(float(mAP)):
+        checks.append('14b: K2 in training {}, mAP {}'.format(
+            counts.get('attention_pool', 0), mAP))
+    chain_channels = None
+    if first_mask is not None:
+        chain_channels = train_augment(
+            rec.first_batch['image'].to('cuda'), first_mask.to('cuda'), {},
+            mask_kwargs=engine.mask_kwargs)[1].shape[1]
+    # JAX's chain adds a second background ahead of the file's own
+    # (ROADMAP, "The JAX package at fault"), and the port's does the same
+    if chain_channels != OCC_PARTS + 2:
+        checks.append('14b: {} mask channels after the chain'.format(
+            chain_channels))
+    ro = engine.datamanager.train_loader.host_transform
+    ro_ms = _ro_batch_ms(ro)
+    del engine, model
+    torch.cuda.empty_cache()
+    clear_dataset_cache()
+    k2_engine, (k2_cmc, k2_mAP, _, _), k2_counts, k2_rec, k2_wall = \
+        drive_cli(torch, '14b occluded test through K2',
+                  ['--job-id', '143'] + opts + [
+                      'test.evaluate', 'True',
+                      'model.bpbreid.use_pallas_pooling', 'True',
+                      'model.bpbreid.multires_pooling', 'False'])
+    # a test-only run calls no forward_backward, so no hooks count its
+    # BN calls: one bn_apply for each kernel-backed BN of (b)'s model
+    want_k2 = {'attention_pool': OCC_EVAL_BATCHES,
+               'bn_apply': OCC_EVAL_BATCHES * len(bn)}
+    if {k: v for k, v in k2_counts.items() if v} != want_k2 \
+            or not np.isfinite(float(k2_mAP)):
+        checks.append('14b K2 test: launches {} != {}, mAP {}'.format(
+            k2_counts, want_k2, k2_mAP))
+    del k2_engine
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    out = {'config': OCC_CONFIG, 'steps': len(losses), 'losses': losses,
+           'step_ms_median': statistics.median(
+               (np.diff(rec.entries) * 1e3).tolist()) if len(losses) > 1
+           else None,
+           'mask_channels_on_disk': mask_channels,
+           'mask_channels_after_chain': chain_channels,
+           'bn_launches_per_step': rec.launches[0] if rec.launches else {},
+           'bn_want_per_step': want, 'ro_host_ms_per_batch': ro_ms,
+           'rank1': float(cmc[0]), 'mAP': float(mAP),
+           'k2_per_test_batch': k2_counts.get('attention_pool', 0)
+           / OCC_EVAL_BATCHES,
+           'k2_test_bn_apply_per_batch': k2_counts.get('bn_apply', 0)
+           / OCC_EVAL_BATCHES,
+           'k2_test_rank1': float(k2_cmc[0]), 'k2_test_mAP': float(k2_mAP),
+           'launches': counts, 'k2_launches': k2_counts,
+           'wall_s': wall, 'k2_wall_s': k2_wall}
+    log('14b', json.dumps({k: v for k, v in out.items() if k != 'losses'}))
+    totals = dict(counts)
+    for k, v in k2_counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return out, totals
+
+
+def _phase_before_and_after(torch, checks):
+    """Phase 14c: BPBReID on resnet50 with ``dim_reduce
+    before_and_after_pooling`` (2048 -> 1024 channels before pooling, 512
+    after), f32 at 256x128: one eval batch (embeddings 1e-3, phase 5) and
+    one train step (phase 7's tolerances, ``compare_train_steps``; the
+    biases of the reductions' conv and Dense, ahead of train-mode BNs,
+    have a zero gradient in exact arithmetic, which both sides must hold
+    to float noise) of 2 identities x 4 on the card and on the CPU, TF32
+    off. Returns its launches on the card, counted from 0."""
+    from bpbreid_tpu_torch.data.augment import sample_train_draws
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    h, w = VIDEO_HW
+    cfg = train_config(h, w, 'float32')
+    cfg.model.bpbreid.backbone = 'resnet50'
+    cfg.model.bpbreid.dim_reduce = 'before_and_after_pooling'
+    cpu_batch = make_train_batch(np.random.default_rng(SEED + 24), 2, 4, h,
+                                 w, 'cpu')
+    draws = sample_train_draws(torch.Generator().manual_seed(SEED), 8, h, w,
+                               cfg.data.transforms)
+    out, feats, counts = {}, {}, {}
+    for device in ('cuda', 'cpu'):
+        model, engine = train_engine(torch, cfg, 7, device)
+        batch = {k: v.to(device) for k, v in cpu_batch.items()}
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            reset_launch_counts()
+        feats[device] = engine.eval_step(batch['image'],
+                                         batch['mask'])[0].float().cpu()
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.named_parameters()}
+        dev_draws = {k: (None if v is None else
+                         tuple(t.to(device) for t in v)
+                         if isinstance(v, tuple) else v.to(device))
+                     for k, v in draws.items()}
+        loss, _ = engine.forward_backward(batch, draws=dev_draws)
+        out[device] = {
+            'loss': loss.item(), 'before': before,
+            'grads': {k: v.grad.detach().cpu().clone()
+                      for k, v in model.named_parameters()},
+            'state': {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            counts = dict(launch_counts)
+            reduce_shape = tuple(
+                model.before_pooling_dim_reduce.layers[0].weight.shape)
+        del model, engine
+    torch.cuda.empty_cache()
+    small, bad = compare_train_steps(
+        out['cuda'], out['cpu'], zero_in_exact=('_dim_reduce.layers.0.bias',))
+    checks += ['14c train card vs CPU: ' + b for b in bad]
+    emb_err = (feats['cuda'] - feats['cpu']).abs().max().item() \
+        / feats['cpu'].abs().max().item()
+    if not emb_err <= 1e-3 or reduce_shape[:2] != (1024, 2048) \
+            or feats['cpu'].shape[-1] != 512:
+        checks.append('14c: embeddings {} apart, before-pooling conv {}, '
+                      'width {}'.format(emb_err, reduce_shape,
+                                        feats['cpu'].shape[-1]))
+    result = {'backbone': 'resnet50', 'before_pooling_conv': reduce_shape,
+              'embedding_rel_err': emb_err, 'train_card_vs_cpu': small,
+              'launches': counts}
+    log('14c', json.dumps(result))
+    return result, counts
+
+
+def make_cuhk03_tree(root):
+    """An extracted CUHK03 tree (``splits_new_labeled.json`` and the
+    labeled PNGs, named as the extraction names them)."""
+    rng = np.random.default_rng(SEED + 25)
+    base = os.path.join(root, 'cuhk03')
+    img_dir = os.path.join(base, 'images_labeled')
+    os.makedirs(img_dir)
+    split = {'train': [], 'query': [], 'gallery': []}
+    for pid in range(1, CUHK03_TRAIN_IDS + CUHK03_TEST_IDS + 1):
+        test = pid > CUHK03_TRAIN_IDS
+        for view, img in ((1, 1), (1, 2), (2, 6), (2, 7)):
+            if test and (view, img) == (1, 2):
+                continue
+            name = '1_{:03d}_{}_{:02d}.png'.format(pid, view, img)
+            path = os.path.abspath(os.path.join(img_dir, name))
+            write_png(path, rng.integers(0, 256, CLI_SRC_HW + (3,),
+                                         dtype=np.uint8))
+            if not test:
+                split['train'].append([path, pid - 1, view - 1])
+            else:
+                split['query' if view == 1 else 'gallery'].append(
+                    [path, pid, view - 1])
+    with open(os.path.join(base, 'splits_new_labeled.json'), 'w') as f:
+        json.dump([split], f)
+
+
+def _phase_cuhk03(torch, checks):
+    """Phase 14d: a test-only CLI run (resnet50, softmax engine, bf16,
+    256x128) on the extracted CUHK03 tree, labeled, new protocol."""
+    import shutil
+    from bpbreid_tpu_torch.engine.image import ImageSoftmaxEngine
+    root = os.path.join(DATA_DIR, 'cuhk03')
+    shutil.rmtree(root, ignore_errors=True)
+    make_cuhk03_tree(root)
+    step, seen = ImageSoftmaxEngine.eval_step, []
+
+    def eval_step(engine, *args, **kwargs):
+        # the first eval batch's BN inputs, the CLI's model hooked
+        if seen:
+            return step(engine, *args, **kwargs)
+        with bn_inputs(engine.model) as inputs:
+            feats = step(engine, *args, **kwargs)
+        seen.append(dict(inputs))
+        return feats
+    ImageSoftmaxEngine.eval_step = eval_step
+    try:
+        engine, (cmc, mAP, _, _), counts, rec, wall = drive_cli(
+            torch, '14d cuhk03 test', [
+                '--root', root, '--save_dir', CLI_SAVE_DIR, '--job-id', '144',
+                'data.sources', "['cuhk03']", 'data.targets', "['cuhk03']",
+                'cuhk03.labeled_images', 'True',
+                'cuhk03.classic_split', 'False',
+                'data.height', str(VIDEO_HW[0]),
+                'data.width', str(VIDEO_HW[1]),
+                'model.name', 'resnet50', 'loss.name', 'softmax',
+                'model.compute_dtype', 'bfloat16', 'model.pretrained', 'False',
+                'test.evaluate', 'True', 'test.batch_size', str(BATCH),
+                'test.visrank', 'False'], cls=ImageSoftmaxEngine)
+    finally:
+        ImageSoftmaxEngine.eval_step = step
+    n_bn = _fastbatchnorms(engine.model)
+    ds = engine.datamanager.test_dataset['cuhk03']
+    sizes = (len(ds['query'].query), len(ds['gallery'].gallery))
+    want = {'bn_apply': CUHK03_EVAL_BATCHES * n_bn}
+    if {k: v for k, v in counts.items() if v} != want \
+            or sizes != (CUHK03_TEST_IDS, 2 * CUHK03_TEST_IDS) \
+            or not (np.isfinite(float(mAP)) and np.isfinite(float(cmc[0]))):
+        checks.append('14d: launches {} != {}, query/gallery {}, mAP {}, '
+                      'rank-1 {}'.format(counts, want, sizes, mAP, cmc[0]))
+    del engine
+    shutil.rmtree(root, ignore_errors=True)
+    inputs = seen[0] if seen else {}
+    out = {'query_gallery': sizes, 'rank1': float(cmc[0]),
+           'mAP': float(mAP), 'launches': counts, 'wall_s': wall,
+           'eval_bn_inputs': [[list(shape), str(dt), n] for (shape, dt, _), n
+                              in inputs.items()]}
+    log('14d', json.dumps(out))
+    if sum(inputs.values()) != n_bn:
+        checks.append('14d: first eval batch BN inputs {} for {} '
+                      'FastBatchNorms'.format(out['eval_bn_inputs'], n_bn))
+    # an eval batch launches bn_apply alone: the rows' per-step counts
+    # (bn_stats and bn_apply forward, the two others backward) stay 0
+    check_k3_at(torch, '14d K3', {key: [0, 0] for key in inputs}, out, 'k3',
+                checks)
+    return out, counts
+
+
+def phase_video_and_options(torch, results):
+    """Phase 14 (see the module docstring). Returns the launch counts of
+    its runs, each counted from 0."""
+    import shutil
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out, checks, launches = {}, [], {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for key, run in (('14a', _phase_video), ('14b', _phase_occluded),
+                     ('14c', _phase_before_and_after),
+                     ('14d', _phase_cuhk03)):
+        out[key], counts = run(torch, checks)
+        add(counts)
+        shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    out['phase_s'] = time.perf_counter() - t_phase
+    results['video'] = out
+    if checks:
+        raise AssertionError('phase 14: ' + '; '.join(checks))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3674,11 +4296,14 @@ def main():
     log('phase 13: the softmax and triplet engines (OSNet, ResNet50-IBN-a) '
         'and BPBReID on the fastreid IBN + non-local trunk')
     global_launches = phase_global(torch, results)
-    # the launches of phases 10, 11 and 13 (each its own path, counted
-    # from 0)
+    log('phase 14: the video path, the occluded BPBReID options '
+        '(background-channel masks, ro), before_and_after_pooling, CUHK03')
+    video_launches = phase_video_and_options(torch, results)
+    # the launches of phases 10, 11, 13 and 14 (each its own path,
+    # counted from 0)
     path_launches = {}
     for counts in (inference_launches, pcb_launches, bot_launches,
-                   global_launches):
+                   global_launches, video_launches):
         for k, v in counts.items():
             path_launches[k] = path_launches.get(k, 0) + v
 
@@ -3847,6 +4472,36 @@ def main():
                 'ibn_copies_train': g['13c']['ibn_copies_train']},
         '13d': {k: g['13d_' + k]['summary'] for k in ('osnet', 'ibn')},
         'phase_s': g['phase_s'], 'gpu': gpu}))
+    v = results['video']
+
+    def worst(k3):
+        # the largest error of each BN kernel over a path's BN inputs
+        return {key: max(r[key] for r in k3['rows'])
+                for key in k3['rows'][0] if key.endswith('max_abs_err')}
+    log('video', json.dumps({
+        '14a': {k: v['14a'][k] for k in (
+            'model', 'steps', 'frames_per_step', 'step_ms_median',
+            'frames_per_s', 'fastbatchnorm_modules', 'bn_launches_per_step',
+            'eval_bn_apply_per_batch', 'busy_share', 'device_busy_ms',
+            'mAP', 'rank1', 'card_vs_cpu')},
+        '14a_learning_first_last': [v['14a']['learning_losses'][0],
+                                    v['14a']['learning_losses'][-1]],
+        '14a_triplet': {k: v['14a']['triplet'][k] for k in (
+            'steps', 'bn_launches_per_step', 'fastbatchnorm_modules')},
+        '14a_k3_worst_err': {k: worst(v['14a']['k3'][k])
+                             for k in ('softmax', 'triplet')},
+        '14b': {k: v['14b'][k] for k in (
+            'steps', 'mask_channels_on_disk', 'mask_channels_after_chain',
+            'bn_launches_per_step',
+            'bn_want_per_step', 'ro_host_ms_per_batch', 'k2_per_test_batch',
+            'k2_test_bn_apply_per_batch', 'mAP', 'rank1')},
+        '14c': {k: v['14c'][k] for k in (
+            'before_pooling_conv', 'embedding_rel_err',
+            'train_card_vs_cpu')},
+        '14d': {k: v['14d'][k] for k in ('query_gallery', 'mAP', 'rank1',
+                                         'launches')},
+        '14d_k3_worst_err': worst(v['14d']['k3']),
+        'phase_s': v['phase_s'], 'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -156,15 +156,43 @@ def test_main_raises_without_cuda_when_use_gpu(tmp_path, monkeypatch):
         cli.main(['--config-file', SMOKE, '--save_dir', str(tmp_path)])
 
 
-@pytest.mark.parametrize('opts, match', [
-    (['data.type', 'video'], 'Queue 1 item 9'),
-    (['train.n_devices', '2'], 'Queue 1 item 8'),
-    (['test.vis_embedding_projection', 'True'], 'Queue 1 item 11'),
-    (['data.sources', "['viper']"], 'Queue 1 item 9'),
+@pytest.mark.parametrize('opts, error, match', [
+    (['train.n_devices', '2'], NotImplementedError, 'Queue 1 item 8'),
+    (['test.vis_embedding_projection', 'True'], NotImplementedError,
+     'Queue 1 item 11'),
+    (['data.sources', "['no_such_dataset']"], ValueError, 'Invalid dataset'),
+    (['data.type', 'video', 'loss.name', 'part_based'], ValueError,
+     'data.type video takes'),
 ])
-def test_main_refuses_unported_options(tmp_path, opts, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_main_refuses_unported_options(tmp_path, opts, error, match):
+    with pytest.raises(error, match=match):
         cli.build_config(_args(tmp_path, opts), SMOKE)
+
+
+@pytest.mark.parametrize('opts', [
+    ['data.type', 'video', 'loss.name', 'softmax',
+     'data.sources', "['synthetic_video']"],
+    ['data.sources', "['viper']"],
+    ['data.sources', "['cuhk03']", 'data.targets', "['cuhk03']"],
+    ['data.sources', "['occluded_duke']", 'model.bpbreid.masks.dir',
+     'isp_6_parts'],
+    ['data.transforms', "['rc', 're', 'ro']", 'data.load_train_targets',
+     'True', 'model.bpbreid.dim_reduce', 'before_and_after_pooling'],
+], ids=['video', 'viper', 'cuhk03', 'isp_6_parts', 'ro_targets_dim_reduce'])
+def test_main_builds_video_small_datasets_and_occlusion_options(tmp_path, opts):
+    """Options the CLI refused before the video path, the small datasets
+    and BPBReID's last options were ported: the config builds as JAX's
+    does (the parts count: none for video, the dataset's own for
+    ``isp_6_parts``); the data and the engines are held in
+    tests/test_torch_video.py, test_torch_small_datasets.py and
+    test_torch_occlusion_options.py."""
+    from bpbreid_tpu.scripts.main import build_config as j_build_config
+    cfg = cli.build_config(_args(tmp_path / 'port', opts), SMOKE)
+    jcfg = j_build_config(_args(tmp_path / 'jax', opts), SMOKE)
+    for c in (cfg, jcfg):
+        c.data.save_dir = ''
+    for group in ('data', 'model', 'loss', 'sampler', 'video'):
+        assert cfg.to_dict()[group] == jcfg.to_dict()[group], group
 
 
 def test_meters_writer_and_profiler(tmp_path, capsys):

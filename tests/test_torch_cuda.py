@@ -974,3 +974,93 @@ def test_int8_model_on_the_card_matches_the_cpu(cuda):
                                  for k, v in branch['cpu'].items())
     err = (outs['cuda'] - outs['cpu']).norm() / outs['cpu'].norm()
     assert err.item() <= 1e-3
+
+
+@pytest.mark.parametrize('engine_name', ['softmax', 'triplet'])
+def test_video_step_on_the_card_matches_the_cpu(cuda, engine_name,
+                                                 monkeypatch):
+    """One f32 train step of a video engine on synthetic tracklets
+    ([4, 3] frames of 64x32 -> 12 frames through osnet_x0_25): the card's
+    loss equals the CPU's (TF32 off) to 1e-4 relative, and the step
+    launches the BN kernels once per ``FastBatchNorm`` call; the pooled
+    tracklet embeddings of a test batch (before the step) equal the
+    CPU's to 1e-3."""
+    from bpbreid_tpu_torch.config import get_default_config
+    from bpbreid_tpu_torch.data.video import VideoDataManager
+    from bpbreid_tpu_torch.engine.video import (VideoSoftmaxEngine,
+                                               VideoTripletEngine)
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    from bpbreid_tpu_torch.optim import build_optimizer
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    cls = {'softmax': VideoSoftmaxEngine,
+           'triplet': VideoTripletEngine}[engine_name]
+    dm = VideoDataManager(sources=['synthetic_video'], height=64, width=32,
+                          transforms=[], batch_size_train=4,
+                          batch_size_test=4, workers=1, num_instances=2,
+                          train_sampler='RandomIdentitySampler', seq_len=3)
+    batch = next(iter(dm.train_loader))
+    query = next(iter(dm.test_loader['synthetic_video']['query']))
+    out = {}
+    for device in ('cuda', 'cpu'):
+        model = build_model('osnet_x0_25', dm.num_train_pids,
+                            loss=engine_name, device=device, seed=0,
+                            dtype=torch.float32)
+        engine = cls(dm, model, build_optimizer(model, optim='adam'),
+                     config=get_default_config(), device=device)
+        calls = []
+        for m in model.modules():
+            if isinstance(m, FastBatchNorm):
+                m.register_forward_pre_hook(lambda mod, inp: calls.append(1))
+        feats = engine.feature_extraction([query])[0].cpu()
+        calls.clear()
+        before = dict(launch_counts)
+        loss, _ = engine.forward_backward(batch)
+        loss = loss.item()
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            assert calls
+            for k in ('bn_stats', 'bn_apply', 'bn_grad_stats', 'bn_dx'):
+                assert launch_counts[k] - before.get(k, 0) == len(calls), k
+        out[device] = loss, feats
+    assert out['cuda'][0] == pytest.approx(out['cpu'][0], rel=1e-4)
+    assert out['cuda'][1].shape == (4, 512)
+    tol = 1e-3 * out['cpu'][1].abs().max().item()
+    assert (out['cuda'][1] - out['cpu'][1]).abs().max().item() <= tol
+
+
+def test_ro_train_loader_feeds_the_card(cuda):
+    """The ``ro`` random occlusion in the train loader (host) and the
+    part-based train step on the card: each occluded batch arrives on the
+    card bit for bit through the prefetch, and the loss is finite."""
+    from bpbreid_tpu_torch.config import get_default_config
+    from bpbreid_tpu_torch.data.datamanager import ImageDataManager
+    from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    from bpbreid_tpu_torch.engine.engine import device_prefetch
+    from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.optim import build_optimizer
+    cfg = get_default_config()
+    cfg.data.ro.p = 1.0
+    cfg.data.transforms = ['rf', 'ro']
+    cfg.model.bpbreid.backbone = 'resnet18'
+    cfg.model.bpbreid.masks.parts_num = 5
+    clear_dataset_cache()
+    dm = ImageDataManager(config=cfg, sources='synthetic', height=64,
+                          width=32, transforms=['rf', 'ro'],
+                          batch_size_train=8, num_instances=4, workers=2,
+                          use_masks=True, masks_dir='pifpaf')
+    host = list(dm.train_loader)
+    model = build_model('bpbreid', dm.num_train_pids, config=cfg,
+                        device=cuda, seed=0)
+    engine = ImagePartBasedEngine.from_config(
+        cfg, model, dm.mask_chain_kwargs(), device=cuda,
+        optimizer=build_optimizer(model, optim='adam'))
+    assert len(host) > 1
+    for want, got in zip(host, device_prefetch(host, cuda)):
+        assert torch.equal(got['image'].cpu(),
+                           torch.from_numpy(want['image']))
+        loss, _ = engine.forward_backward(got)
+        assert torch.isfinite(loss).item()

@@ -280,17 +280,29 @@ def test_datamanager_matches_jax():
     _batches_equal(list(got.train_loader), list(want.train_loader))
 
 
-@pytest.mark.parametrize('kwargs, match', [
-    ({'transforms': ['rf', 'ro']}, 'random-occlusion'),
-    ({'load_train_targets': True}, 'load_train_targets'),
-])
-def test_datamanager_refuses_unported(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ImageDataManager(sources='synthetic', **kwargs)
+@pytest.mark.parametrize('kwargs', [
+    {'transforms': ['rf', 'ro']},
+    {'targets': ['synthetic_hard'], 'load_train_targets': True},
+], ids=['ro', 'load_train_targets'])
+def test_datamanager_builds_ro_and_train_targets(kwargs):
+    """The options the data manager refused before they were ported: the
+    random occlusion runs in the train loader, the targets get a train
+    loader (their parity with JAX: tests/test_torch_occlusion_options.py)."""
+    tds.clear_dataset_cache()
+    dm = ImageDataManager(config=get_default_config(), sources='synthetic',
+                          batch_size_train=8, height=64, width=32, **kwargs)
+    assert (dm.train_loader.host_transform is not None) == \
+        ('ro' in kwargs.get('transforms', []))
+    assert (dm.train_loader_t is not None) == \
+        kwargs.get('load_train_targets', False)
+    batch = next(iter(dm.train_loader_t or dm.train_loader))
+    assert batch['image'].shape == (8, 64, 32, 3)
 
 
 def test_registry_refuses_unported_datasets():
-    with pytest.raises(NotImplementedError, match='Queue 1 item 9'):
-        tds.get_image_dataset('cuhk03')
+    """Every JAX dataset resolves (CUHK03 among them); an unknown name
+    raises."""
+    assert tds.get_image_dataset('cuhk03') is not None
+    assert tds.get_dataset_nickname('cuhk03') == 'c3'
     with pytest.raises(ValueError, match='Invalid dataset'):
         tds.get_image_dataset('no_such_dataset')
