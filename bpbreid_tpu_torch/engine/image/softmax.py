@@ -28,14 +28,29 @@ from bpbreid_tpu_torch.data.augment import (eval_preprocess,
                                             sample_train_draws, train_augment)
 from bpbreid_tpu_torch.engine.engine import (Engine, device_prefetch,
                                              normalize)
+from bpbreid_tpu_torch.losses import deep_supervision
 from bpbreid_tpu_torch.losses.cross_entropy import CrossEntropyLoss
 from bpbreid_tpu_torch.metrics.distance import compute_distance_matrix
+from bpbreid_tpu_torch.models.common import set_dropout_generator
 from bpbreid_tpu_torch.metrics.rank import evaluate_rank
 from bpbreid_tpu_torch.utils.distribution import \
     plot_pairs_distance_distribution
 from bpbreid_tpu_torch.utils.rerank import re_ranking
 
-__all__ = ['ImageSoftmaxEngine']
+__all__ = ['ImageSoftmaxEngine', 'supervised', 'first_head']
+
+
+def supervised(criterion, outputs, pids):
+    """``criterion`` of one head, or ``deep_supervision`` over a list or
+    tuple of heads (torchreid's ``Engine.compute_loss``)."""
+    if isinstance(outputs, (list, tuple)):
+        return deep_supervision(criterion, outputs, pids)
+    return criterion(outputs, pids)
+
+
+def first_head(outputs):
+    """The head torchreid's ``accuracy`` reads: the first of several."""
+    return outputs[0] if isinstance(outputs, (list, tuple)) else outputs
 
 
 class ImageSoftmaxEngine(Engine):
@@ -82,15 +97,21 @@ class ImageSoftmaxEngine(Engine):
             self.open_layers = list(config.train.open_layers)
         seed = config.train.seed if config is not None else 0
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        # the zoo's dropouts (PCB, NASNet) draw their masks from it
+        set_dropout_generator(model, self.generator)
 
     # ------------------------------------------------------------------
     # train step
     # ------------------------------------------------------------------
     def compute_loss(self, outputs, pids):
         """Label-smoothed CE of the class scores, and the top-1
-        accuracy (``_compute_loss`` :101)."""
-        loss = self.criterion(outputs, pids)
-        acc = (outputs.argmax(dim=-1) == pids).float().mean()
+        accuracy (``_compute_loss`` :101). A model with several heads
+        (a list or tuple of scores: PCB's strips, HACNN's two branches)
+        gets the mean of their losses and the first head's accuracy, as
+        torchreid's engine computes them; JAX's engine cannot train such
+        a model (its cross entropy reads the list's ``shape``)."""
+        loss = supervised(self.criterion, outputs, pids)
+        acc = (first_head(outputs).argmax(dim=-1) == pids).float().mean()
         return loss, {'softmax': {'loss': loss.detach(), 'acc': acc}}
 
     def forward_backward(self, batch, draws=None):

@@ -5,7 +5,8 @@ The softmax engine with the loss ``weight_t * batch-hard triplet (the
 embedding) + weight_x * label-smoothed CE (the class scores)``; the
 model returns ``(scores, embedding)`` in train mode (``loss='triplet'``).
 """
-from bpbreid_tpu_torch.engine.image.softmax import ImageSoftmaxEngine
+from bpbreid_tpu_torch.engine.image.softmax import (ImageSoftmaxEngine,
+                                                   first_head, supervised)
 from bpbreid_tpu_torch.losses.cross_entropy import CrossEntropyLoss
 from bpbreid_tpu_torch.losses.triplet import TripletLoss
 
@@ -34,16 +35,19 @@ class ImageTripletEngine(ImageSoftmaxEngine):
         self.criterion_x = CrossEntropyLoss(label_smooth=label_smooth)
 
     def compute_loss(self, outputs, pids):
-        """(``_compute_loss`` :31)"""
+        """(``_compute_loss`` :31) Several heads (HACNN's ``(scores,
+        scores), (embedding, embedding)``, PCB's list of strip scores) get
+        ``deep_supervision`` of each loss, as in torchreid."""
         logits, features = outputs
         loss, summary = 0.0, {}
         if self.weight_t > 0:
-            loss_t = self.criterion_t(features, pids)
+            loss_t = supervised(self.criterion_t, features, pids)
             loss = loss + self.weight_t * loss_t
             summary['t'] = loss_t.detach()
         if self.weight_x > 0:
-            loss_x = self.criterion_x(logits, pids)
+            loss_x = supervised(self.criterion_x, logits, pids)
             loss = loss + self.weight_x * loss_x
             summary['x'] = loss_x.detach()
-            summary['acc'] = (logits.argmax(dim=-1) == pids).float().mean()
+            summary['acc'] = (first_head(logits).argmax(dim=-1)
+                              == pids).float().mean()
         return loss, {'triplet': summary}

@@ -1,27 +1,39 @@
 """Model factory (port of bpbreid_tpu/models/__init__.py:118).
 
-Ported: ``bpbreid`` (on any backbone below), its PCB and BoT forms
-``pcb`` and ``bot`` (horizontal stripes), ``hrnet32``, the ResNet family
-(``resnet18`` ... ``resnet50_fc512``), the OSNets (``osnet_x1_0``,
-``osnet_x0_75``, ``osnet_x0_5``, ``osnet_x0_25``, ``osnet_ibn_x1_0``,
-``osnet_ain_x1_0``), the IBN-Net ResNets (``resnet50_ibn_a``,
-``resnet50_ibn_b``), ``resnet50mid`` and the fastreid trunks
-(``fastreid_resnet``, ``_ibn``, ``_nl``, ``_ibn_nl``: feature maps for
-BPBReID); every other registry name raises. ``build_model`` puts the
-model on ``device`` (default ``'cuda'``, raising when CUDA is missing)
-in eval mode, with weights drawn from ``seed`` by an explicit
+Every name of the JAX registry: ``bpbreid`` (on any backbone but those
+of ``NO_FEATURE_MAP``), its PCB and BoT forms ``pcb`` and ``bot`` (horizontal
+stripes), ``hrnet32``, the ResNet family (``resnet18`` ...
+``resnet50_fc512``), the OSNets, the IBN-Net ResNets, ``resnet50mid``,
+the fastreid trunks (feature maps for BPBReID), PCB (``pcb_p4``,
+``pcb_p6``), PVPM (``pose_p4``, ``pose_p6``, ``pose_p4s``, ``pose_p6s``:
+``forward(x, pose_map)``) and the legacy Torchreid zoo (SENet, DenseNet,
+MobileNetV2, ShuffleNet and ShuffleNetV2, SqueezeNet, MLFN, Xception,
+InceptionV4, Inception-ResNet-V2, NASNet-A Mobile, MuDeep, HACNN); a name
+outside that registry raises ``NotImplementedError``. ``build_model``
+puts the model on ``device`` (default ``'cuda'``, raising when CUDA is
+missing) in eval mode, with weights drawn from ``seed`` by an explicit
 ``torch.Generator`` (flax's default initializers).
 """
 import torch
 
 from bpbreid_tpu_torch import resolve_device
-from bpbreid_tpu_torch.models import osnet, resnet_fastreid, resnet_ibn
+from bpbreid_tpu_torch.models import (densenet, hacnn, inceptionresnetv2,
+                                      inceptionv4, mlfn, mobilenetv2, mudeep,
+                                      nasnet, osnet, pcb, pvpm,
+                                      resnet_fastreid, resnet_ibn, senet,
+                                      shufflenet, shufflenetv2, squeezenet,
+                                      xception)
 from bpbreid_tpu_torch.models.common import init_parameters
 from bpbreid_tpu_torch.models.hrnet import hrnet32
 from bpbreid_tpu_torch.models.resnet import RESNETS
 from bpbreid_tpu_torch.models.resnetmid import resnet50mid
 
-__all__ = ['BACKBONES', 'PORTED', 'build_model']
+__all__ = ['BACKBONES', 'NO_FEATURE_MAP', 'PORTED', 'build_model']
+
+
+def _constructors(module, prefix=''):
+    return {name: getattr(module, name) for name in module.__all__
+            if name.startswith(prefix) and name[0].islower()}
 
 # every ported registry name but the BPBReID family: each constructor
 # takes (num_classes, loss=..., pretrained=..., dtype=..., **kwargs) and
@@ -35,7 +47,23 @@ BACKBONES = dict(
     resnet50_ibn_b=resnet_ibn.resnet50_ibn_b,
     resnet50mid=resnet50mid,
     **{name: getattr(resnet_fastreid, name)
-       for name in resnet_fastreid.__all__ if name.startswith('fastreid_')})
+       for name in resnet_fastreid.__all__ if name.startswith('fastreid_')},
+    pcb_p4=pcb.pcb_p4, pcb_p6=pcb.pcb_p6,
+    **_constructors(pvpm, 'pose_'), **_constructors(senet, 'se'),
+    **_constructors(densenet, 'densenet'),
+    **_constructors(mobilenetv2, 'mobilenetv2_'),
+    shufflenet=shufflenet.shufflenet,
+    **_constructors(shufflenetv2, 'shufflenet_v2_'),
+    **_constructors(squeezenet, 'squeezenet'), mlfn=mlfn.mlfn,
+    xception=xception.xception, inceptionv4=inceptionv4.inceptionv4,
+    inceptionresnetv2=inceptionresnetv2.inceptionresnetv2,
+    nasnetamobile=nasnet.nasnetamobile, mudeep=mudeep.mudeep,
+    hacnn=hacnn.hacnn)
+
+# the registry names whose part-based call returns no feature map for
+# BPBReID to pool: PCB and PVPM return pooled vectors, HACNN embeddings
+NO_FEATURE_MAP = tuple(name for name in BACKBONES
+                       if name.startswith(('pcb_', 'pose_', 'hacnn')))
 
 BPBREID_FAMILY = ('bpbreid', 'pcb', 'bot')
 PORTED = BPBREID_FAMILY + tuple(BACKBONES)
@@ -57,8 +85,9 @@ def build_model(name, num_classes, loss='part_based', pretrained=False,
     """
     if name not in BPBREID_FAMILY and name not in BACKBONES:
         raise NotImplementedError(
-            "model '{}' is not ported yet (ROADMAP Queue 1 item 9; ported: "
-            "{})".format(name, ', '.join(PORTED)))
+            "model '{}' is not in the registry (JAX's, "
+            "bpbreid_tpu/models/__init__.py; known: {})".format(
+                name, ', '.join(PORTED)))
     device = resolve_device(device)
     if name in BPBREID_FAMILY:
         from bpbreid_tpu_torch.models import bpbreid as bpbreid_module

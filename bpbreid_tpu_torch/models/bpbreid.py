@@ -57,9 +57,10 @@ import torch.nn.functional as F
 from bpbreid_tpu_torch.constants import (
     BACKGROUND, BN_BACKGROUND, BN_CONCAT_PARTS, BN_FOREGROUND, BN_GLOBAL,
     BN_PARTS, CONCAT_PARTS, FOREGROUND, GLOBAL, PARTS)
-from bpbreid_tpu_torch.models import BACKBONES
+from bpbreid_tpu_torch.models import BACKBONES, NO_FEATURE_MAP
 from bpbreid_tpu_torch.models.common import (BN_EPS, BN_MOMENTUM, Dense,
-                                             FastBatchNorm, PConv)
+                                             FastBatchNorm, GeneratorDropout,
+                                             PConv, set_dropout_generator)
 from bpbreid_tpu_torch.ops.cuda.pooling import fused_attention_pool
 from bpbreid_tpu_torch.ops.masks import pcb_stripe_masks
 from bpbreid_tpu_torch.ops.pooling import parts_pooling
@@ -188,36 +189,6 @@ class PixelToPartClassifier(nn.Module):
         return (logits + const[:, None, None]).to(self.dtype)
 
 
-class GeneratorDropout(nn.Module):
-    """Dropout (flax ``nn.Dropout``: kept entries divided by the keep
-    probability) whose keep-mask is drawn from ``generator``, on its
-    device; the identity in eval mode. In train mode without a
-    generator it raises rather than draw from torch's global RNG."""
-
-    def __init__(self, rate):
-        super().__init__()
-        self.rate = rate
-        self.generator = None
-
-    def forward(self, x):
-        if not self.training:
-            return x
-        if self.generator is None:
-            raise RuntimeError('GeneratorDropout in train mode needs a '
-                               'generator (set_dropout_generator)')
-        keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
-
-
-def set_dropout_generator(model, generator):
-    """Give every ``GeneratorDropout`` of ``model`` its generator."""
-    for m in model.modules():
-        if isinstance(m, GeneratorDropout):
-            m.generator = generator
-
-
 class AfterPoolingDimReduce(nn.Module):
     """Linear + BN1d + ReLU over the last axis (``[N, D]`` or
     ``[N, K, D]``), then, with ``dropout_rate``, a ``GeneratorDropout``
@@ -275,8 +246,13 @@ class BPBreID(nn.Module):
         super().__init__()
         if backbone not in BACKBONES:
             raise NotImplementedError(
-                "backbone '{}' is not ported yet (ROADMAP Queue 1 item 9; "
-                "ported: {})".format(backbone, ', '.join(BACKBONES)))
+                "backbone '{}' is not in the registry (known: {})".format(
+                    backbone, ', '.join(BACKBONES)))
+        if backbone in NO_FEATURE_MAP:
+            raise ValueError(
+                "backbone '{}' returns no feature map to pool (a pooled "
+                "vector or an embedding); none of {} is a BPBReID "
+                "backbone".format(backbone, ', '.join(NO_FEATURE_MAP)))
         if normalization != 'identity':
             raise NotImplementedError(
                 "pooling normalization '{}' is not supported (the reference "

@@ -41,8 +41,9 @@ from bpbreid_tpu_torch.ops.quant import (QTensor, QuantWeightCache,
                                          set_quant_paths)
 
 __all__ = ['BN_EPS', 'BN_MOMENTUM', 'PConv', 'Dense', 'FastBatchNorm',
-           'InstanceNorm', 'BasicBlock', 'Bottleneck', 'ResLayer',
-           'calibrated_quant', 'init_parameters']
+           'InstanceNorm', 'GeneratorDropout', 'set_dropout_generator',
+           'BasicBlock', 'Bottleneck', 'ResLayer', 'calibrated_quant',
+           'init_parameters']
 
 BN_EPS = 1e-5
 # flax lecun_normal: truncated normal in [-2, 2] rescaled to unit variance
@@ -55,7 +56,9 @@ class PConv(nn.Module):
 
     ``quant=False`` marks a conv that is a flax ``nn.Conv`` in JAX (the
     ResNet stem, the before-pooling reduction, the pixel classifier): it
-    stays float in every mode and records nothing. The quantized weights
+    stays float in every mode and records nothing. ``kernel_size`` and
+    ``padding`` may be ``(h, w)`` pairs (the zoo's 1x7 and 7x1 convs,
+    which are all ``quant=False``). The quantized weights
     are kept between calls (``quant_cache``, keyed on the weight's storage
     and version, so a device move or a load recomputes them).
     """
@@ -69,8 +72,10 @@ class PConv(nn.Module):
         self.quant = quant
         self.quant_path = ''
         self.quant_cache = QuantWeightCache()
+        kh, kw = (kernel_size, kernel_size) \
+            if isinstance(kernel_size, int) else kernel_size
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels // groups, kernel_size, kernel_size))
+            out_channels, in_channels // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
     def _load_from_state_dict(self, *args, **kwargs):
@@ -279,6 +284,36 @@ class InstanceNorm(nn.Module):
                                eps=self.eps).to(self.dtype)
 
 
+class GeneratorDropout(nn.Module):
+    """Dropout (flax ``nn.Dropout``: kept entries divided by the keep
+    probability) whose keep-mask is drawn from ``generator``, on its
+    device; the identity in eval mode. In train mode without a
+    generator it raises rather than draw from torch's global RNG."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        if self.generator is None:
+            raise RuntimeError('GeneratorDropout in train mode needs a '
+                               'generator (set_dropout_generator)')
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(model, generator):
+    """Give every ``GeneratorDropout`` of ``model`` its generator."""
+    for m in model.modules():
+        if isinstance(m, GeneratorDropout):
+            m.generator = generator
+
+
 def _conv_bn(cin, cout, kernel, stride, dtype):
     return nn.Sequential(
         PConv(cin, cout, kernel, stride, kernel // 2, bias=False, dtype=dtype),
@@ -397,7 +432,9 @@ def init_parameters(module, generator):
     """Seeded init with the flax defaults: lecun-normal conv/dense
     kernels, zero biases, unit BN and instance-norm scales; BN running
     statistics reset to mean 0 / var 1. Visits modules in registration
-    order, so the same generator state gives the same weights."""
+    order, so the same generator state gives the same weights. Then a
+    module with initializers of its own (a ``flax_init(generator)``
+    method: HACNN's hard attention, MuDeep's fusion gates) sets them."""
     for m in module.modules():
         if isinstance(m, (PConv, Dense)):
             w = m.weight
@@ -413,3 +450,6 @@ def init_parameters(module, generator):
                 m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+    for m in module.modules():
+        if hasattr(m, 'flax_init'):
+            m.flax_init(generator)

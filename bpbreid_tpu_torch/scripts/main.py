@@ -88,7 +88,8 @@ def set_random_seed(seed):
 
 def refuse_unported(cfg):
     """Raise, before anything is built, for the options of the JAX CLI
-    that the port does not have yet."""
+    that the port does not have yet, and for the PVPM models, which no
+    data manager can feed."""
     if cfg.data.type not in ('image', 'video'):
         raise ValueError("data.type must be 'image' or 'video', got "
                          "{}".format(cfg.data.type))
@@ -98,6 +99,11 @@ def refuse_unported(cfg):
     if cfg.loss.name not in ENGINES:
         raise ValueError('unknown loss {} (one of {})'.format(
             cfg.loss.name, ', '.join(ENGINES)))
+    if cfg.model.name.startswith('pose_'):
+        # JAX's engines call it on the images alone and raise TypeError
+        raise ValueError('model {} takes pose heatmaps beside the images '
+                         '(forward(x, pose_map)), which no data manager '
+                         'gives'.format(cfg.model.name))
     if cfg.train.n_devices > 1:
         raise NotImplementedError(
             'train.n_devices {}: data parallelism is not ported yet (ROADMAP '

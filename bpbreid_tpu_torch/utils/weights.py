@@ -9,6 +9,8 @@ mirrors a torch ``state_dict`` key, so
   params/.../bias              -> '....bias'
   batch_stats/.../mean | var   -> '....running_mean | running_var'
   quant/.../<name>             -> '....<name>'        (int8 calibration)
+  params/.../<name>            -> '....<name>'        (a raw parameter,
+                                  MuDeep's fusion gates: NHWC -> NCHW)
 
 The ``quant`` collection (the activation ranges of a calibrated int8
 model: ``act_amax``, ``in_amax``, ``branch_amax_0``, ...) goes into the
@@ -43,9 +45,20 @@ def _torch_key(path, collection):
         names = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
                  'embedding': 'weight'}
     if leaf not in names:
+        if collection == 'params':
+            # a raw parameter under its own name (flax ``self.param``)
+            return '.'.join(path)
         raise KeyError('no torch counterpart for {}/{}'.format(
             collection, '/'.join(path)))
     return '.'.join([*mods, names[leaf]])
+
+
+def is_raw_parameter(path, collection):
+    """Whether ``path`` names a raw flax parameter (no layer's
+    ``kernel``/``scale``/``bias``/``embedding``), which JAX keeps in its
+    NHWC-broadcast shape."""
+    return collection == 'params' and path[-1] not in (
+        'kernel', 'scale', 'bias', 'embedding')
 
 
 def jax_variables_to_state_dict(variables):
@@ -61,6 +74,8 @@ def jax_variables_to_state_dict(variables):
                     a = np.transpose(a, (3, 2, 0, 1))
                 elif a.ndim == 2:                # IO -> OI
                     a = np.transpose(a, (1, 0))
+            elif is_raw_parameter(path, coll) and a.ndim == 4:
+                a = np.transpose(a, (0, 3, 1, 2))   # NHWC -> NCHW
             out[_torch_key(path, coll)] = a
     return out
 

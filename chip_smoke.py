@@ -200,14 +200,44 @@ and Market-1501 + 500k distractors scale. Phases:
    ``FastBatchNorm`` a batch, mAP and rank-1 finite, and the BN kernels
    held against their plain versions and timed at each distinct BN input
    of the first eval batch.
+15. the rest of the model zoo (PCB, PVPM, the legacy Torchreid zoo,
+   HACNN), every launch count set to 0 just before each run and read
+   just after: (a) each of the 35 registry names beside the ones above
+   built on the card (``build_model``, bf16, seeded weights) and one eval
+   batch at its input size (256x128, MuDeep's fixed size; HACNN's fixed
+   160x64; PVPM with pose maps at 64x32), 64 images: one ``bn_apply`` for each
+   FastBatchNorm call and no other kernel (PCB's ``conv5`` and PVPM's
+   ``em`` heads are train-only, HACNN's ``local_conv<b>`` runs once a
+   region), finite outputs, the batch's ms; (b) the image engines through
+   ``scripts.main.main`` on phase 13's set: ``pcb_p6`` with the softmax
+   engine at 384x128 (16 ids x 4, the label-smoothed CE averaged over the
+   six strips) and ``hacnn`` with the triplet engine at 160x64 (both
+   heads): the step ms (host clock between step entries) and images/s,
+   the BN launches of every step and eval batch against the model's
+   FastBatchNorm calls, mAP and rank-1 finite, 20 steps on one batch
+   whose loss must fall, a profile of three steps, one f32 step at 4 ids
+   x 4 on the card against the CPU (TF32 off, PCB's dropout masks fixed,
+   HACNN's hard attention moved off the pixel centres, images of varied
+   contrast and brightness; phase 7's tolerances); (c) one bf16 train step of 16 ids x 4 for the first
+   constructor of every other module (PVPM's ``pose_p4s`` at 384x128 with
+   pose maps, at the module level; the others through the softmax engine
+   at 256x128) with its BN launches, and the flagship BPBReID config on
+   ``nasnetamobile`` (a 1056-channel map, no multiple of 512): one eval
+   batch through K2, held against its plain version at ``[64, 1056, 12,
+   4]`` and timed against its bound and the library call, then a train
+   step; (d) the four BN kernels against their plain versions (at the
+   BN's own eps: 1e-3 for InceptionV4, Inception-ResNet-V2 and NASNet) at
+   every distinct BN input of (b)'s and (c)'s steps, the largest four
+   timed as phase 6b.
 
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
 throughput line, the CLI line (phase 9), the inference line (phase 10),
 the PCB line (phase 11), the int8 line (phase 12), the global line
-(phase 13), the video line (phase 14), the kernels line (launches: the
-BN kernels' in run 9a, phase 10, phase 11a-b, phase 13 and phase 14, K2's
-in run 9c, phase 10, phase 13c and phase 14b,
+(phase 13), the video line (phase 14), the zoo line (phase 15), the
+kernels line (launches: the BN kernels' in run 9a, phase 10, phase 11a-b,
+phase 13, phase 14 and phase 15, K2's in run 9c, phase 10, phase 13c,
+phase 14b and phase 15c,
 K1's in phase 3b, ``conv_s8`` and ``quantize_s8``'s in phase 12's int8
 step, extractor batch and CLI test) and the result line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -425,10 +455,10 @@ def _nc(x, cd):
     return x if cd == 1 else x.view(-1, x.shape[-1])
 
 
-def _bn_operands(torch, x, dy, cd, gen):
+def _bn_operands(torch, x, dy, cd, gen, eps=1e-5):
     """Weight, bias and running statistics for one BN input, and the
     statistics and backward sums that the later kernels read, from the
-    kernels themselves."""
+    kernels themselves (``eps``: the BN's own)."""
     from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_grad_stats,
                                                       bn_stats, channel_view)
     a, c, b = channel_view(x.shape, cd)
@@ -437,7 +467,8 @@ def _bn_operands(torch, x, dy, cd, gen):
          'bias': 0.3 * torch.randn(c, device='cuda', generator=gen),
          'rm': 0.1 * torch.randn(c, device='cuda', generator=gen),
          'rv': 0.5 + torch.rand(c, device='cuda', generator=gen)}
-    o['st'] = bn_stats(x, o['w'], 1e-5, cd, sums=True)
+    o['eps'] = eps
+    o['st'] = bn_stats(x, o['w'], eps, cd, sums=True)
     o['g'] = bn_grad_stats(dy, x, o['st'][0], o['st'][2], cd)
     return o
 
@@ -577,18 +608,18 @@ def _check_bn_kernels(torch, x, dy, cd, o):
         bn_finalize_reference, bn_grad_stats, bn_grad_stats_reference,
         bn_stats, bn_stats_reference)
     a, c, b, w, bias = o['a'], o['c'], o['b'], o['w'], o['bias']
-    m = a * b
+    m, eps = a * b, o.get('eps', 1e-5)
     st, (sum_dy, sum_dy_xhat) = o['st'], o['g']
     mean, _, rstd, scale = st[:4]
     x3, dy3 = x.reshape(a, c, b).float(), dy.reshape(a, c, b).float()
     errs, failed = {}, []
     err, ok = _k3_errors(torch, st[4:], bn_stats_reference(
-        x, w, 1e-5, cd, sums=True)[4:], (x3.abs().sum((0, 2)),
-                                         (x3 * x3).sum((0, 2))))
+        x, w, eps, cd, sums=True)[4:], (x3.abs().sum((0, 2)),
+                                        (x3 * x3).sum((0, 2))))
     rm_k, rv_k, rm_p, rv_p = (v.clone() for v in (o['rm'], o['rv'],
                                                   o['rm'], o['rv']))
-    again = bn_stats(x, w, 1e-5, cd, rm_k, rv_k, sums=True)
-    want = bn_finalize_reference(st[4], st[5], m, w, 1e-5, rm_p, rv_p)
+    again = bn_stats(x, w, eps, cd, rm_k, rv_k, sums=True)
+    want = bn_finalize_reference(st[4], st[5], m, w, eps, rm_p, rv_p)
     epi = 0.0
     for g, v in zip(again[:4] + (rm_k, rv_k), want + (rm_p, rv_p)):
         d = (g - v).abs()
@@ -1385,16 +1416,25 @@ def train_engine(torch, cfg, num_classes, device, **model_kwargs):
         optimizer=optimizer)
 
 
-def make_train_batch(rng, n_ids, n_inst, height, width, device):
+def make_train_batch(rng, n_ids, n_inst, height, width, device,
+                     varied=False):
     """Identity x instance batch: a template per identity plus noise,
-    confidence fields at 1/8 of the image grid."""
+    confidence fields at 1/8 of the image grid. ``varied``: each image
+    also gets its own contrast (x0.25-1 about mid-grey) and brightness
+    (+-64), so that statistics taken over the batch of pooled vectors
+    (HACNN's channel attention) are not near-degenerate."""
     import torch
     pids = np.repeat(np.arange(n_ids), n_inst)
     base = rng.integers(0, 256, size=(n_ids, height, width, 3))
     noise = rng.integers(-20, 21, size=(len(pids), height, width, 3))
-    imgs = np.clip(base[pids] + noise, 0, 255).astype(np.uint8)
+    imgs = base[pids] + noise
     masks = rng.uniform(size=(len(pids), height // 8, width // 8, 36)) \
         .astype(np.float32)
+    if varied:
+        contrast = rng.uniform(0.25, 1.0, size=(len(pids), 1, 1, 1))
+        brightness = rng.uniform(-64.0, 64.0, size=(len(pids), 1, 1, 1))
+        imgs = 128 + contrast * (imgs - 128) + brightness
+    imgs = np.clip(imgs, 0, 255).astype(np.uint8)
     return {'image': torch.as_tensor(imgs, device=device),
             'mask': torch.as_tensor(masks, device=device),
             'pid': torch.as_tensor(pids, device=device)}
@@ -3405,10 +3445,13 @@ def _depthwise_ms(torch, engine, batch):
     return out
 
 
-def _global_card_vs_cpu(torch, name, loss):
-    """One f32 train step of ``name`` at 256x128 on 4 identities x 4 on the
-    card and on the CPU (TF32 off), the same seeded weights and batch, no
-    augmentation, Adam: ``compare_train_steps``."""
+def _global_card_vs_cpu(torch, name, loss, hw=GLOBAL_HW, varied=False,
+                        prepare=None, zero_in_exact=()):
+    """One f32 train step of ``name`` at ``hw`` on 4 identities x 4 on the
+    card and on the CPU (TF32 off), the same seeded weights and batch
+    (``make_train_batch``, ``varied`` as there), no augmentation, Adam:
+    ``compare_train_steps``. ``prepare(model)`` runs on each side's model
+    after it is built."""
     from bpbreid_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
     from bpbreid_tpu_torch.engine.image import (ImageSoftmaxEngine,
                                                ImageTripletEngine)
@@ -3418,11 +3461,13 @@ def _global_card_vs_cpu(torch, name, loss):
     dm = types.SimpleNamespace(transforms=(), norm_mean=IMAGENET_MEAN,
                                norm_std=IMAGENET_STD)
     cpu_batch = make_train_batch(np.random.default_rng(SEED + 13), 4, 4,
-                                 *GLOBAL_HW, 'cpu')
+                                 *hw, 'cpu', varied=varied)
     out = {}
     for device in ('cuda', 'cpu'):
         model = build_model(name, 10, loss=loss, device=device, seed=SEED,
                             dtype=torch.float32)
+        if prepare:
+            prepare(model)
         engine = cls(dm, model, build_optimizer(
             model, optim='adam', lr=LR, weight_decay=WEIGHT_DECAY),
             device=device)
@@ -3437,7 +3482,7 @@ def _global_card_vs_cpu(torch, name, loss):
             'state': {k: v.detach().cpu().clone()
                       for k, v in model.state_dict().items()}}
         del model, engine
-    return compare_train_steps(out['cuda'], out['cpu'])
+    return compare_train_steps(out['cuda'], out['cpu'], zero_in_exact)
 
 
 def _global_run(torch, what, job_id, opts, cls, name, loss):
@@ -3517,12 +3562,16 @@ def _global_run(torch, what, job_id, opts, cls, name, loss):
     return out, counts, shapes, checks
 
 
-def _flagship_on_fastreid(torch, checks):
+def _flagship_on_fastreid(torch, checks, backbone=FLAGSHIP_BACKBONE,
+                          tag='13c'):
     """Phase 13c: the flagship BPBReID config on the fastreid IBN +
     non-local trunk at 384x128, batch 64, bf16: one eval batch through K2
     (fused pooling, multires off) with K2 held against its plain version
     on the 2048-channel map it was given, then one train step (the
-    materialized pooling). Counts set to 0 before each and read after."""
+    materialized pooling). Counts set to 0 before each and read after.
+    Phase 15c runs it on another ``backbone`` (``tag`` names it in the
+    checks): the map is then the backbone's ``feature_dim`` wide, at its
+    own stride, and no IBN layer is counted."""
     import bpbreid_tpu_torch.models.bpbreid as bpbreid_module
     from bpbreid_tpu_torch.data.augment import mask_chain_kwargs
     from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
@@ -3533,8 +3582,9 @@ def _flagship_on_fastreid(torch, checks):
                                                   reset_launch_counts)
     from bpbreid_tpu_torch.optim import build_optimizer
     cfg = serving_config()
-    cfg.model.bpbreid.backbone = FLAGSHIP_BACKBONE
+    cfg.model.bpbreid.backbone = backbone
     model = build_model('bpbreid', 751, config=cfg, device='cuda', seed=SEED)
+    trunk = model.backbone_appearance_feature_extractor
     engine = ImagePartBasedEngine.from_config(
         cfg, model, mask_chain_kwargs(cfg), device='cuda',
         optimizer=build_optimizer(model, optim='adam', lr=LR,
@@ -3567,14 +3617,18 @@ def _flagship_on_fastreid(torch, checks):
     want = {'attention_pool': 1, 'bn_apply': calls['eval']}
     if {k: v for k, v in eval_counts.items() if v} != want \
             or not torch.isfinite(feats.float()).all():
-        checks.append('13c eval: launches {} != {}'.format(eval_counts, want))
+        checks.append('{} eval: launches {} != {}'.format(tag, eval_counts,
+                                                          want))
+    stride = 16 if backbone == FLAGSHIP_BACKBONE else 32
     if len(seen) != 1 or tuple(seen[0][0].shape) != (
-            BATCH, 2048, HEIGHT // 16, WIDTH // 16):
-        checks.append('13c: K2 inputs {}'.format(
-            [tuple(f.shape) for f, _ in seen]))
+            BATCH, trunk.feature_dim, HEIGHT // stride, WIDTH // stride):
+        checks.append('{}: K2 inputs {}'.format(
+            tag, [tuple(f.shape) for f, _ in seen]))
+        if not seen:
+            return {}, dict(eval_counts)
     k2_out, failed = k2_row(torch, *seen[0])
-    checks += ['13c: ' + f for f in failed]
-    log('13c K2', json.dumps(k2_out))
+    checks += ['{}: {}'.format(tag, f) for f in failed]
+    log('{} K2'.format(tag), json.dumps(k2_out))
     del seen
     # one train step: K2 has no backward, the materialized map trains
     model.use_pallas_pooling = False
@@ -3595,18 +3649,19 @@ def _flagship_on_fastreid(torch, checks):
     got = {k: train_counts.get(k, 0) for k in BN_KERNELS}
     if got != want or calls['train'] != len(bn) or not np.isfinite(loss) \
             or train_counts.get('attention_pool', 0):
-        checks.append('13c train: launches {} != {} ({} BN calls by hooks, '
-                      'loss {})'.format(train_counts, want, calls['train'],
-                                        loss))
+        checks.append('{} train: launches {} != {} ({} BN calls by hooks, '
+                      'loss {})'.format(tag, train_counts, want,
+                                        calls['train'], loss))
     if not eval_copies == train_copies == len(ibn):
-        checks.append('13c: IBN copies {} (eval), {} (train) for {} '
-                      'IBNLayers'.format(eval_copies, train_copies, len(ibn)))
-    out = {'backbone': FLAGSHIP_BACKBONE, 'k2': k2_out,
+        checks.append('{}: IBN copies {} (eval), {} (train) for {} '
+                      'IBNLayers'.format(tag, eval_copies, train_copies,
+                                         len(ibn)))
+    out = {'backbone': backbone, 'k2': k2_out,
            'eval_launches': eval_counts, 'train_launches': train_counts,
            'train_bn_want': want, 'train_loss': loss,
            'ibn_layers': len(ibn), 'ibn_copies_eval': eval_copies,
            'ibn_copies_train': train_copies}
-    log('13c', json.dumps({k: v for k, v in out.items() if k != 'k2'}))
+    log(tag, json.dumps({k: v for k, v in out.items() if k != 'k2'}))
     del model, engine, batch, feats
     torch.cuda.empty_cache()
     counts = dict(eval_counts)
@@ -3812,10 +3867,10 @@ def _video_triplet_steps(torch, checks):
             'fastbatchnorm_modules': n_bn}, total, shapes
 
 
-def bn_inputs(model):
+def bn_inputs(model, with_eps=False):
     """A context that counts the inputs of ``model``'s FastBatchNorms
-    (shape, dtype, channel_dim -> calls) while it is open: forward hooks,
-    removed when it closes."""
+    (shape, dtype, channel_dim -> calls; ``with_eps``: and the BN's eps)
+    while it is open: forward hooks, removed when it closes."""
     import contextlib
     from bpbreid_tpu_torch.models.common import FastBatchNorm
 
@@ -3824,7 +3879,8 @@ def bn_inputs(model):
         inputs = collections.Counter()
 
         def hook(mod, inp):
-            inputs[(tuple(inp[0].shape), inp[0].dtype, mod.channel_dim)] += 1
+            key = (tuple(inp[0].shape), inp[0].dtype, mod.channel_dim)
+            inputs[key + ((mod.eps,) if with_eps else ())] += 1
         hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
                  if isinstance(m, FastBatchNorm)]
         try:
@@ -4230,6 +4286,427 @@ def phase_video_and_options(torch, results):
     return launches
 
 
+# phase 15: the rest of the model zoo (models/pcb.py, pvpm.py and the
+# legacy Torchreid zoo) on the card. (a) every new registry name, bf16,
+# seeded weights, one eval batch at its input size; (b) the CLI's image
+# engines on the global set with PCB (softmax, deep supervision over its
+# six strips) and HACNN (triplet, both heads); (c) one train step of the
+# first constructor of each other module, and BPBReID on NASNet's
+# 1056-channel map through K2; (d) the BN kernels at every distinct BN
+# input of (b)'s and (c)'s steps
+ZOO_MODULES = (
+    ('pcb', ('pcb_p4', 'pcb_p6')),
+    ('pvpm', ('pose_p4', 'pose_p6', 'pose_p4s', 'pose_p6s')),
+    ('senet', ('se_resnet50', 'se_resnet50_fc512', 'se_resnet101',
+               'se_resnet152', 'se_resnext50_32x4d', 'se_resnext101_32x4d',
+               'senet154')),
+    ('densenet', ('densenet121', 'densenet169', 'densenet201', 'densenet161',
+                  'densenet121_fc512')),
+    ('mobilenetv2', ('mobilenetv2_x1_0', 'mobilenetv2_x1_4')),
+    ('shufflenet', ('shufflenet',)),
+    ('shufflenetv2', ('shufflenet_v2_x0_5', 'shufflenet_v2_x1_0',
+                      'shufflenet_v2_x1_5', 'shufflenet_v2_x2_0')),
+    ('squeezenet', ('squeezenet1_0', 'squeezenet1_1',
+                    'squeezenet1_0_fc512')),
+    ('mlfn', ('mlfn',)), ('xception', ('xception',)),
+    ('inceptionv4', ('inceptionv4',)),
+    ('inceptionresnetv2', ('inceptionresnetv2',)),
+    ('nasnet', ('nasnetamobile',)), ('mudeep', ('mudeep',)),
+    ('hacnn', ('hacnn',)))
+# (a)'s input: 256x128 (MuDeep's fixed size), HACNN's fixed 160x64
+ZOO_HW = (256, 128)
+HACNN_HW = (160, 64)
+POSE_CHANNELS = 56
+# (b): PCB with torchreid's PCB recipe at 384x128 (softmax over the six
+# strips, 16 ids x 4), HACNN with triplet + CE at its 160x64
+PCB_RUN = ('model.name', 'pcb_p6', 'loss.name', 'softmax',
+           'data.height', str(HEIGHT), 'data.width', str(WIDTH),
+           'sampler.train_sampler', 'RandomIdentitySampler',
+           'sampler.num_instances', '4',
+           'data.transforms', "['random_flip']")
+HACNN_RUN = ('model.name', 'hacnn', 'loss.name', 'triplet',
+             'loss.triplet.margin', '0.3', 'loss.triplet.weight_t', '1.0',
+             'loss.triplet.weight_x', '1.0',
+             'data.height', str(HACNN_HW[0]), 'data.width', str(HACNN_HW[1]),
+             'sampler.train_sampler', 'RandomIdentitySampler',
+             'sampler.num_instances', '4',
+             'data.transforms', "['random_flip']")
+# (c): the first constructor of every module (b) does not train; PVPM's
+# with the part-score regression at 384x128 with pose maps at 96x32
+ZOO_STEP_MODELS = ('pose_p4s', 'se_resnet50', 'densenet121',
+                   'mobilenetv2_x1_0', 'shufflenet', 'shufflenet_v2_x0_5',
+                   'squeezenet1_0', 'mlfn', 'xception', 'inceptionv4',
+                   'inceptionresnetv2', 'nasnetamobile', 'mudeep')
+ZOO_BPBREID_BACKBONE = 'nasnetamobile'
+# (d): the BN inputs timed (the largest ones); every one is checked
+ZOO_K3_TIMED = 4
+
+
+def _expected_bn_calls(model, train):
+    """FastBatchNorm calls in one forward of ``model``: one a module, but
+    HACNN runs each ``local_conv<b>`` once for each of its four regions,
+    and PCB's ``conv5`` and PVPM's ``em`` heads run in train mode only."""
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    kind = type(model).__name__
+    n = 0
+    for name, mod in model.named_modules():
+        if not isinstance(mod, FastBatchNorm):
+            continue
+        if not train and ((kind == 'PCBModel' and name.startswith('conv5'))
+                          or (kind == 'PoseGuidedAttResnet'
+                              and name.startswith('em.'))):
+            continue
+        n += 4 if kind == 'HACNN' and name.startswith('local_conv') else 1
+    return n
+
+
+def _zoo_inputs(torch, name, n, gen, hw=None):
+    """``n`` seeded images at the model's input size (and PVPM's pose
+    maps at 4x its trunk's map), on the card."""
+    h, w = hw or (HACNN_HW if name == 'hacnn' else ZOO_HW)
+    x = torch.randn(n, 3, h, w, device='cuda', generator=gen)
+    if not name.startswith('pose_'):
+        return (x,)
+    return x, torch.rand(n, POSE_CHANNELS, h // 4, w // 4, device='cuda',
+                         generator=gen)
+
+
+def _leaves(out):
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _leaves(o)]
+    return [out]
+
+
+def _zoo_eval(torch, checks):
+    """15a: each new registry name built on the card (``build_model``,
+    bf16, seeded weights), one eval batch (counts set to 0 just before
+    and read just after): one ``bn_apply`` for each FastBatchNorm call
+    and no other kernel, finite outputs; then the batch's ms (CUDA
+    events) and the build seconds."""
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 15)
+    rows, launches = [], {}
+    for module, names in ZOO_MODULES:
+        for name in names:
+            t0 = time.perf_counter()
+            model = build_model(name, 751, loss='softmax', device='cuda',
+                                seed=SEED, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            inputs = _zoo_inputs(torch, name, BATCH, gen)
+            with bn_inputs(model) as calls, torch.inference_mode():
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                out = model(*inputs)
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in launch_counts.items() if v}
+            n_calls = sum(calls.values())
+            want = _expected_bn_calls(model, train=False)
+            finite = all(torch.isfinite(t.float()).all().item()
+                         for t in _leaves(out))
+            if counts != ({'bn_apply': want} if want else {}) \
+                    or n_calls != want or not finite:
+                checks.append('15a {}: launches {} for {} FastBatchNorm '
+                              'calls ({} expected), finite {}'.format(
+                                  name, counts, n_calls, want, finite))
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            with torch.inference_mode():
+                ms = time_ms(lambda: model(*inputs), torch, warmup=1,
+                             iters=3, repeats=1)
+            rows.append({'module': module, 'name': name, 'batch': BATCH,
+                         'input': list(inputs[0].shape[2:]),
+                         'output': [list(t.shape) for t in _leaves(out)],
+                         'fastbatchnorm_modules': _fastbatchnorms(model),
+                         'bn_calls': n_calls, 'launches': counts,
+                         'ms': ms, 'images_per_s': BATCH / ms * 1e3,
+                         'build_s': build_s,
+                         'parameters': sum(p.numel()
+                                           for p in model.parameters())})
+            log('15a', json.dumps(rows[-1]))
+            del model, inputs, out
+            torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _fixed_dropout(torch, model):
+    """Make ``model``'s dropouts keep the entries of a mask drawn on the
+    CPU from the seed, on any device (the card's and the CPU's generators
+    draw other bits)."""
+    from bpbreid_tpu_torch.models.common import GeneratorDropout
+    for mod in model.modules():
+        if isinstance(mod, GeneratorDropout):
+            def forward(x, rate=mod.rate):
+                keep = torch.rand(x.shape, generator=torch.Generator()
+                                  .manual_seed(SEED)) < 1.0 - rate
+                return torch.where(keep.to(x.device), x / (1.0 - rate),
+                                   torch.zeros_like(x))
+            mod.forward = forward
+
+
+def _zoo_card_vs_cpu_prep(torch, model):
+    """15b's card-vs-CPU model: the dropout masks fixed
+    (``_fixed_dropout``); HACNN's hard attention moved off the pixel
+    centres. torchreid's hard attention starts at x-translations of 0
+    exactly, which put every grid point on a pixel centre, where the
+    bilinear sample's derivative in x jumps: the card and the CPU then take
+    other one-sided derivatives. Seeded offsets of 0.01 move the grid off
+    them."""
+    _fixed_dropout(torch, model)
+    if type(model).__name__ != 'HACNN':
+        return
+    with torch.no_grad():
+        for b in range(1, 4):
+            bias = getattr(model, 'ha{}'.format(b)).hard_attn.fc.bias
+            bias.add_(0.01 * torch.randn(
+                8, generator=torch.Generator().manual_seed(b)).to(
+                bias.device))
+
+
+def _zoo_cli(torch, what, job_id, opts, cls, name, loss, hw, small_hw,
+             checks):
+    """15b: one CLI run of an image engine on a model with several heads
+    (phase 13's set and measures): the step ms (host clock between step
+    entries) and images/s; each step launches the four BN kernels once
+    per FastBatchNorm call (hooks, and the model's count), the eval
+    batches one ``bn_apply`` a call; the test's mAP and rank-1 finite;
+    20 steps on one batch whose loss falls; a profile of three steps; one
+    f32 step at 4 ids x 4 of ``small_hw`` on the card against the CPU
+    (TF32 off, ``_zoo_card_vs_cpu_prep``, images of varied contrast and
+    brightness; phase 7's tolerances)."""
+    from bpbreid_tpu_torch.data.augment import sample_train_draws
+    engine, (cmc, mAP, _, _), counts, rec, wall = drive_cli(
+        torch, what, global_argv(job_id, *opts), cls=cls)
+    model = engine.model
+    n_train = _expected_bn_calls(model, train=True)
+    n_eval = _expected_bn_calls(model, train=False)
+    want = {k: n_train for k in BN_KERNELS}
+    checks += ['15b {}: BN launches a step {} != {}'.format(what, c, want)
+               for c in rec.launches if c != want][:1]
+    checks += ['15b {}: {} train-mode BN calls a step by hooks, {} '
+               'expected'.format(what, n, n_train)
+               for n in set(rec.train_bn_calls) if n != n_train]
+    losses = [float(v) for v in rec.losses]
+    steps = len(losses)
+    if not 3 <= steps <= len(engine.datamanager.train_loader) \
+            or not all(np.isfinite(losses)):
+        checks.append('15b {}: {} steps, losses {}'.format(what, steps,
+                                                           losses))
+    eval_apply = counts.get('bn_apply', 0) - steps * n_train
+    if not eval_apply == rec.bn_calls['eval'] == GLOBAL_EVAL_BATCHES * n_eval:
+        checks.append('15b {}: eval bn_apply {} for {} eval-mode BN calls, '
+                      '{} x {}'.format(what, eval_apply,
+                                       rec.bn_calls['eval'],
+                                       GLOBAL_EVAL_BATCHES, n_eval))
+    if counts.get('attention_pool', 0) or not 0.0 <= float(mAP) <= 1.0 \
+            or not np.isfinite(float(cmc[0])):
+        checks.append('15b {}: K2 launches {}, mAP {}, rank-1 {}'.format(
+            what, counts.get('attention_pool', 0), mAP, cmc[0]))
+    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    step_ms = statistics.median(intervals)
+    batch = make_train_batch(np.random.default_rng(SEED + 16), TRAIN_IDS,
+                             TRAIN_INSTANCES, *hw, 'cuda')
+    batch = {k: batch[k] for k in ('image', 'pid')}
+    draws = sample_train_draws(engine.generator, BATCH, *hw,
+                               engine.transforms, **engine.cj)
+    learn = [float(engine.forward_backward(batch, draws)[0])
+             for _ in range(TRAIN_LEARN)]
+    if not (all(np.isfinite(learn))
+            and np.mean(learn[-3:]) < np.mean(learn[:3])):
+        checks.append('15b {}: loss did not fall over {} steps: {}'.format(
+            what, TRAIN_LEARN, learn))
+    profile = profile_steps(torch, lambda: engine.forward_backward(batch))
+    shapes = {key: [n, n] for key, n in rec.bn_inputs.items()}
+    n_modules = _fastbatchnorms(model)
+    del engine, batch, model
+    torch.cuda.empty_cache()
+    # on images of varied contrast and brightness: HACNN's channel
+    # attention batch-normalizes 16 pooled vectors, near-degenerate on
+    # near-alike images; the biases of convs and Denses ahead of
+    # train-mode BNs (HACNN's conv blocks and embedding heads) are zero
+    # in exact arithmetic
+    small, bad = _global_card_vs_cpu(
+        torch, name, loss, small_hw, varied=True,
+        prepare=lambda m: _zoo_card_vs_cpu_prep(torch, m),
+        zero_in_exact=('conv.bias', 'fc_global.0.bias', 'fc_local.0.bias'))
+    checks += ['15b {} card vs CPU: {}'.format(what, b) for b in bad]
+    row = {'model': name, 'loss': loss, 'steps': steps, 'losses': losses,
+           'step_ms_median': step_ms, 'step_ms': intervals,
+           'images_per_s': BATCH / step_ms * 1e3,
+           'fastbatchnorm_modules': n_modules,
+           'bn_calls_per_step': n_train, 'eval_bn_calls_per_batch': n_eval,
+           'bn_launches_per_step': rec.launches[0] if rec.launches else {},
+           'eval_bn_apply_per_batch': eval_apply / GLOBAL_EVAL_BATCHES,
+           'rank1': float(cmc[0]), 'mAP': float(mAP),
+           'learning_losses': learn, 'card_vs_cpu': small,
+           'profile': {k: v for k, v in profile.items()
+                       if k != 'top_host_ops'},
+           'launches': counts, 'wall_s': wall}
+    log('15b {}'.format(what), json.dumps({
+        k: v for k, v in row.items()
+        if k not in ('losses', 'step_ms', 'learning_losses', 'profile')}))
+    return row, counts, shapes
+
+
+def _zoo_steps(torch, checks):
+    """15c: one bf16 train step of each ``ZOO_STEP_MODELS`` model on 16
+    ids x 4 (counts set to 0 just before and read just after): through
+    the softmax engine (augmentation, label-smoothed CE, Adam), PVPM at
+    the module level (its part scores' CE, averaged; pose maps given),
+    each launching the four BN kernels once per FastBatchNorm call whose
+    output reaches the loss (PVPM's part-score BN does not: no
+    backward); the BN inputs of each step."""
+    import torch.nn.functional as F
+    from bpbreid_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
+    from bpbreid_tpu_torch.engine.image import ImageSoftmaxEngine
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.optim import build_optimizer
+    dm = types.SimpleNamespace(transforms=('random_flip',),
+                               norm_mean=IMAGENET_MEAN, norm_std=IMAGENET_STD)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 18)
+    rows, launches, shapes = [], {}, collections.Counter()
+    for name in ZOO_STEP_MODELS:
+        hw = (HEIGHT, WIDTH) if name.startswith('pose_') else ZOO_HW
+        model = build_model(name, 751, loss='softmax', device='cuda',
+                            seed=SEED, dtype=torch.bfloat16)
+        n_train = _expected_bn_calls(model, train=True)
+        no_grad = 1 if name == 'pose_p4s' else 0
+        if name.startswith('pose_'):
+            x, pose = _zoo_inputs(torch, name, BATCH, gen, hw)
+            pids = torch.arange(BATCH, device='cuda') // TRAIN_INSTANCES
+            opt = build_optimizer(model, optim='adam', lr=LR,
+                                  weight_decay=WEIGHT_DECAY)
+
+            def step():
+                model.train()
+                ys = model(x, pose)[0]
+                loss = sum(F.cross_entropy(y.float(), pids)
+                           for y in ys) / len(ys)
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+                return loss.detach()
+        else:
+            engine = ImageSoftmaxEngine(dm, model, build_optimizer(
+                model, optim='adam', lr=LR, weight_decay=WEIGHT_DECAY),
+                device='cuda')
+            batch = make_train_batch(np.random.default_rng(SEED + 19),
+                                     TRAIN_IDS, TRAIN_INSTANCES, *hw, 'cuda')
+            batch = {k: batch[k] for k in ('image', 'pid')}
+
+            def step():
+                return engine.forward_backward(batch)[0]
+        with bn_inputs(model, with_eps=True) as calls:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = float(step())
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: v for k, v in launch_counts.items() if v}
+        n_calls = sum(calls.values())
+        want = {k: n_train - (no_grad if k in ('bn_grad_stats', 'bn_dx')
+                              else 0) for k in BN_KERNELS} if n_train else {}
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want or n_calls != n_train or not np.isfinite(loss) \
+                or set(counts) - set(BN_KERNELS):
+            checks.append('15c {}: launches {} != {} ({} BN calls by '
+                          'hooks), loss {}'.format(name, counts, want,
+                                                   n_calls, loss))
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        for key, v in calls.items():
+            shapes[key] += v
+        rows.append({'name': name, 'input': list(hw), 'batch': BATCH,
+                     'fastbatchnorm_modules': _fastbatchnorms(model),
+                     'bn_calls': n_calls, 'launches': counts, 'loss': loss,
+                     'first_step_ms': wall_ms})
+        log('15c', json.dumps(rows[-1]))
+        del model, step
+        torch.cuda.empty_cache()
+    return rows, launches, shapes
+
+
+def _zoo_k3(torch, shapes, results, checks):
+    """15d: the four BN kernels against their plain versions (as phase 2
+    holds them, at the BN's own eps) at every distinct BN input of 15b's
+    and 15c's steps; the ``ZOO_K3_TIMED`` largest timed as phase 6b.
+    Returns the worst error of each kernel."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 20)
+    worst, failures = {}, []
+    for (shape, dt, cd, eps) in sorted(shapes, key=lambda k: -np.prod(k[0])):
+        x = (0.5 + torch.randn(shape, device='cuda', generator=gen)).to(dt)
+        dy = torch.randn(shape, device='cuda', generator=gen).to(dt)
+        errs, failed = _check_bn_kernels(
+            torch, x, dy, cd, _bn_operands(torch, x, dy, cd, gen, eps))
+        failures += ['{} at {} {} eps {}'.format(f, shape, dt, eps)
+                     for f in failed]
+        for k, v in errs.items():
+            if k.endswith('err'):
+                worst[k] = max(worst.get(k, 0.0), v)
+        del x, dy
+    timed = sorted(((k[:3], [v, v]) for k, v in shapes.items()),
+                   key=lambda kv: -np.prod(kv[0][0]))[:ZOO_K3_TIMED]
+    phase_k3_step_shapes(torch, timed, results, result_key='15d_timed')
+    if failures:
+        checks.append('15d: ' + '; '.join(failures[:10]))
+    return {'shapes': len(shapes), 'worst': worst,
+            'failures': len(failures)}
+
+
+def phase_zoo(torch, results):
+    """Phase 15 (see the module docstring). Returns the launch counts of
+    its runs, each counted from 0."""
+    import shutil
+    from bpbreid_tpu_torch.engine.image import (ImageSoftmaxEngine,
+                                               ImageTripletEngine)
+    t_phase = time.perf_counter()
+    out, checks, launches = {}, [], {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    out['15a'], counts = _zoo_eval(torch, checks)
+    add(counts)
+    out['15a_s'] = time.perf_counter() - t_phase
+    register_global_dataset()
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    k3_shapes = collections.Counter()
+    for key, job_id, opts, cls, name, loss, hw, small_hw in (
+            ('pcb', 151, PCB_RUN, ImageSoftmaxEngine, 'pcb_p6', 'softmax',
+             (HEIGHT, WIDTH), (128, 64)),
+            ('hacnn', 152, HACNN_RUN, ImageTripletEngine, 'hacnn', 'triplet',
+             HACNN_HW, HACNN_HW)):
+        out['15b_' + key], counts, shapes = _zoo_cli(
+            torch, '{} {}'.format(name, loss), job_id, opts, cls, name,
+            loss, hw, small_hw, checks)
+        add(counts)
+        for (shape, dt, cd), n in shapes.items():
+            k3_shapes[(shape, dt, cd, 1e-5)] += n[0]
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out['15b_s'] = time.perf_counter() - t_phase - out['15a_s']
+    out['15c'], counts, shapes = _zoo_steps(torch, checks)
+    add(counts)
+    for key, n in shapes.items():
+        k3_shapes[key] += n
+    out['15c_bpbreid'], counts = _flagship_on_fastreid(
+        torch, checks, backbone=ZOO_BPBREID_BACKBONE, tag='15c')
+    add(counts)
+    t_d = time.perf_counter()
+    out['15c_s'] = t_d - t_phase - out['15a_s'] - out['15b_s']
+    out['15d'] = _zoo_k3(torch, k3_shapes, out, checks)
+    out['15d_s'] = time.perf_counter() - t_d
+    out['phase_s'] = time.perf_counter() - t_phase
+    results['zoo'] = out
+    if checks:
+        raise AssertionError('phase 15: ' + '; '.join(checks))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4299,11 +4776,14 @@ def main():
     log('phase 14: the video path, the occluded BPBReID options '
         '(background-channel masks, ro), before_and_after_pooling, CUHK03')
     video_launches = phase_video_and_options(torch, results)
-    # the launches of phases 10, 11, 13 and 14 (each its own path,
+    log('phase 15: the rest of the model zoo (PCB, PVPM, the legacy '
+        'Torchreid zoo, HACNN)')
+    zoo_launches = phase_zoo(torch, results)
+    # the launches of phases 10, 11, 13, 14 and 15 (each its own path,
     # counted from 0)
     path_launches = {}
     for counts in (inference_launches, pcb_launches, bot_launches,
-                   global_launches, video_launches):
+                   global_launches, video_launches, zoo_launches):
         for k, v in counts.items():
             path_launches[k] = path_launches.get(k, 0) + v
 
@@ -4502,6 +4982,35 @@ def main():
                                          'launches')},
         '14d_k3_worst_err': worst(v['14d']['k3']),
         'phase_s': v['phase_s'], 'gpu': gpu}))
+    z = results['zoo']
+    log('zoo', json.dumps({
+        '15a': {'models': len(z['15a']),
+                'eval_ms': {r['name']: round(r['ms'], 3) for r in z['15a']},
+                'bn_apply': sum(r['launches'].get('bn_apply', 0)
+                                for r in z['15a']),
+                'build_s': sum(r['build_s'] for r in z['15a']),
+                'phase_s': z['15a_s']},
+        **{k: {key: z[k][key] for key in (
+            'model', 'loss', 'steps', 'step_ms_median', 'images_per_s',
+            'fastbatchnorm_modules', 'bn_calls_per_step',
+            'bn_launches_per_step', 'eval_bn_apply_per_batch', 'mAP',
+            'rank1', 'card_vs_cpu')} for k in ('15b_pcb', '15b_hacnn')},
+        '15b_learning_first_last': {
+            k: [z[k]['learning_losses'][0], z[k]['learning_losses'][-1]]
+            for k in ('15b_pcb', '15b_hacnn')},
+        '15b_busy_share': {k: z[k]['profile']['busy_share']
+                           for k in ('15b_pcb', '15b_hacnn')},
+        '15c': {r['name']: r['launches'] for r in z['15c']},
+        '15c_bpbreid': {
+            'backbone': z['15c_bpbreid'].get('backbone'),
+            'k2': {key: z['15c_bpbreid'].get('k2', {}).get(key) for key in (
+                'shape', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+                'max_abs_err')},
+            'eval_launches': z['15c_bpbreid'].get('eval_launches'),
+            'train_launches': z['15c_bpbreid'].get('train_launches')},
+        '15d': z['15d'],
+        'seconds': {k: z[k + '_s'] for k in ('15a', '15b', '15c', '15d')},
+        'phase_s': z['phase_s'], 'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

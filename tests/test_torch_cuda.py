@@ -24,7 +24,12 @@ def cuda():
 
 
 @pytest.mark.parametrize('shape', [(2, 40, 7, 1, 3), (3, 100, 96, 32, 37),
-                                   (64, 1920, 96, 32, 6), (1, 7, 13, 11, 64)])
+                                   (64, 1920, 96, 32, 6), (1, 7, 13, 11, 64),
+                                   # the zoo backbones' maps at 384x128:
+                                   # nasnetamobile, shufflenet,
+                                   # mobilenetv2_x1_0
+                                   (64, 1056, 12, 4, 6), (64, 960, 12, 4, 6),
+                                   (64, 1280, 12, 4, 6)])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_attention_pool_kernel_matches_plain(cuda, shape, dtype):
     from bpbreid_tpu_torch.ops.cuda.build import launch_counts
@@ -82,6 +87,13 @@ K3_SHAPES += [((64, 64, 128, 64), 1), ((64, 64, 64, 32), 1),
               ((64, 96, 32, 16), 1), ((64, 128, 16, 8), 1),
               ((64, 512, 16, 8), 1), ((64, 32, 64, 32), 1),
               ((64, 2048, 8, 4), 1)]
+# the legacy zoo's: NASNet's odd stem widths (11, 22, 44) at odd maps,
+# ShuffleNet's 60-wide bottleneck, MLFN's pooled gates [N, 32, 1, 1],
+# HACNN's one-channel spatial attention, NASNet's 1056-wide map, MuDeep's
+# 4096-wide BN1d head
+K3_SHAPES += [((8, 11, 63, 31), 1), ((8, 22, 32, 16), 1),
+              ((8, 44, 16, 8), 1), ((8, 60, 32, 16), 1), ((8, 32, 1, 1), 1),
+              ((8, 1, 20, 8), 1), ((8, 1056, 4, 2), 1), ((8, 4096), -1)]
 
 
 def _k3_inputs(cuda, shape, dtype, seed):
@@ -192,6 +204,31 @@ def test_bn_apply_and_dx_kernels_match_plain(cuda, shape, channel_dim,
     assert got.dtype == x.dtype
     assert launch_counts['bn_apply'] == before.get('bn_apply', 0) + 2
     assert launch_counts['bn_dx'] == before.get('bn_dx', 0) + 1
+
+
+@pytest.mark.parametrize('shape,channel_dim', [((8, 11, 63, 31), 1),
+                                               ((8, 44, 16, 8), 1),
+                                               ((8, 4096), -1)])
+def test_bn_epilogue_at_eps_1e3_matches_plain(cuda, shape, channel_dim):
+    """The eps of InceptionV4's, Inception-ResNet-V2's and NASNet's BNs
+    (1e-3) in ``bn_stats``'s epilogue and ``bn_apply``, against the plain
+    versions."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (
+        bn_apply, bn_apply_reference, bn_finalize_reference, bn_stats,
+        channel_view)
+    x, _ = _k3_inputs(cuda, shape, torch.bfloat16, 4)
+    a, c, b = channel_view(x.shape, channel_dim)
+    weight = torch.linspace(0.5, 1.5, c, device=cuda)
+    got = bn_stats(x, weight, 1e-3, channel_dim, sums=True)
+    want = bn_finalize_reference(got[4], got[5], a * b, weight, 1e-3)
+    for g, w in zip(got[:4], want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+    eps5 = bn_stats(x, weight, 1e-5, channel_dim)
+    assert not torch.equal(eps5[2], got[2])
+    y = bn_apply(x, got[0], got[2], weight, None, channel_dim,
+                 torch.bfloat16)
+    assert torch.equal(y, bn_apply_reference(x, got[0], got[2], weight, None,
+                                             channel_dim, torch.bfloat16))
 
 
 def test_bn_kernels_are_bit_identical_across_calls(cuda):
@@ -1064,3 +1101,114 @@ def test_ro_train_loader_feeds_the_card(cuda):
                            torch.from_numpy(want['image']))
         loss, _ = engine.forward_backward(got)
         assert torch.isfinite(loss).item()
+
+
+def test_affine_grid_sample_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """HACNN's spatial transformer on the card (bf16 maps sampled in f32)
+    against the CPU, f32: the samples and the gradients with respect to
+    the map and ``theta`` to 1e-5 of their largest magnitude."""
+    from bpbreid_tpu_torch.ops.grid_sample import affine_grid_sample
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 32, 80, 32, generator=gen)
+    theta = torch.zeros(4, 2, 3)
+    theta[:, 0, 0], theta[:, 1, 1] = 1.0, 0.25
+    theta[:, :, 2] = 2.4 * torch.rand(4, 2, generator=gen) - 1.2
+    w = torch.randn(4, 32, 80, 32, generator=gen)
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        xd = x.to(dev).requires_grad_(True)
+        td = theta.to(dev).requires_grad_(True)
+        y = affine_grid_sample(xd, td)
+        (y * w.to(dev)).sum().backward()
+        out[dev.type] = [t.detach().cpu() for t in (y, xd.grad, td.grad)]
+    for a, b in zip(out['cuda'], out['cpu']):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max() + 1e-6
+    y = affine_grid_sample(x.to(cuda).bfloat16(), theta.to(cuda))
+    assert y.dtype == torch.bfloat16
+    assert (y.float().cpu() - out['cpu'][0]).abs().max() <= \
+        2 ** -7 * out['cpu'][0].abs().max() + 0.02
+
+
+def test_compact_bilinear_pooling_on_the_card_matches_the_cpu(cuda):
+    """The count sketch (``index_add``) and the FFT product on the card,
+    with the sketch parameters made there from the same numpy seed."""
+    from bpbreid_tpu_torch.ops.compact_bilinear_pooling import \
+        CompactBilinearPooling
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(64, 512, generator=gen)
+    y = torch.randn(64, 256, generator=gen)
+    card = CompactBilinearPooling(512, 256, 1024, seed=3)
+    cpu = CompactBilinearPooling(512, 256, 1024, seed=3, device='cpu')
+    assert card.hx.device.type == 'cuda'
+    assert torch.equal(card.hx.cpu(), cpu.hx)
+    got = card(x.to(cuda), y.to(cuda)).cpu()
+    want = cpu(x, y)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+# one model of each module of the legacy zoo (and PCB, PVPM), with the
+# input each takes: (name, height, width)
+ZOO_CARD_MODELS = [
+    ('pcb_p4', 96, 32), ('pose_p4', 64, 32), ('se_resnet50', 64, 32),
+    ('densenet121', 64, 32), ('mobilenetv2_x1_0', 64, 32),
+    ('shufflenet', 64, 32), ('shufflenet_v2_x0_5', 64, 32),
+    ('squeezenet1_0', 64, 32), ('mlfn', 64, 32), ('xception', 96, 64),
+    ('inceptionv4', 160, 96), ('inceptionresnetv2', 160, 96),
+    ('nasnetamobile', 128, 64), ('mudeep', 256, 128), ('hacnn', 160, 64)]
+
+
+@pytest.mark.parametrize('name, h, w', ZOO_CARD_MODELS)
+def test_zoo_model_on_the_card_matches_the_cpu(cuda, monkeypatch, name, h,
+                                               w):
+    """The same seeded f32 model on the card and the CPU (TF32 off), eval
+    mode on 4 images: outputs to 1e-3 of the largest magnitude. Then on
+    the card a train-mode forward and backward of the outputs' sum
+    launches the four BN kernels once per ``FastBatchNorm`` call, and an
+    eval batch one ``bn_apply`` a call (PCB's and PVPM's train-mode heads
+    make fewer calls in eval mode)."""
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.models.common import (FastBatchNorm,
+                                                 set_dropout_generator)
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    gen = torch.Generator().manual_seed(2)
+    inputs = [torch.randn(4, 3, h, w, generator=gen)]
+    if name.startswith('pose_'):
+        inputs.append(torch.rand(4, 56, h // 4, w // 4, generator=gen))
+
+    def leaves(out):
+        if isinstance(out, (list, tuple)):
+            return [t for o in out for t in leaves(o)]
+        return [out]
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        model = build_model(name, 10, loss='softmax', device=dev, seed=0,
+                            dtype=torch.float32)
+        with torch.no_grad():
+            out[dev] = [t.cpu() for t in leaves(model(*[
+                t.to(dev) for t in inputs]))]
+    for a, b in zip(out['cuda'], out['cpu']):
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max() + 1e-6
+    calls = []
+    for m in model.modules():
+        if isinstance(m, FastBatchNorm):
+            m.register_forward_pre_hook(lambda mod, inp: calls.append(1))
+    model = model.to(cuda).train()
+    set_dropout_generator(model, torch.Generator(cuda).manual_seed(0))
+    before = dict(launch_counts)
+    outs = leaves(model(*[t.to(cuda) for t in inputs]))
+    sum(o.float().sum() for o in outs).backward()
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(o).all() for o in outs)
+    n = len(calls)
+    assert n > 0 or name == 'squeezenet1_0'
+    for kernel in ('bn_stats', 'bn_apply', 'bn_grad_stats', 'bn_dx'):
+        assert launch_counts[kernel] - before.get(kernel, 0) == n, kernel
+    calls.clear()
+    before = dict(launch_counts)
+    with torch.inference_mode():
+        model.eval()(*[t.to(cuda) for t in inputs])
+    assert launch_counts['bn_apply'] - before.get('bn_apply', 0) \
+        == len(calls) <= n
+    assert launch_counts['bn_stats'] == before.get('bn_stats', 0)

@@ -33,8 +33,12 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     model = build_model('hrnet32', 1, device='cpu', stages=SMALL_W32)
     assert next(model.parameters()).device.type == 'cpu'
     assert not model.training
-    with pytest.raises(NotImplementedError, match='not ported'):
-        build_model('senet154', 1, device='cpu')
+    # every name of JAX's registry builds; a name outside it raises
+    with pytest.raises(NotImplementedError, match='not in the registry'):
+        build_model('senet155', 1, device='cpu')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_model('squeezenet1_1', 1)
+    assert not build_model('squeezenet1_1', 1, device='cpu').training
 
 
 def test_build_model_is_seeded():
@@ -74,7 +78,23 @@ def test_port_imports_no_jax():
             'bpbreid_tpu_torch.data.datasets.video_datasets',
             'bpbreid_tpu_torch.data.video',
             'bpbreid_tpu_torch.engine.video.softmax',
-            'bpbreid_tpu_torch.engine.video.triplet'} <= set(names)
+            'bpbreid_tpu_torch.engine.video.triplet',
+            'bpbreid_tpu_torch.models.zoo', 'bpbreid_tpu_torch.models.pcb',
+            'bpbreid_tpu_torch.models.pvpm', 'bpbreid_tpu_torch.models.senet',
+            'bpbreid_tpu_torch.models.densenet',
+            'bpbreid_tpu_torch.models.mobilenetv2',
+            'bpbreid_tpu_torch.models.shufflenet',
+            'bpbreid_tpu_torch.models.shufflenetv2',
+            'bpbreid_tpu_torch.models.squeezenet',
+            'bpbreid_tpu_torch.models.mlfn',
+            'bpbreid_tpu_torch.models.xception',
+            'bpbreid_tpu_torch.models.inceptionv4',
+            'bpbreid_tpu_torch.models.inceptionresnetv2',
+            'bpbreid_tpu_torch.models.nasnet',
+            'bpbreid_tpu_torch.models.mudeep',
+            'bpbreid_tpu_torch.models.hacnn',
+            'bpbreid_tpu_torch.ops.grid_sample',
+            'bpbreid_tpu_torch.ops.compact_bilinear_pooling'} <= set(names)
 
 
 def test_port_imports_no_cv2_or_pil():

@@ -80,7 +80,7 @@ def port_variables(jax_model, port_model, *init_args):
     ``jax.eval_shape`` (traced, not compiled), each leaf from the port's
     ``state_dict`` in the JAX layout. Cheaper than a compiled ``init``
     of an HRNet on the CPU."""
-    from bpbreid_tpu_torch.utils.weights import _torch_key
+    from bpbreid_tpu_torch.utils.weights import _torch_key, is_raw_parameter
     shapes = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0),
                             *init_args)
     sd = {k: v.detach().float().numpy()
@@ -95,6 +95,8 @@ def port_variables(jax_model, port_model, *init_args):
             a = sd[_torch_key(prefix + (k,), coll)]
             if k == 'kernel':                    # OIHW -> HWIO, OI -> IO
                 a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            elif is_raw_parameter(prefix + (k,), coll) and a.ndim == 4:
+                a = a.transpose(0, 2, 3, 1)      # NCHW -> NHWC
             assert a.shape == tuple(v.shape), (prefix, k, a.shape, v.shape)
             out[k] = np.ascontiguousarray(a)
         return out
@@ -145,20 +147,23 @@ def assert_close(got, want, tol):
 def jax_layout(t):
     """A port output (NCHW map, vector or tuple of them) in JAX's layout,
     as numpy."""
-    if isinstance(t, tuple):
-        return tuple(jax_layout(v) for v in t)
+    if isinstance(t, (tuple, list)):
+        return type(t)(jax_layout(v) for v in t)
     return to_nhwc(t) if t.dim() == 4 else to_np(t)
 
 
-def seeded_variables(jmodule, tmodule, *init_args, seed=1, **init_kwargs):
+def seeded_variables(jmodule, tmodule, *init_args, seed=1, initialized=False,
+                     **init_kwargs):
     """JAX variables for ``jmodule``'s tree (traced, not compiled:
-    ``port_variables``) from ``tmodule``'s seeded init, with the affines,
-    biases and BN statistics perturbed (``randomize_variables``); loaded
-    into ``tmodule`` too. ``init_kwargs`` (``train=True``: the train-mode
+    ``port_variables``) from ``tmodule``'s seeded init (``initialized``:
+    the weights the caller gave it), with the affines, biases and BN
+    statistics perturbed (``randomize_variables``); loaded into
+    ``tmodule`` too. ``init_kwargs`` (``train=True``: the train-mode
     heads) stay static."""
     from bpbreid_tpu_torch.models.common import init_parameters
     from bpbreid_tpu_torch.utils.weights import load_jax_variables
-    init_parameters(tmodule, torch.Generator().manual_seed(seed))
+    if not initialized:
+        init_parameters(tmodule, torch.Generator().manual_seed(seed))
     traced = types.SimpleNamespace(
         init=functools.partial(jmodule.init, **init_kwargs))
     variables = randomize_variables(
@@ -167,31 +172,198 @@ def seeded_variables(jmodule, tmodule, *init_args, seed=1, **init_kwargs):
     return variables
 
 
+def _is_dropout(module, method_name):
+    """``capture_intermediates`` filter: the outputs of flax's dropouts."""
+    return type(module).__name__ == 'Dropout'
+
+
+def jax_dropout_masks(intermediates):
+    """The keep-masks of every flax ``nn.Dropout`` a train-mode apply
+    captured (``capture_intermediates=True``), in call order: an output
+    entry is kept where it is not 0."""
+    masks = []
+
+    def walk(tree):
+        for k, v in tree.items():
+            if k.startswith('Dropout'):
+                masks.append(np.asarray(v['__call__'][0]) != 0)
+            elif isinstance(v, dict):
+                walk(v)
+    walk(intermediates)
+    return masks
+
+
+def apply_jax_masks(tmodule, masks):
+    """Make the ``GeneratorDropout``s of ``tmodule`` keep the entries of
+    ``masks`` (numpy, in JAX's layout; a port input of another layout
+    takes the transpose of the mask of its shape), kept entries doubled
+    (rate 0.5), as flax's dropout scales them."""
+    from bpbreid_tpu_torch.models.common import GeneratorDropout
+    drops = [m for m in tmodule.modules() if isinstance(m, GeneratorDropout)]
+    assert len(drops) == len(masks), (len(drops), len(masks))
+    for module, mask in zip(drops, masks):
+        def forward(x, mask=mask, rate=module.rate):
+            m = mask if mask.shape == tuple(x.shape) else \
+                np.swapaxes(mask, 1, 2)
+            keep = torch.from_numpy(np.ascontiguousarray(m))
+            return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+        module.forward = forward
+
+
 def check_against_jax(jmodule, tmodule, x, eval_tol=1e-4, train_tol=1e-4,
-                      stats_tol=1e-4):
-    """``tmodule`` against ``jmodule`` (its ``__call__(x, train)``) on the
-    same seeded variables: the eval output, then the train-mode output
+                      stats_tol=1e-4, extra=(), variables=None,
+                      outputs=False):
+    """``tmodule`` against ``jmodule`` (its ``__call__(x, *extra,
+    train)``) on the same seeded variables (``variables``, or
+    ``seeded_variables``'s): the eval output, then the train-mode output
     and every running statistic after it, each to its tolerance of the
     largest magnitude. JAX jits each mode: on the CPU that takes less
-    time than dispatching the same model's primitives one by one."""
+    time than dispatching the same model's primitives one by one.
+
+    A model with dropout runs JAX's train mode with a dropout key and
+    its captured keep-masks in the port (``apply_jax_masks``). Returns
+    the module; with ``outputs``, ``(module, port train output, JAX train
+    output)``."""
     from bpbreid_tpu_torch.utils.weights import jax_variables_to_state_dict
     x = np.asarray(x)
-    variables = seeded_variables(jmodule, tmodule, x, train=True)
+    extra = tuple(np.asarray(e) for e in extra)
+    if variables is None:
+        variables = seeded_variables(jmodule, tmodule, x, *extra, train=True)
     want = jax.jit(functools.partial(jmodule.apply, train=False))(
-        variables, x)
+        variables, x, *extra)
     with torch.no_grad():
-        got = tmodule.eval()(nchw(x))
+        got = tmodule.eval()(nchw(x), *map(nchw, extra))
     jax.tree_util.tree_map(lambda g, w: assert_close(g, w, eval_tol),
                            jax_layout(got), want)
-    want, state = jax.jit(functools.partial(
-        jmodule.apply, train=True, mutable=['batch_stats']))(variables, x)
+    train = jax.jit(functools.partial(
+        jmodule.apply, train=True, capture_intermediates=_is_dropout,
+        mutable=['batch_stats', 'intermediates']))
+    rngs = {'dropout': jax.random.PRNGKey(3)}
+    want, state = train(variables, x, *extra, rngs=rngs)
+    apply_jax_masks(tmodule,
+                    jax_dropout_masks(state.get('intermediates', {})))
     with torch.no_grad():
-        got = tmodule.train()(nchw(x))
+        got = tmodule.train()(nchw(x), *map(nchw, extra))
     jax.tree_util.tree_map(lambda g, w: assert_close(g, w, train_tol),
                            jax_layout(got), want)
-    stats = jax_variables_to_state_dict({'batch_stats': state['batch_stats']})
+    stats = jax_variables_to_state_dict(
+        {'batch_stats': state.get('batch_stats', {})})
     own = tmodule.state_dict()
-    assert stats
+    # every running statistic is compared, and a model without one has
+    # none in either package
+    assert stats or not any(k.endswith('running_mean') for k in own)
     for key, value in stats.items():
         assert_close(own[key], value, stats_tol)
-    return tmodule
+    return (tmodule, got, want) if outputs else tmodule
+
+
+def _inverse_cdf_lecun_normal_(weight, fan_in, generator):
+    import math
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    lo = (1.0 + math.erf(-math.sqrt(2.0))) / 2.0
+    weight.uniform_(2.0 * lo - 1.0, 1.0 - 2.0 * lo, generator=generator)
+    weight.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
+
+
+def zoo_init(module, seed):
+    """``init_parameters`` with its truncated normal drawn by the inverse
+    CDF. The tests need the distribution, not torch's bits: the
+    ``trunc_normal_`` of this sandbox's torch is a rejection sampler that
+    takes seconds on the zoo's 10^7-10^8 weights (SENet-154, MuDeep's
+    head)."""
+    from bpbreid_tpu_torch.models import common
+    own = common._lecun_normal_
+    common._lecun_normal_ = _inverse_cdf_lecun_normal_
+    try:
+        common.init_parameters(module, torch.Generator().manual_seed(seed))
+    finally:
+        common._lecun_normal_ = own
+
+
+def zoo_images(seed, n=4, h=64, w=32, c=3):
+    """``[n, h, w, c]`` f32 images of varied brightness and contrast (an
+    offset in [-1, 1) and a scale in [0.5, 2) an image, on unit normal
+    noise). Models that batch-normalize pooled vectors (MLFN's gates,
+    HACNN's channel attention) are ill-conditioned in train mode on
+    near-alike images: f32 noise alone then moves their output by a large
+    share of its magnitude."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-1.0, 1.0, (n, 1, 1, 1))
+            + rng.uniform(0.5, 2.0, (n, 1, 1, 1))
+            * rng.standard_normal((n, h, w, c))).astype(np.float32)
+
+
+def check_zoo_constructor(jmodel, tmodel, hw, *extra_shapes):
+    """A registry constructor at full depth: JAX's variable tree (traced
+    at ``hw``) loads key for key into ``tmodel`` and none is left over
+    (``load_jax_variables`` raises otherwise, and on a shape); then
+    ``tmodel`` in eval mode at ``hw`` on two images (and seeded extra
+    inputs of ``extra_shapes``, NHWC) gives a finite output. Returns
+    it."""
+    x = zoo_images(11, 2, *hw)
+    extra = [zoo_images(12 + i, 2, *shape)
+             for i, shape in enumerate(extra_shapes)]
+    zoo_init(tmodel, 1)
+    seeded_variables(jmodel, tmodel, x[:1], *[e[:1] for e in extra],
+                     initialized=True, train=True)
+    with torch.no_grad():
+        out = tmodel.eval()(nchw(x), *map(nchw, extra))
+    for leaf in jax.tree_util.tree_leaves(jax_layout(out)):
+        assert np.isfinite(leaf).all()
+    return out
+
+
+def check_bpbreid_backbone(jbpbreid, tbpbreid, hw, seed):
+    """BPBReID (after-pooling reduction) on a zoo backbone against JAX's,
+    eval mode on two images: embeddings and pixel scores to 1e-3 (as the
+    other BPBReID tests hold them), visibility scores equal. Returns the
+    port's backbone map."""
+    x = jax.numpy.asarray(zoo_images(seed, 2, *hw))
+    zoo_init(tbpbreid, seed)
+    variables = seeded_variables(jbpbreid, tbpbreid, x, None, seed=seed,
+                                 initialized=True)
+    want = jax.jit(lambda v, x: jbpbreid.apply(v, x, None, train=False))(
+        variables, x)
+    backbone = tbpbreid.backbone_appearance_feature_extractor
+    with torch.no_grad():
+        got = tbpbreid.eval()(nchw(x))
+        fmap = backbone.eval()(nchw(x))
+    for key in want[0]:
+        assert_close(got[0][key], want[0][key], 1e-3)
+    for key in want[1]:
+        np.testing.assert_array_equal(to_np(got[1][key]),
+                                      to_np(want[1][key]))
+    assert_close(got[3], np.transpose(np.asarray(want[3]), (0, 3, 1, 2)),
+                 1e-3)
+    return fmap
+
+
+def check_zoo_model(name, hw, n=4, seed=0, loss='softmax', **kwargs):
+    """The registry constructor ``name`` of both packages at full depth,
+    through ``check_against_jax`` on ``n`` ``zoo_images`` at ``hw``: eval
+    to 1e-4, train mode to 1e-3, statistics to 1e-4 (``kwargs`` as
+    ``check_against_jax``'s)."""
+    from bpbreid_tpu import models as jmodels
+    from bpbreid_tpu_torch.models import BACKBONES
+    kwargs.setdefault('train_tol', 1e-3)
+    jm = jmodels.build_model(name, 7, loss=loss, pretrained=False)
+    tm = BACKBONES[name](7, loss=loss)
+    x = zoo_images(seed, n, *hw)
+    zoo_init(tm, 1)
+    variables = seeded_variables(jm, tm, x, initialized=True, train=True)
+    return check_against_jax(jm, tm, x, variables=variables, **kwargs)
+
+
+def check_zoo_bpbreid(name, hw, seed=7):
+    """``check_bpbreid_backbone`` on BPBReID (5 parts, a 32-d after-pooling
+    reduction) over the registry backbone ``name``; also checks that the
+    backbone's ``feature_dim`` is its map's width. Returns the map."""
+    from bpbreid_tpu.models.bpbreid import BPBreID as JBPBreID
+    from bpbreid_tpu_torch.models.bpbreid import BPBreID as TBPBreID
+    kw = dict(num_classes=7, parts_num=5, dim_reduce_output=32, backbone=name)
+    tbpbreid = TBPBreID(**kw)
+    fmap = check_bpbreid_backbone(JBPBreID(**kw), tbpbreid, hw, seed)
+    backbone = tbpbreid.backbone_appearance_feature_extractor
+    assert fmap.shape[1] == backbone.feature_dim, (fmap.shape,
+                                                   backbone.feature_dim)
+    return fmap
