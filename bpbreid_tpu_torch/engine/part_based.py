@@ -28,7 +28,12 @@ on, each part's mAP and rank-1 are reported too; with a writer, the
 query-gallery distance statistics (``utils/writer.py``); with
 ``visrank``, the ranking grids (``utils/visualization/rankings.py``),
 whose attention maps come from ``eval_step`` run again on the selected
-samples (``_evaluate`` :747-789).
+samples (``_evaluate`` :747-789); with ``embeddings_dir``, the query and
+gallery embeddings' projection (``utils/visualization/embeddings.py``,
+``test.vis_embedding_projection`` in ``_evaluate``, JAX :805-812).
+With ``train.batch_debug_freq`` in the config, ``forward_backward``
+draws the debug figures of every that many steps
+(``_debug_visualize_batch``, JAX :382-420).
 
 A loader is any iterable of batch dicts holding numpy arrays: ``image``
 ``[B, H, W, 3]`` uint8, optional ``mask`` ``[B, h, w, C]`` float
@@ -49,7 +54,7 @@ import numpy as np
 import torch
 
 from bpbreid_tpu_torch import resolve_device
-from bpbreid_tpu_torch.constants import (PIXELS, bn_correspondants,
+from bpbreid_tpu_torch.constants import (PARTS, PIXELS, bn_correspondants,
                                          get_test_embeddings_names)
 from bpbreid_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
                                             eval_preprocess,
@@ -69,18 +74,16 @@ from bpbreid_tpu_torch.ops.resize import resize_bilinear_align_corners
 from bpbreid_tpu_torch.utils.distribution import (
     compute_ssmd, plot_pairs_distance_distribution)
 from bpbreid_tpu_torch.utils.rerank import re_ranking
+from bpbreid_tpu_torch.utils.visualization.batch_triplets import \
+    display_batch_triplets
+from bpbreid_tpu_torch.utils.visualization.embeddings import \
+    visualize_embeddings_projection
+from bpbreid_tpu_torch.utils.visualization.feature_maps import \
+    display_feature_maps
 from bpbreid_tpu_torch.utils.visualization.rankings import \
     visualize_ranking_grid
 
-__all__ = ['ImagePartBasedEngine', 'normalize', 'refuse_unported_test_options']
-
-
-def refuse_unported_test_options(vis_embedding_projection=False):
-    """Raise for the test option the port does not have yet: it draws
-    its figures with matplotlib."""
-    if vis_embedding_projection:
-        raise NotImplementedError('test.vis_embedding_projection is not '
-                                  'ported yet (ROADMAP Queue 1 item 11)')
+__all__ = ['ImagePartBasedEngine', 'normalize']
 
 
 class ImagePartBasedEngine(Engine):
@@ -245,7 +248,50 @@ class ImagePartBasedEngine(Engine):
         self.model.train()
         loss, summary = self.loss_fn(self.model(imgs, masks), masks, pids)
         self.optimizer_step(loss)
+        freq = self.config.train.batch_debug_freq \
+            if self.config is not None else 0
+        if freq and self.engine_state.global_step % freq == 0:
+            self._debug_visualize_batch(batch)
         return loss.detach(), summary
+
+    def _debug_visualize_batch(self, batch, max_samples=4):
+        """The debug figures of a training batch (JAX :391-420): an
+        eval-mode forward of the whole batch on the device, then the PCA
+        feature maps and part argmaxes of its first ``max_samples``
+        samples into ``<save_dir>/debug_feature_maps`` and the batch-hard
+        triplets of its ``parts`` embeddings into
+        ``<save_dir>/debug_triplets``. With multires pooling the forward
+        also builds the concatenated map that it otherwise skips
+        (``materialize_spatial``). The model is put back in train mode.
+        Unlike JAX, a failure raises. Returns the figures' paths."""
+        imgs_u8 = torch.as_tensor(batch['image']).to(self.device)
+        raw_masks = torch.as_tensor(batch['mask']).to(self.device) \
+            if batch.get('mask') is not None else None
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                imgs, masks = eval_preprocess(imgs_u8, raw_masks,
+                                              norm_mean=self.norm_mean,
+                                              norm_std=self.norm_std,
+                                              mask_kwargs=self.mask_kwargs)
+                emb, _vis, _idc, _pix, spatial, out_masks = self.model(
+                    imgs, masks, materialize_spatial=True)
+        finally:
+            self.model.train()
+        base_dir = (self.config.data.save_dir
+                    if self.config is not None else '.') or '.'
+        pids = np.asarray(torch.as_tensor(batch['pid']).cpu())
+        paths = display_feature_maps(
+            emb, spatial[:max_samples].float().permute(0, 2, 3, 1).cpu()
+            .numpy(),
+            out_masks[PARTS][:max_samples].float().permute(0, 2, 3, 1).cpu()
+            .numpy(),
+            batch.get('img_path', [''] * max_samples), pids[:max_samples],
+            save_dir=osp.join(base_dir, 'debug_feature_maps'))
+        triplets = display_batch_triplets(
+            imgs_u8.cpu().numpy(), emb[PARTS].float().cpu().numpy(), pids,
+            osp.join(base_dir, 'debug_triplets'))
+        return paths + ([triplets] if triplets else [])
 
     @torch.inference_mode()
     def eval_step(self, imgs_u8, raw_masks=None, quant_opts=None):
@@ -367,7 +413,8 @@ class ImagePartBasedEngine(Engine):
                  dist_metric='euclidean', max_rank=50, eval_metric='default',
                  use_metric_cuhk03=False, rerank=False, features_dir=None,
                  visrank=False, visrank_topk=10, visrank_q_idx_list=None,
-                 visrank_count=10, visrank_dir=None, dataset_name=''):
+                 visrank_count=10, visrank_dir=None, dataset_name='',
+                 embeddings_dir=None):
         """Query-gallery retrieval.
 
         With ``rerank``, k-reciprocal re-ranking (``utils/rerank.py``, on
@@ -478,6 +525,10 @@ class ImagePartBasedEngine(Engine):
                      q_pids=q_pids, g_pids=g_pids,
                      q_camids=q_camids, g_camids=g_camids)
             print('Saved features to {}'.format(features_dir))
+        if embeddings_dir is not None:
+            visualize_embeddings_projection(
+                qf.float().cpu().numpy(), gf.float().cpu().numpy(), q_pids,
+                g_pids, embeddings_dir, dataset_name=dataset_name)
         return {'cmc': cmc, 'mAP': mAP, 'ssmd': ssmd,
                 'pixel_accuracy': pxl_acc, 'distmat': distmat,
                 'parts_ranking': parts_ranking,
@@ -542,6 +593,9 @@ class ImagePartBasedEngine(Engine):
             if entry else 'default'
         features_dir = osp.join(save_dir, 'features_{}'.format(
             dataset_name)) if save_features and save_dir else None
+        embeddings_dir = osp.join(save_dir, 'embeddings_{}'.format(
+            dataset_name)) if self.config is not None and \
+            self.config.test.vis_embedding_projection else None
         res = self.evaluate(query_loader, gallery_loader,
                             normalize_feature=normalize_feature,
                             dist_metric=dist_metric, eval_metric=eval_metric,
@@ -552,7 +606,8 @@ class ImagePartBasedEngine(Engine):
                             visrank_count=visrank_count,
                             visrank_dir=osp.join(save_dir, 'visrank_{}'.format(
                                 dataset_name)),
-                            dataset_name=dataset_name)
+                            dataset_name=dataset_name,
+                            embeddings_dir=embeddings_dir)
         cmc, mAP, ssmd = res['cmc'], res['mAP'], res['ssmd']
         if res['pixel_accuracy']:
             print('Pixel prediction accuracy: {:.2%}'.format(

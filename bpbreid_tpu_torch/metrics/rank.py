@@ -1,6 +1,10 @@
-"""CMC / mAP ranking on the host (port of the numpy path of
-bpbreid_tpu/metrics/rank.py: ``eval_market1501`` :34, ``eval_cuhk03`` :71,
-``evaluate_rank`` :162).
+"""CMC / mAP ranking on the host (port of bpbreid_tpu/metrics/rank.py:
+``eval_market1501`` :34, ``eval_cuhk03`` :71, ``evaluate_rank`` :162).
+
+``evaluate_rank`` ranks the Market-1501 protocol with the native C++
+ranker (``native/rank.py``) by default, as JAX does; its build failing
+raises, and only ``use_native=False`` takes the numpy path, which stays
+here as the plain version.
 
 Vectorized over all queries: junk removal and the cumulative statistics
 are masked cumsums over the sorted gallery axis. The Market-1501 sort is
@@ -126,11 +130,22 @@ def eval_cuhk03(distmat, q_pids, g_pids, q_camids, g_camids, max_rank,
 
 
 def evaluate_rank(distmat, q_pids, g_pids, q_camids, g_camids, max_rank=50,
-                  eval_metric='default'):
-    """CMC rank + mAP: ``'default'`` (Market-1501) or ``'cuhk03'``."""
+                  eval_metric='default', q_anns=None, g_anns=None,
+                  use_cython=True, use_native=True):
+    """CMC rank + mAP: ``'default'`` (Market-1501) or ``'cuhk03'``.
+
+    The JAX dispatcher's signature (reference
+    torchreid/metrics/rank.py:173-214; ``q_anns``, ``g_anns`` and
+    ``use_cython`` are accepted and unused). ``'default'`` runs the
+    native ranker unless ``use_native`` is False; ``'cuhk03'`` stays on
+    the numpy path, whose fixed-seed sampling stream is JAX's."""
+    del q_anns, g_anns, use_cython
     args = (np.asarray(distmat), np.asarray(q_pids), np.asarray(g_pids),
             np.asarray(q_camids), np.asarray(g_camids), max_rank)
     if eval_metric == 'default':
+        if use_native:
+            from bpbreid_tpu_torch.native import rank as native_rank
+            return native_rank.eval_market1501(*args)
         return eval_market1501(*args)
     if eval_metric == 'cuhk03':
         return eval_cuhk03(*args)

@@ -227,9 +227,12 @@ class BeforePoolingDimReduce(nn.Module):
 class BPBreID(nn.Module):
     """Part-based re-id network (see module docstring).
 
-    ``forward(images, external_parts_masks=None)`` ->
-    ``(embeddings, visibility_scores, id_cls_scores, pixels_cls_scores,
-    spatial_features, masks)``.
+    ``forward(images, external_parts_masks=None,
+    materialize_spatial=False)`` -> ``(embeddings, visibility_scores,
+    id_cls_scores, pixels_cls_scores, spatial_features, masks)``. With
+    ``materialize_spatial`` the multires path also builds the
+    concatenated map from its branches and returns it (the debug
+    figures' input, as JAX always returns it); pooling is unchanged.
     """
 
     def __init__(self, num_classes, parts_num, backbone='hrnet32',
@@ -335,7 +338,8 @@ class BPBreID(nn.Module):
                 for _ in range(parts_num)])
         set_quant_paths(self)
 
-    def forward(self, images, external_parts_masks=None):
+    def forward(self, images, external_parts_masks=None,
+                materialize_spatial=False):
         K = self.parts_num
         train = self.training
         backbone = self.backbone_appearance_feature_extractor
@@ -345,7 +349,8 @@ class BPBreID(nn.Module):
         if self.hrnet:
             branches = backbone.forward_branches(images)
             hf, wf = branches[0].shape[-2:]
-            spatial_features = None if multires else backbone.concat(branches)
+            spatial_features = backbone.concat(branches) \
+                if materialize_spatial or not multires else None
         else:
             spatial_features = backbone(images)
             if self.use_before_reduce:

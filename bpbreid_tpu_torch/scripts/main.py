@@ -29,19 +29,19 @@ does not keep in float as an s8 x s8 -> s32 product (``ops/quant.py``).
 ``prid2011``, ``dukemtmcvidreid`` or ``synthetic_video``;
 ``engine/video/``: ``loss.name`` ``softmax`` or ``triplet``, the frame
 embeddings pooled by ``video.pooling_method``), with no masks.
-Not ported, and raising with their ROADMAP Queue 1 item: data
-parallelism over several cards (8), and the figures of
-``test.vis_embedding_projection`` and ``train.batch_debug_freq`` (11).
-``test.visrank`` draws its ranking grids without matplotlib
-(``utils/visualization/rankings.py``).
+Not ported, and raising with its ROADMAP Queue 1 item: data
+parallelism over several cards (8). The figures are drawn without
+matplotlib: ``test.visrank`` its ranking grids
+(``utils/visualization/rankings.py``), ``train.batch_debug_freq`` the
+part-based engine's feature maps and batch-hard triplets every that many
+steps, ``test.vis_embedding_projection`` the query and gallery
+embeddings of each test (``utils/visualization/``).
 """
 import argparse
 import json
 import os
 import os.path as osp
-import random
 
-import numpy as np
 import torch
 
 from bpbreid_tpu_torch import resolve_device
@@ -56,8 +56,7 @@ from bpbreid_tpu_torch.engine.image import (ImageSoftmaxEngine,
                                            ImageTripletEngine)
 from bpbreid_tpu_torch.engine.video import (VideoSoftmaxEngine,
                                            VideoTripletEngine)
-from bpbreid_tpu_torch.engine.part_based import (ImagePartBasedEngine,
-                                                 refuse_unported_test_options)
+from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
 from bpbreid_tpu_torch.models import build_model
 from bpbreid_tpu_torch.ops.masks import compute_parts_num_and_names
 from bpbreid_tpu_torch.optim import build_lr_scheduler, build_optimizer
@@ -67,6 +66,7 @@ from bpbreid_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                 resume_from_checkpoint)
 from bpbreid_tpu_torch.utils.engine_state import EngineState
 from bpbreid_tpu_torch.utils.logging import Logger
+from bpbreid_tpu_torch.utils.tools import set_random_seed
 from bpbreid_tpu_torch.utils.torch_weights import (load_torch_state_dict,
                                                    load_torchreid_state_dict)
 from bpbreid_tpu_torch.utils.writer import Writer
@@ -78,12 +78,6 @@ ENGINES = {'part_based': ImagePartBasedEngine, 'softmax': ImageSoftmaxEngine,
 # data.type video: the engines of loss.name (JAX main.py:121-139 builds
 # the triplet one for any loss but softmax)
 VIDEO_ENGINES = {'softmax': VideoSoftmaxEngine, 'triplet': VideoTripletEngine}
-
-
-def set_random_seed(seed):
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
 
 
 def refuse_unported(cfg):
@@ -108,11 +102,6 @@ def refuse_unported(cfg):
         raise NotImplementedError(
             'train.n_devices {}: data parallelism is not ported yet (ROADMAP '
             'Queue 1 item 8)'.format(cfg.train.n_devices))
-    if cfg.train.batch_debug_freq:
-        raise NotImplementedError('train.batch_debug_freq: the debug figures '
-                                  'are not ported yet (ROADMAP Queue 1 item '
-                                  '11)')
-    refuse_unported_test_options(cfg.test.vis_embedding_projection)
 
 
 def build_config(args=None, config_file=None, config=None, makedirs=True):

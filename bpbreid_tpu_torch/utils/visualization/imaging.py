@@ -7,17 +7,22 @@ rankings.py`` takes from them).
   BGR -> RGB swap).
 - ``hsv_colormap``: matplotlib's ``hsv`` colormap (its segment table,
   made into matplotlib's 256-entry lookup table the way
-  ``LinearSegmentedColormap`` does) and ``TAB10``, matplotlib's
-  ``tab10`` colours; ``NAMED`` the named colours the grids use, with
-  matplotlib's values (``'green'`` is ``(0, 128, 0)``).
+  ``LinearSegmentedColormap`` does), ``TAB10`` and ``TAB20``,
+  matplotlib's ``tab10`` and ``tab20`` colours, and ``listed_colors``,
+  their lookup as ``imshow`` and ``scatter`` do it (the values scaled to
+  their own min and max first); ``NAMED`` the named colours the grids
+  use, with matplotlib's values (``'green'`` is ``(0, 128, 0)``).
 - ``resize_cubic`` and ``resize_nearest``: ``cv2.resize`` with
   ``INTER_CUBIC`` (float maps: coefficient -0.75, taps outside the map
   clamped to its edge, float32 sums) and ``INTER_NEAREST``.
+- ``fill_rect`` and ``draw_marker``: the bars and the scatter markers of
+  the figures that matplotlib draws in the JAX package.
 """
 import numpy as np
 
-__all__ = ['JET', 'TAB10', 'NAMED', 'hsv_colormap', 'to_uint8_rgb',
-           'resize_cubic', 'resize_nearest']
+__all__ = ['JET', 'TAB10', 'TAB20', 'NAMED', 'hsv_colormap',
+           'listed_colors', 'to_uint8_rgb', 'resize_cubic', 'resize_nearest',
+           'fill_rect', 'draw_marker']
 
 JET = np.frombuffer(bytes.fromhex(
     '00008000008400008800008c00009000009400009800009c0000a00000a40000a80000ac'
@@ -73,6 +78,12 @@ TAB10 = (
     (0.09019607843137255, 0.7450980392156863, 0.8117647058823529),
 )
 
+# matplotlib's _cm._tab20_data
+TAB20 = tuple(tuple(int(h[i:i + 2], 16) / 255 for i in (0, 2, 4)) for h in (
+    '1f77b4', 'aec7e8', 'ff7f0e', 'ffbb78', '2ca02c', '98df8a', 'd62728',
+    'ff9896', '9467bd', 'c5b0d5', '8c564b', 'c49c94', 'e377c2', 'f7b6d2',
+    '7f7f7f', 'c7c7c7', 'bcbd22', 'dbdb8d', '17becf', '9edae5'))
+
 NAMED = {'red': (1.0, 0.0, 0.0), 'green': (0.0, 128 / 255, 0.0),
          'blue': (0.0, 0.0, 1.0), 'black': (0.0, 0.0, 0.0)}
 
@@ -100,6 +111,18 @@ def hsv_colormap(x):
     lookup-table entry ``int(x * 256)`` (255 at x = 1)."""
     i = min(max(int(float(x) * _LUT_SIZE), 0), _LUT_SIZE - 1)
     return tuple(float(v) for v in _HSV_LUT[i])
+
+
+def listed_colors(values, table):
+    """RGB uint8 ``[..., 3]`` of ``values`` through a listed colormap
+    (``TAB10``, ``TAB20``) as matplotlib's ``imshow`` and ``scatter`` map
+    them: scaled to ``[0, 1]`` by their own min and max (all 0 when they
+    are equal), then entry ``int(v * N)``, ``N - 1`` at ``v = 1``."""
+    v = np.asarray(values, np.float64)
+    lo, hi = (float(v.min()), float(v.max())) if v.size else (0.0, 0.0)
+    v = (v - lo) / (hi - lo) if hi > lo else np.zeros_like(v)
+    idx = np.clip((v * len(table)).astype(np.int64), 0, len(table) - 1)
+    return np.round(np.asarray(table, np.float64)[idx] * 255).astype(np.uint8)
 
 
 def to_uint8_rgb(color):
@@ -153,3 +176,36 @@ def resize_nearest(img, height, width):
     sy = np.minimum(np.floor(np.arange(height) * (1.0 / (height / h_in)))
                     .astype(np.int64), h_in - 1)
     return img[sy[:, None], sx[None, :]]
+
+
+def fill_rect(canvas, y0, y1, x0, x1, color):
+    """Fill rows ``[y0, y1)`` and columns ``[x0, x1)`` of an ``[H, W, 3]``
+    uint8 canvas with ``color`` (RGB floats or a name), clipped to it."""
+    h, w = canvas.shape[:2]
+    y0, y1 = max(int(y0), 0), min(int(y1), h)
+    x0, x1 = max(int(x0), 0), min(int(x1), w)
+    if y1 > y0 and x1 > x0:
+        canvas[y0:y1, x0:x1] = to_uint8_rgb(color)
+
+
+def draw_marker(canvas, y, x, rgb, kind='o', radius=2, alpha=1.0):
+    """A scatter marker centred on pixel ``(y, x)``: a filled disc
+    (``'o'``) or a diagonal cross (``'x'``) of ``radius`` pixels in the
+    uint8 colour ``rgb``, blended over the canvas with ``alpha``; the
+    parts off the canvas are dropped."""
+    h, w = canvas.shape[:2]
+    r = int(radius)
+    dy, dx = np.mgrid[-r:r + 1, -r:r + 1]
+    if kind == 'o':
+        on = dy ** 2 + dx ** 2 <= r * r + r
+    elif kind == 'x':
+        on = np.abs(dy) == np.abs(dx)
+    else:
+        raise ValueError('marker {!r} is not drawn (o or x)'.format(kind))
+    ys, xs = dy[on] + int(round(y)), dx[on] + int(round(x))
+    keep = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+    ys, xs = ys[keep], xs[keep]
+    old = canvas[ys, xs].astype(np.float64)
+    canvas[ys, xs] = np.round(
+        old * (1 - alpha) + np.asarray(rgb, np.float64)[:3] * alpha
+    ).astype(np.uint8)

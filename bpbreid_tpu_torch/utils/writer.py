@@ -2,9 +2,10 @@
 bpbreid_tpu/utils/writer.py).
 
 Phase timers and their table at the end of a run, the eval results,
-the query-gallery distance statistics of each test, and the train
-scalars through the ``Logger``. ``ProfilerTrace`` wraps
-``torch.profiler`` where the JAX package wraps ``jax.profiler``.
+the query-gallery distance statistics of each test with their two
+barplots, and the train scalars through the ``Logger``.
+``ProfilerTrace`` wraps ``torch.profiler`` where the JAX package wraps
+``jax.profiler``.
 """
 import os
 
@@ -13,8 +14,49 @@ import torch
 
 from bpbreid_tpu_torch.utils.avgmeter import TimeMeter
 from bpbreid_tpu_torch.utils.engine_state import EngineStateListener
+from bpbreid_tpu_torch.utils.visualization.imaging import TAB10, fill_rect
 
-__all__ = ['Writer', 'ProfilerTrace']
+__all__ = ['Writer', 'ProfilerTrace', 'barplot']
+
+# a barplot canvas: 100 px per bar slot (at least 6 slots) x 300 px, the
+# axes inside these margins (top, bottom, left, right)
+BAR_SLOT_PX, BAR_HEIGHT_PX = 100, 300
+BAR_MARGINS = (30, 40, 60, 20)
+
+
+def barplot(series, width=0.7):
+    """A bar chart on a white canvas, as the JAX writer's
+    ``ax.bar`` calls draw it: ``series`` is a list of value arrays of one
+    length, drawn side by side in each slot in matplotlib's colour cycle
+    (``C0``, ``C1``, ...), each bar ``width / len(series)`` of a slot
+    wide; the y axis runs from 0 to ``max(1, max value)``. Returns
+    ``(canvas, bars)``: ``bars[s][i]`` is the ``(top, bottom, left,
+    right)`` pixel box of bar i of series s (height ``round(v / ymax *
+    axes height)``)."""
+    series = [np.asarray(v, np.float64) for v in series]
+    n = len(series[0])
+    top, bottom, left, right = BAR_MARGINS
+    w = max(6, n) * BAR_SLOT_PX
+    canvas = np.full((BAR_HEIGHT_PX, w, 3), 255, np.uint8)
+    y_axis, plot_h = BAR_HEIGHT_PX - bottom, BAR_HEIGHT_PX - bottom - top
+    slot = (w - left - right) / max(n, 1)
+    ymax = max([1.0] + [float(v.max()) for v in series if v.size])
+    bar_w = width / len(series)
+    bars = []
+    for s, values in enumerate(series):
+        boxes = []
+        for i, v in enumerate(values):
+            centre = left + (i + 0.5 + (s - (len(series) - 1) / 2) * bar_w) \
+                * slot
+            h = int(round(max(v, 0.0) / ymax * plot_h))
+            box = (y_axis - h, y_axis, int(round(centre - bar_w * slot / 2)),
+                   int(round(centre + bar_w * slot / 2)))
+            fill_rect(canvas, *box, TAB10[s % len(TAB10)])
+            boxes.append(box)
+        bars.append(boxes)
+    fill_rect(canvas, y_axis, y_axis + 1, left, w - right, 'black')
+    fill_rect(canvas, top, y_axis + 1, left - 1, left, 'black')
+    return canvas, bars
 
 
 class Writer(EngineStateListener):
@@ -46,9 +88,9 @@ class Writer(EngineStateListener):
         The reductions run in float64 on the device the tensors lie on;
         ``[K, Nq, Ng]`` part distances are reduced one part at a time.
         ``subsample`` labels the print when the matrices are a
-        big-gallery subsample. Unlike the JAX writer, errors are raised,
-        not swallowed, and no figure is drawn (the reference's barplots
-        need matplotlib: ROADMAP Queue 1 item 11).
+        big-gallery subsample. With a logger, the two barplots of
+        ``_qg_figures`` are drawn too. Unlike the JAX writer, errors are
+        raised, not swallowed.
         """
         f64 = torch.float64
         d = torch.as_tensor(pairwise_dist)
@@ -99,6 +141,7 @@ class Writer(EngineStateListener):
                     for i, vi in enumerate(np.asarray(v).ravel()):
                         self.logger.add_scalar(
                             'eval/{}/part_{}'.format(k, i), float(vi))
+            self._qg_figures(stats)
         print('Query-gallery distance stats{}: mean {qg_dist_mean:.4f} '
               'std {qg_dist_std:.4f} invalid {qg_invalid_frac:.2%} '
               'uncomparable queries {qg_uncomparable_queries_frac:.2%}'
@@ -107,6 +150,34 @@ class Writer(EngineStateListener):
             print('Per-part pair availability: [{}]'.format(' '.join(
                 '{:.0%}'.format(a) for a in stats['part_pair_availability'])))
         return stats
+
+    def _qg_figures(self, stats):
+        """The reference's eval barplots (JAX writer.py:144-183): the
+        per-part pair availability, and the query and gallery part
+        visibility side by side, through ``Logger.add_figure``. The
+        labels, the legend and the plotted values (``repr`` of each
+        float) are ``tEXt`` chunks. Returns the paths written."""
+        paths = []
+        labels = {'xlabel': 'Body part index', 'ylabel': 'Availability'}
+
+        def values(v):
+            return ' '.join(repr(float(x)) for x in v)
+        if 'part_pair_availability' in stats:
+            a = stats['part_pair_availability']
+            canvas, _ = barplot([a])
+            paths.append(self.logger.add_figure(
+                'Query-gallery body part pairs availability barplot', canvas,
+                text={'title': 'Query-gallery body part pairs availability',
+                      **labels, 'values': values(a)}))
+        if 'q_part_visibility' in stats and 'g_part_visibility' in stats:
+            q, g = stats['q_part_visibility'], stats['g_part_visibility']
+            canvas, _ = barplot([q, g])
+            paths.append(self.logger.add_figure(
+                'Query-gallery body part availability barplot', canvas,
+                text={'title': 'Query-gallery body parts availability',
+                      **labels, 'legend': 'C0 Query | C1 Gallery',
+                      'query': values(q), 'gallery': values(g)}))
+        return [p for p in paths if p is not None]
 
     def report_eval(self, dataset_name, cmc, mAP, ssmd):
         self.eval_results[dataset_name] = {

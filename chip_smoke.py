@@ -229,15 +229,41 @@ and Market-1501 + 500k distractors scale. Phases:
    BN's own eps: 1e-3 for InceptionV4, Inception-ResNet-V2 and NASNet) at
    every distinct BN input of (b)'s and (c)'s steps, the largest four
    timed as phase 6b.
+16. the debug and test figures, the native ranker and the tools, every
+   launch count set to 0 just before each run and read just after: (a)
+   the flagship train config through ``scripts.main.main`` on phase 9's
+   crops with a fourth camera (16 ids x 4 cameras x 4 images): one epoch
+   of 4 steps with ``train.batch_debug_freq 2`` and the test with
+   ``test.vis_embedding_projection``: the step ms, each debug forward's
+   ms and launches (one ``bn_apply`` per eval-mode BN, no K2 under
+   multires), the steps' BN launches without it (phase 6's), the test's,
+   and the figures (4 feature maps, the triplet grid, the projection,
+   the two barplots, whose ``tEXt`` values are the writer's statistics);
+   then a test-only run from its checkpoint through K2 (one K2 a test
+   batch) and one debug forward on that engine with one feature map
+   (one K2, one ``bn_apply`` per eval-mode BN, the model back in train
+   mode); (b) phase 8b's host
+   distance matrix (3,368 x 19,732) ranked by the native C++ ranker and
+   by the numpy path: CMC and mAP within 1e-6, their seconds beside 8b's
+   host path (which the native ranker now runs); (c) (a)'s model saved as
+   a torchreid ``.pth`` holding its test's rank-1 and mAP and its config,
+   then ``tools.reproduce.main`` with ``--max-delta 1e-6``: exit code 0;
+   (d) ``compute_model_complexity`` of the flagship at 384x128 (its
+   parameters all read by the eval forward), ``tools/profile_summary.py``
+   on a Chrome trace of 3 train steps within 1 % of the profiler's own
+   CUDA total, and a two-trial ``GridSearch`` on the resnet18 smoke config
+   through ``HyperParameterOptimizer`` (one epoch each, its
+   ``hpo_results.json``).
 
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
 throughput line, the CLI line (phase 9), the inference line (phase 10),
 the PCB line (phase 11), the int8 line (phase 12), the global line
 (phase 13), the video line (phase 14), the zoo line (phase 15), the
-kernels line (launches: the BN kernels' in run 9a, phase 10, phase 11a-b,
-phase 13, phase 14 and phase 15, K2's in run 9c, phase 10, phase 13c,
-phase 14b and phase 15c,
+figures line (phase 16), the kernels line (launches: the BN kernels' in
+run 9a, phase 10, phase 11a-b, phase 13, phase 14, phase 15 and phase
+16, K2's in run 9c, phase 10, phase 13c, phase 14b, phase 15c and phase
+16a,
 K1's in phase 3b, ``conv_s8`` and ``quantize_s8``'s in phase 12's int8
 step, extractor batch and CLI test) and the result line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -1303,6 +1329,9 @@ def phase_large_gallery(torch, results):
         **_compare_evals(dev, host, 'market1501',
                          ssmd_tol=1e-2 * abs(host['ssmd']))}
     log('phase 8b', json.dumps(out['market1501']))
+    # phase 16b ranks this host distance matrix again
+    ranking_inputs = (host['distmat'], query[2], gallery[2], query[3],
+                      gallery[3])
     del host, dev
 
     # 8c: + 496,181 distractors, whose pids no query has
@@ -1382,6 +1411,7 @@ def phase_large_gallery(torch, results):
         raise AssertionError('; '.join(checks))
     del gf, gv, d_c, splits, engine
     torch.cuda.empty_cache()
+    return ranking_inputs
 
 
 def train_config(height=HEIGHT, width=WIDTH, dtype='bfloat16',
@@ -1772,35 +1802,36 @@ CLI_SAVE_DIR = os.path.join('_scratch', 'chip_smoke_cli')
 CLI_EVAL_BATCHES = 3 + 6            # query, gallery at batch 64
 
 
-def register_cli_dataset():
-    """A ``SyntheticDataset`` with the counts and crop size above, in the
-    port's registry (the dataset's own constructor arguments)."""
+def register_cli_dataset(name=CLI_DATASET, cams=CLI_CAMS):
+    """A ``SyntheticDataset`` with the counts and crop size above (and
+    ``cams`` cameras), in the port's registry under ``name`` (the
+    dataset's own constructor arguments)."""
     from bpbreid_tpu_torch.data.datasets import (get_image_dataset,
                                                  register_image_dataset)
     from bpbreid_tpu_torch.data.datasets.image_datasets import \
         SyntheticDataset
 
     class SmokeMarketCrops(SyntheticDataset):
-        dataset_dir = CLI_DATASET
+        dataset_dir = name
 
         def __init__(self, **kwargs):
-            super().__init__(num_pids=CLI_IDS, num_cams=CLI_CAMS,
+            super().__init__(num_pids=CLI_IDS, num_cams=cams,
                              imgs_per_pid_cam=CLI_IMGS, height=CLI_SRC_HW[0],
                              width=CLI_SRC_HW[1], seed=SEED, **kwargs)
     try:
-        get_image_dataset(CLI_DATASET)
+        get_image_dataset(name)
     except ValueError:
-        register_image_dataset(CLI_DATASET, SmokeMarketCrops)
+        register_image_dataset(name, SmokeMarketCrops)
 
 
-def cli_argv(job_id, *opts, config=CLI_CONFIG):
+def cli_argv(job_id, *opts, config=CLI_CONFIG, dataset=CLI_DATASET):
     """The CLI's argv: a train config as shipped (the Market-1501 one by
     default: HRNet-W32, 384x128, five_v, bf16, batch 64, visrank on) on
     the smoke dataset."""
     return (['--config-file', config, '--save_dir', CLI_SAVE_DIR,
              '--job-id', str(job_id),
-             'data.sources', "['{}']".format(CLI_DATASET),
-             'data.targets', "['{}']".format(CLI_DATASET),
+             'data.sources', "['{}']".format(dataset),
+             'data.targets', "['{}']".format(dataset),
              'train.eval_freq', '-1'] + list(opts))
 
 
@@ -2457,6 +2488,17 @@ def _qg_stats_f64(d, bp, q_vis, g_vis):
     return out
 
 
+def torchreid_state_dict(torch, state_dict):
+    """A port state dict as torchreid's ``DataParallel`` checkpoints hold
+    it: ``module.`` keys and a ``num_batches_tracked`` for each BN."""
+    sd = {'module.' + k: v for k, v in state_dict.items()}
+    for k in state_dict:
+        if k.endswith('.running_mean'):
+            sd['module.' + k[:-len('running_mean')] + 'num_batches_tracked'] \
+                = torch.tensor(0)
+    return sd
+
+
 def _add_counts(total, counts):
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
@@ -2493,11 +2535,7 @@ def phase_inference(torch, results):
     src = build_model('bpbreid', INF_CLASSES, config=serving_config(),
                       device='cuda', seed=SEED + 10)
     src_sd = {k: v.detach().cpu() for k, v in src.state_dict().items()}
-    sd = {'module.' + k: v for k, v in src_sd.items()}
-    for k in src_sd:
-        if k.endswith('.running_mean'):
-            sd['module.' + k[:-len('running_mean')] + 'num_batches_tracked'] \
-                = torch.tensor(0)
+    sd = torchreid_state_dict(torch, src_sd)
     pth = os.path.join(CLI_SAVE_DIR, 'bpbreid_market1501_hrnet32_seeded.pth')
     torch.save({'state_dict': sd, 'epoch': 120, 'rank1': 0.0,
                 'config': {'model': {'bpbreid': {
@@ -4707,6 +4745,392 @@ def phase_zoo(torch, results):
     return launches
 
 
+# phase 16: the debug and test figures, the native ranker and the tools.
+# (a) the flagship train config through the CLI on phase 9's crops with a
+# fourth camera (16 ids x 4 cameras x 4 images: one epoch of 4 steps of
+# 64, then 256 query and 512 gallery images, 12 eval batches), with
+# train.batch_debug_freq 2 (the debug figures at global steps 0 and 2) and
+# test.vis_embedding_projection; then a test-only run from its checkpoint
+# through K2 (fused pooling, multires off) and the debug forward of one
+# train batch on that engine
+DEBUG_DATASET = 'smoke_market_crops_4cams'
+DEBUG_CAMS = 4
+DEBUG_STEPS = CLI_IDS * DEBUG_CAMS * CLI_IMGS // BATCH
+DEBUG_EVAL_BATCHES = 4 + 8
+DEBUG_FREQ = 2
+PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+# (d) the HPO search's base: the resnet18 smoke config, one epoch, two
+# learning rates
+HPO_CONFIG = 'configs/bpbreid/bpbreid_synthetic_smoke.yaml'
+HPO_SPACE = {'train.lr': [0.00035, 0.0007]}
+
+
+class DebugRecorder:
+    """Wraps the part-based engine's ``_debug_visualize_batch`` for a run:
+    each call's global step, milliseconds (host clock between two
+    synchronizes), kernel launches and figure paths."""
+
+    def __init__(self, torch):
+        from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+        self.torch, self.cls = torch, ImagePartBasedEngine
+        self.fn, self.calls = self.cls._debug_visualize_batch, []
+
+    def __enter__(self):
+        from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+        rec = self
+
+        def wrapped(engine, batch, max_samples=4):
+            rec.torch.cuda.synchronize()
+            before, t0 = dict(launch_counts), time.perf_counter()
+            paths = rec.fn(engine, batch, max_samples)
+            rec.torch.cuda.synchronize()
+            rec.calls.append({
+                'step': engine.engine_state.global_step,
+                'ms': (time.perf_counter() - t0) * 1e3, 'paths': paths,
+                'launches': {k: v - before.get(k, 0)
+                             for k, v in launch_counts.items()
+                             if v - before.get(k, 0)}})
+            return paths
+        self.cls._debug_visualize_batch = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._debug_visualize_batch = self.fn
+        return False
+
+
+def _png_text(path, keys, what, checks):
+    """The ``tEXt`` chunks of a figure, checked: the file is a PNG that
+    ``read_image`` decodes and holds the ``keys``."""
+    from bpbreid_tpu_torch.data.datasets.dataset import (read_image,
+                                                         read_png_text)
+    if not os.path.isfile(path):
+        checks.append('{}: no file {}'.format(what, path))
+        return {}
+    with open(path, 'rb') as f:
+        signature = f.read(8)
+    text = read_png_text(path)
+    shape = read_image(path).shape
+    if signature != PNG_SIGNATURE or not set(keys) <= set(text) \
+            or len(shape) != 3 or shape[2] != 3:
+        checks.append('{}: {} is no PNG with {} ({}, {})'.format(
+            what, path, keys, sorted(text), shape))
+    return text
+
+
+def _figure_checks(engine, dataset, checks):
+    """The figures of 16a's run under its save dir: 4 feature maps, the
+    triplet grid, the embedding projection and the two barplots, whose
+    values are the writer's statistics. Returns the file counts."""
+    import glob
+    save = engine.config.data.save_dir
+    maps = sorted(glob.glob(os.path.join(save, 'debug_feature_maps',
+                                         '*.png')))
+    if [os.path.basename(p) for p in maps] != \
+            ['featuremap_{}.png'.format(i) for i in range(4)]:
+        checks.append('16a: feature maps {}'.format(maps))
+    for p in maps:
+        _png_text(p, ('r0c0', 'r0c1'), '16a feature map', checks)
+    trip = _png_text(os.path.join(save, 'debug_triplets', 'triplets.png'),
+                     ('r0c0', 'r0c1', 'r0c2'), '16a triplets', checks)
+    if trip and not (trip['r0c0'].startswith('anchor ')
+                     and trip['r0c1'].startswith('pos d=')
+                     and trip['r0c2'].startswith('neg d=')):
+        checks.append('16a: triplet titles {}'.format(trip))
+    proj = _png_text(os.path.join(save, 'embeddings_' + dataset,
+                                  'embeddings_{}.png'.format(dataset)),
+                     ('title', 'legend'), '16a projection', checks)
+    figures = os.path.join(save, 'figures')
+    pairs = _png_text(os.path.join(
+        figures, 'Query-gallery body part pairs availability barplot_0.png'),
+        ('title', 'values'), '16a pairs barplot', checks)
+    vis = _png_text(os.path.join(
+        figures, 'Query-gallery body part availability barplot_0.png'),
+        ('title', 'query', 'gallery'), '16a visibility barplot', checks)
+    stats = engine.writer.qg_stats
+    for text, key, stat in ((pairs, 'values', 'part_pair_availability'),
+                            (vis, 'query', 'q_part_visibility'),
+                            (vis, 'gallery', 'g_part_visibility')):
+        if text and [float(v) for v in text[key].split()] != \
+                [float(v) for v in stats[stat]]:
+            checks.append('16a: barplot {} != qg_stats {}'.format(key, stat))
+    return {'feature_maps': len(maps), 'triplets': int(bool(trip)),
+            'projection': int(bool(proj)),
+            'barplots': len(os.listdir(figures))
+            if os.path.isdir(figures) else 0}
+
+
+def _save_torchreid_file(torch, engine, path, cmc, mAP):
+    """The engine's model as a torchreid checkpoint: its state dict as
+    torchreid writes it, the test's ``rank1`` and ``mAP`` and the model
+    config."""
+    sd = torchreid_state_dict(torch, {
+        k: v.detach().cpu() for k, v in engine.model.state_dict().items()})
+    torch.save({'state_dict': sd, 'epoch': 1, 'rank1': float(cmc[0]),
+                'mAP': float(mAP), 'config': {'model': {
+                    'bpbreid': engine.config.to_dict()['model']['bpbreid']}}},
+               path)
+
+
+def _profile_total(torch, engine, batches):
+    """A Chrome trace of ``forward_backward`` on the last 3 of
+    ``batches`` after a warm-up step on the first (the debug figures
+    off), summed by ``tools/profile_summary.py``, against the profiler's
+    own CUDA total (the self device time of its CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from bpbreid_tpu_torch.tools import profile_summary
+    engine.config.train.batch_debug_freq = 0
+    engine.forward_backward(batches[0])              # warm-up
+    batches = batches[-3:]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            engine.forward_backward(batch)
+        torch.cuda.synchronize()
+    trace = os.path.join(CLI_SAVE_DIR, 'phase16_train_steps.json')
+    prof.export_chrome_trace(trace)
+    rows, cats, total_ns, label = profile_summary.summarize(trace, top=8)
+    own_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, 'is_user_annotation', False))
+    return {'steps': len(batches), 'label': label,
+            'summary_ms': total_ns / 1e6, 'profiler_cuda_ms': own_us / 1e3,
+            'rel_diff': abs(total_ns / 1e3 - own_us) / max(own_us, 1e-9),
+            'categories_ms': {k: v / 1e6 for k, v in cats.most_common()},
+            'top_kernels': [{'name': n[:90], 'ms': ns / 1e6, 'count': c}
+                            for n, ns, c in rows],
+            'trace_mb': os.path.getsize(trace) / 1e6}
+
+
+def phase_figures_and_tools(torch, results, ranking_inputs):
+    """Phase 16 (see the module docstring). ``ranking_inputs`` are phase
+    8b's host distance matrix and ids. Returns the launch counts of its
+    runs, each counted from 0."""
+    import shutil
+    import types
+    from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    from bpbreid_tpu_torch.hyperparameter import (GridSearch,
+                                                  HyperParameterOptimizer)
+    from bpbreid_tpu_torch.metrics.rank import evaluate_rank
+    from bpbreid_tpu_torch.native import rank as native_rank
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.scripts.main import build_config
+    from bpbreid_tpu_torch.tools import reproduce
+    from bpbreid_tpu_torch.utils.model_complexity import \
+        compute_model_complexity
+    t_phase = time.perf_counter()
+    register_cli_dataset(DEBUG_DATASET, DEBUG_CAMS)
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out, checks, launches = {}, [], {}
+
+    # 16a: train with the debug figures, test with the projection
+    with DebugRecorder(torch) as dbg:
+        engine, (cmc, mAP, _, _), counts, rec, wall = drive_cli(
+            torch, '16a train, debug figures, projection', cli_argv(
+                161, 'train.max_epoch', '1',
+                'train.batch_debug_freq', str(DEBUG_FREQ),
+                'test.vis_embedding_projection', 'True',
+                'test.visrank', 'False', 'model.save_model_flag', 'True',
+                dataset=DEBUG_DATASET))
+    _add_counts(launches, counts)
+    bn, no_grad = _bn_split(engine.model, engine.losses_weights)
+    for call in dbg.calls:          # the steps' own launches
+        for k in BN_KERNELS:
+            rec.launches[call['step']][k] -= call['launches'].get(k, 0)
+    want, bad = _step_launch_checks(rec, bn, no_grad, '16a')
+    checks += bad
+    steps = len(rec.losses)
+    debug_want = {'bn_apply': len(bn)}
+    if steps != DEBUG_STEPS or [c['step'] for c in dbg.calls] != \
+            list(range(0, DEBUG_STEPS, DEBUG_FREQ)):
+        checks.append('16a: {} steps, debug at {}'.format(
+            steps, [c['step'] for c in dbg.calls]))
+    if any(c['launches'] != debug_want or len(c['paths']) != 5
+           for c in dbg.calls):
+        checks.append('16a: debug forwards {} != {} and 5 figures'.format(
+            [(c['launches'], len(c['paths'])) for c in dbg.calls],
+            debug_want))
+    eval_apply = counts.get('bn_apply', 0) - steps * want['bn_apply'] \
+        - sum(c['launches'].get('bn_apply', 0) for c in dbg.calls)
+    if eval_apply != DEBUG_EVAL_BATCHES * len(bn) \
+            or counts.get('attention_pool', 0):
+        checks.append('16a: test launches {} bn_apply (want {} x {}), K2 {}'
+                      .format(eval_apply, DEBUG_EVAL_BATCHES, len(bn),
+                              counts.get('attention_pool', 0)))
+    losses = [float(v) for v in rec.losses]
+    if not all(np.isfinite(losses)) or not np.isfinite(float(mAP)):
+        checks.append('16a: losses {} mAP {}'.format(losses, mAP))
+    figures = _figure_checks(engine, DEBUG_DATASET, checks)
+    if figures != {'feature_maps': 4, 'triplets': 1, 'projection': 1,
+                   'barplots': 2}:
+        checks.append('16a: figures {}'.format(figures))
+    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    debug_ms = [c['ms'] for c in dbg.calls]
+    # the intervals less the debug figures drawn inside their step
+    own = [ms - sum(c['ms'] for c in dbg.calls if c['step'] == i)
+           for i, ms in enumerate(intervals)]
+    ckpt = rec.checkpoint
+    out['16a'] = {
+        'steps': steps, 'losses': losses,
+        'step_ms_median': statistics.median(own), 'step_ms': own,
+        'step_ms_with_figures': intervals, 'debug_forward_ms': debug_ms,
+        'debug_forward_launches': [c['launches'] for c in dbg.calls],
+        'bn_launches_per_step': want, 'eval_bn_apply': eval_apply,
+        'rank1': float(cmc[0]), 'mAP': float(mAP), 'figures': figures,
+        'launches': counts, 'wall_s': wall}
+    if ckpt is None:
+        raise AssertionError('16a: the run wrote no checkpoint')
+
+    # 16a, through K2: a test-only run from the checkpoint, then the debug
+    # forward of one train batch on its engine
+    engine2, (cmc2, mAP2, _, _), counts2, rec2, wall2 = drive_cli(
+        torch, '16a test through K2, projection', cli_argv(
+            162, 'test.evaluate', 'True', 'test.visrank', 'False',
+            'model.load_weights', ckpt,
+            'model.bpbreid.use_pallas_pooling', 'True',
+            'model.bpbreid.multires_pooling', 'False',
+            'test.vis_embedding_projection', 'True', dataset=DEBUG_DATASET))
+    _add_counts(launches, counts2)
+    want2 = {'attention_pool': DEBUG_EVAL_BATCHES,
+             'bn_apply': DEBUG_EVAL_BATCHES * len(bn)}
+    if {k: v for k, v in counts2.items() if v} != want2:
+        checks.append('16a K2 test: launches {} != {}'.format(counts2, want2))
+    _png_text(os.path.join(engine2.config.data.save_dir,
+                           'embeddings_' + DEBUG_DATASET,
+                           'embeddings_{}.png'.format(DEBUG_DATASET)),
+              ('title', 'legend'), '16a K2 projection', checks)
+    # (one feature map: the launches are the whole batch's forward; the
+    # host's PCA takes about 2.5 s a sample beside an H100)
+    batch = next(iter(engine2.datamanager.train_loader))
+    engine2.model.train()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    paths = engine2._debug_visualize_batch(batch, max_samples=1)
+    torch.cuda.synchronize()
+    k2_debug_ms = (time.perf_counter() - t0) * 1e3
+    k2_debug = {k: v for k, v in launch_counts.items() if v}
+    _add_counts(launches, k2_debug)
+    want_k2 = {'attention_pool': 1, 'bn_apply': len(bn)}
+    if k2_debug != want_k2 or len(paths) != 2 or not engine2.model.training:
+        checks.append('16a K2 debug forward: {} != {}, {} figures, train '
+                      'mode {}'.format(k2_debug, want_k2, len(paths),
+                                       engine2.model.training))
+    out['16a_k2'] = {'test_launches': counts2, 'rank1': float(cmc2[0]),
+                     'mAP': float(mAP2), 'debug_forward_ms': k2_debug_ms,
+                     'debug_forward_launches': k2_debug, 'wall_s': wall2}
+    del engine2, rec2, batch
+    torch.cuda.empty_cache()
+    out['16a_s'] = time.perf_counter() - t_phase
+
+    # 16b: the native ranker on phase 8b's host distance matrix
+    t_b = time.perf_counter()
+    distmat, q_pids, g_pids, q_camids, g_camids = ranking_inputs
+    t0 = time.perf_counter()
+    native_rank.load()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = evaluate_rank(distmat, q_pids, g_pids, q_camids, g_camids)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = evaluate_rank(distmat, q_pids, g_pids, q_camids, g_camids,
+                          use_native=False)
+    numpy_s = time.perf_counter() - t0
+    cmc_err = float(np.abs(nat['cmc'] - plain['cmc']).max())
+    map_err = abs(nat['mAP'] - plain['mAP'])
+    if not (cmc_err <= 1e-6 and map_err <= 1e-6):
+        checks.append('16b: native vs numpy CMC {} mAP {}'.format(cmc_err,
+                                                                  map_err))
+    out['16b'] = {'shape': list(distmat.shape), 'build_s': build_s,
+                  'native_s': native_s, 'numpy_s': numpy_s,
+                  'native_speedup': numpy_s / native_s,
+                  'cmc_max_abs_err': cmc_err, 'mAP_abs_err': map_err,
+                  'threads': os.cpu_count(),
+                  'phase8b_host_path_s':
+                      results['large_gallery']['market1501']['host_path_s']}
+    log('phase 16b', json.dumps(out['16b']))
+    out['16b_s'] = time.perf_counter() - t_b
+
+    # 16c: reproduce 16a's test from a torchreid file of its model
+    t_c = time.perf_counter()
+    pth = os.path.join(CLI_SAVE_DIR, 'bpbreid_16a.pth')
+    _save_torchreid_file(torch, engine, pth, cmc, mAP)
+    json_out = os.path.join(CLI_SAVE_DIR, 'reproduce.json')
+    clear_dataset_cache()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rc = reproduce.main([
+        '--checkpoint', pth, '--root', '', '--dataset', DEBUG_DATASET,
+        '--config-file', CLI_CONFIG, '--save_dir',
+        os.path.join(CLI_SAVE_DIR, 'reproduce'), '--max-delta', '1e-6',
+        '--json-out', json_out, 'test.visrank', 'False'])
+    torch.cuda.synchronize()
+    counts_c = {k: v for k, v in launch_counts.items() if v}
+    _add_counts(launches, counts_c)
+    with open(json_out) as f:
+        repro = json.load(f)
+    if rc != 0 or not (abs(repro['delta_mAP']) <= 1e-6
+                       and abs(repro['delta_rank1']) <= 1e-6):
+        checks.append('16c: reproduce exit {} deltas {} {}'.format(
+            rc, repro['delta_mAP'], repro['delta_rank1']))
+    if counts_c != {'bn_apply': DEBUG_EVAL_BATCHES * len(bn)}:
+        checks.append('16c: launches {}'.format(counts_c))
+    out['16c'] = {'exit_code': rc, 'delta_mAP': repro['delta_mAP'],
+                  'delta_rank1': repro['delta_rank1'],
+                  'stored': repro['stored'], 'launches': counts_c,
+                  'seconds': time.perf_counter() - t_c}
+
+    # 16d: model complexity, the profile summary, the HPO search
+    t_d = time.perf_counter()
+    t0 = time.perf_counter()
+    params, flops = compute_model_complexity(engine.model, engine.config)
+    complexity_s = time.perf_counter() - t0
+    all_params = sum(p.numel() for p in engine.model.parameters())
+    if params != all_params or not flops > 0:
+        checks.append('16d: params {} (all {}), flops {}'.format(
+            params, all_params, flops))
+    batches = list(engine.datamanager.train_loader)[:4]
+    prof = _profile_total(torch, engine, batches)
+    if not prof['rel_diff'] <= 0.01 or not prof['label'].startswith('device'):
+        checks.append('16d: profile summary {} ms vs the profiler {} ms'
+                      .format(prof['summary_ms'], prof['profiler_cuda_ms']))
+    del engine, rec, batches
+    torch.cuda.empty_cache()
+    clear_dataset_cache()
+    base = build_config(types.SimpleNamespace(
+        save_dir=os.path.join(CLI_SAVE_DIR, 'hpo'), job_id=1,
+        opts=['train.max_epoch', '1']), HPO_CONFIG)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    best = HyperParameterOptimizer(base, GridSearch(HPO_SPACE)).optimize()
+    torch.cuda.synchronize()
+    hpo_s = time.perf_counter() - t0
+    counts_d = {k: v for k, v in launch_counts.items() if v}
+    _add_counts(launches, counts_d)
+    with open(os.path.join(base.data.save_dir, 'hpo_results.json')) as f:
+        hpo = json.load(f)
+    rank1s = [r['metrics']['rank1'] for r in hpo['results']]
+    if len(rank1s) != 2 or not all(np.isfinite(rank1s)) \
+            or hpo['best'] != best or not counts_d.get('bn_stats'):
+        checks.append('16d: HPO {} launches {}'.format(hpo, counts_d))
+    out['16d'] = {'params': params, 'flops': flops,
+                  'complexity_s': complexity_s, 'profile': prof,
+                  'hpo_rank1': rank1s, 'hpo_best': best['overrides'],
+                  'hpo_s': hpo_s, 'hpo_launches': counts_d}
+    out['16d_s'] = time.perf_counter() - t_d
+    shutil.rmtree(CLI_SAVE_DIR, ignore_errors=True)
+    out['launches'] = launches
+    out['phase_s'] = time.perf_counter() - t_phase
+    results['figures'] = out
+    if checks:
+        raise AssertionError('phase 16: ' + '; '.join(checks))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4759,7 +5183,7 @@ def main():
     log('phase 7: small f32 train step, card vs CPU')
     phase_small_train_reference(torch, results)
     log('phase 8b, 8c: Market-1501 and Market-1501 + 500k retrieval')
-    phase_large_gallery(torch, results)
+    ranking_inputs = phase_large_gallery(torch, results)
     log('phase 9: the train/test CLI (scripts/main.py)')
     cli_launches, k2_cli_launches = phase_cli(torch, results)
     log('phase 10: the inference path (torchreid weights, '
@@ -4779,11 +5203,17 @@ def main():
     log('phase 15: the rest of the model zoo (PCB, PVPM, the legacy '
         'Torchreid zoo, HACNN)')
     zoo_launches = phase_zoo(torch, results)
-    # the launches of phases 10, 11, 13, 14 and 15 (each its own path,
-    # counted from 0)
+    log('phase 16: the debug and test figures, the native ranker, '
+        'reproduce, model complexity, the profile summary, the HPO search')
+    figures_launches = phase_figures_and_tools(torch, results,
+                                               ranking_inputs)
+    del ranking_inputs
+    # the launches of phases 10, 11, 13, 14, 15 and 16 (each its own
+    # path, counted from 0)
     path_launches = {}
     for counts in (inference_launches, pcb_launches, bot_launches,
-                   global_launches, video_launches, zoo_launches):
+                   global_launches, video_launches, zoo_launches,
+                   figures_launches):
         for k, v in counts.items():
             path_launches[k] = path_launches.get(k, 0) + v
 
@@ -5011,6 +5441,26 @@ def main():
         '15d': z['15d'],
         'seconds': {k: z[k + '_s'] for k in ('15a', '15b', '15c', '15d')},
         'phase_s': z['phase_s'], 'gpu': gpu}))
+    fg = results['figures']
+    log('figures', json.dumps({
+        '16a': {k: fg['16a'][k] for k in (
+            'steps', 'step_ms_median', 'debug_forward_ms',
+            'debug_forward_launches', 'bn_launches_per_step',
+            'eval_bn_apply', 'figures', 'mAP', 'rank1', 'wall_s')},
+        '16a_k2': {k: fg['16a_k2'][k] for k in (
+            'test_launches', 'debug_forward_ms', 'debug_forward_launches')},
+        '16b': fg['16b'],
+        '16c': {k: fg['16c'][k] for k in (
+            'exit_code', 'delta_mAP', 'delta_rank1', 'seconds')},
+        '16d': {'params': fg['16d']['params'], 'flops': fg['16d']['flops'],
+                'profile_summary_ms': fg['16d']['profile']['summary_ms'],
+                'profiler_cuda_ms': fg['16d']['profile']['profiler_cuda_ms'],
+                'profile_rel_diff': fg['16d']['profile']['rel_diff'],
+                'categories_ms': fg['16d']['profile']['categories_ms'],
+                'hpo_rank1': fg['16d']['hpo_rank1'],
+                'hpo_s': fg['16d']['hpo_s']},
+        'seconds': {k: fg[k + '_s'] for k in ('16a', '16b', '16d')},
+        'phase_s': fg['phase_s'], 'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

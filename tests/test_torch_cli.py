@@ -158,8 +158,7 @@ def test_main_raises_without_cuda_when_use_gpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('opts, error, match', [
     (['train.n_devices', '2'], NotImplementedError, 'Queue 1 item 8'),
-    (['test.vis_embedding_projection', 'True'], NotImplementedError,
-     'Queue 1 item 11'),
+    (['data.type', 'mixed'], ValueError, "data.type must be 'image' or"),
     (['data.sources', "['no_such_dataset']"], ValueError, 'Invalid dataset'),
     (['data.type', 'video', 'loss.name', 'part_based'], ValueError,
      'data.type video takes'),
@@ -167,6 +166,20 @@ def test_main_raises_without_cuda_when_use_gpu(tmp_path, monkeypatch):
 def test_main_refuses_unported_options(tmp_path, opts, error, match):
     with pytest.raises(error, match=match):
         cli.build_config(_args(tmp_path, opts), SMOKE)
+
+
+def test_main_builds_the_debug_figure_options(tmp_path):
+    """``train.batch_debug_freq`` and ``test.vis_embedding_projection``,
+    refused before their figures were ported, build as JAX's config does;
+    the figures are held in tests/test_torch_figures.py."""
+    from bpbreid_tpu.scripts.main import build_config as j_build_config
+    opts = ['train.batch_debug_freq', '2', 'test.vis_embedding_projection',
+            'True']
+    cfg = cli.build_config(_args(tmp_path / 'port', opts), SMOKE)
+    jcfg = j_build_config(_args(tmp_path / 'jax', opts), SMOKE)
+    assert cfg.train.batch_debug_freq == jcfg.train.batch_debug_freq == 2
+    assert cfg.test.vis_embedding_projection is True
+    assert jcfg.test.vis_embedding_projection is True
 
 
 @pytest.mark.parametrize('opts', [

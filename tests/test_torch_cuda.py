@@ -1212,3 +1212,108 @@ def test_zoo_model_on_the_card_matches_the_cpu(cuda, monkeypatch, name, h,
     assert launch_counts['bn_apply'] - before.get('bn_apply', 0) \
         == len(calls) <= n
     assert launch_counts['bn_stats'] == before.get('bn_stats', 0)
+
+
+def test_debug_forward_launches_on_a_reduced_model(cuda, tmp_path):
+    """The debug figures' forward (``train.batch_debug_freq``) on the
+    serving configuration at 64x32 (resnet18, K2, multires off): one K2
+    and one ``bn_apply`` per eval-mode BN call (forward hooks), no other
+    kernel; five figures; the model back in train mode."""
+    import numpy as np
+    from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    cfg = _serving_config()
+    cfg.data.save_dir = str(tmp_path)
+    model = build_model('bpbreid', 4, config=cfg, device=cuda, seed=0)
+    engine = ImagePartBasedEngine.from_config(
+        cfg, model, mask_kwargs=None, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {'image': rng.integers(0, 256, (8, 64, 32, 3), dtype=np.uint8),
+             'pid': np.repeat(np.arange(2), 4)}
+    calls = []
+    for m in model.modules():
+        if isinstance(m, FastBatchNorm):
+            m.register_forward_pre_hook(lambda mod, inp: calls.append(1))
+    model.train()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    paths = engine._debug_visualize_batch(batch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts.items() if v}
+    assert counts == {'attention_pool': 1, 'bn_apply': len(calls)}
+    assert len(paths) == 5 and model.training
+
+
+def test_native_ranker_on_card_made_features(cuda):
+    """Distances computed on the card from card-made features, ranked by
+    the native C++ ranker and by the numpy path: equal to 1e-6."""
+    from bpbreid_tpu_torch.metrics.distance import \
+        compute_distance_matrix_using_bp_features
+    from bpbreid_tpu_torch.metrics.rank import evaluate_rank
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qf = torch.nn.functional.normalize(
+        torch.randn(60, 3, 32, device=cuda, generator=gen), dim=-1)
+    gf = torch.nn.functional.normalize(
+        torch.randn(400, 3, 32, device=cuda, generator=gen), dim=-1)
+    d, _ = compute_distance_matrix_using_bp_features(qf, gf, None, None,
+                                                     'mean', 100)
+    d = d.cpu().numpy()
+    g = torch.Generator().manual_seed(2)
+    q_pids = torch.randint(0, 30, (60,), generator=g).numpy()
+    g_pids = torch.randint(0, 30, (400,), generator=g).numpy()
+    q_cam = torch.randint(0, 4, (60,), generator=g).numpy()
+    g_cam = torch.randint(0, 4, (400,), generator=g).numpy()
+    nat = evaluate_rank(d, q_pids, g_pids, q_cam, g_cam)
+    plain = evaluate_rank(d, q_pids, g_pids, q_cam, g_cam, use_native=False)
+    assert abs(nat['mAP'] - plain['mAP']) <= 1e-6
+    assert float(abs(nat['cmc'] - plain['cmc']).max()) <= 1e-6
+
+
+def test_model_complexity_on_the_card(cuda):
+    """``compute_model_complexity`` of a model on the card: the CPU copy's
+    parameter count and FLOPs. Plain pooling: K2 on the card is a kernel
+    FlopCounterMode does not see, its plain version on the CPU a
+    counted product."""
+    from bpbreid_tpu_torch.models import build_model
+    from bpbreid_tpu_torch.utils.model_complexity import \
+        compute_model_complexity
+    cfg = _serving_config()
+    cfg.model.bpbreid.use_pallas_pooling = False
+    card = build_model('bpbreid', 4, config=cfg, device=cuda, seed=0)
+    cpu = build_model('bpbreid', 4, config=cfg, device='cpu', seed=0)
+    got = compute_model_complexity(card, cfg)
+    assert got == compute_model_complexity(cpu, cfg)
+    assert got[0] == sum(p.numel() for p in card.parameters())
+    assert got[1] > 0 and not card.training
+
+
+def test_profile_summary_of_a_cuda_trace(cuda, tmp_path):
+    """``tools/profile_summary.py`` on a short CUDA trace: its total is
+    the profiler's own CUDA total (1 %), the convolution and batch-norm
+    categories are there."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from bpbreid_tpu_torch.tools import profile_summary
+    model = torch.nn.Sequential(torch.nn.Conv2d(3, 16, 3),
+                                torch.nn.BatchNorm2d(16),
+                                torch.nn.ReLU()).to(cuda)
+    x = torch.randn(8, 3, 64, 32, device=cuda)
+    model(x).sum().backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            model(x).sum().backward()
+        torch.cuda.synchronize()
+    path = str(tmp_path / 'trace.json')
+    prof.export_chrome_trace(path)
+    rows, cats, total_ns, label = profile_summary.summarize(path)
+    own_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, 'is_user_annotation', False))
+    assert label.startswith('device') and own_us > 0
+    assert abs(total_ns / 1e3 - own_us) <= 0.01 * own_us
+    assert cats['convolution'] > 0 and cats['batch norm'] > 0

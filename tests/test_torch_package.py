@@ -94,15 +94,30 @@ def test_port_imports_no_jax():
             'bpbreid_tpu_torch.models.mudeep',
             'bpbreid_tpu_torch.models.hacnn',
             'bpbreid_tpu_torch.ops.grid_sample',
-            'bpbreid_tpu_torch.ops.compact_bilinear_pooling'} <= set(names)
+            'bpbreid_tpu_torch.ops.compact_bilinear_pooling',
+            'bpbreid_tpu_torch.utils.visualization.feature_maps',
+            'bpbreid_tpu_torch.utils.visualization.batch_triplets',
+            'bpbreid_tpu_torch.utils.visualization.embeddings',
+            'bpbreid_tpu_torch.utils.imagetools',
+            'bpbreid_tpu_torch.utils.model_complexity',
+            'bpbreid_tpu_torch.utils.receptive_field',
+            'bpbreid_tpu_torch.tools.compute_mean_std',
+            'bpbreid_tpu_torch.tools.reproduce',
+            'bpbreid_tpu_torch.tools.profile_summary',
+            'bpbreid_tpu_torch.scripts.get_labels',
+            'bpbreid_tpu_torch.hyperparameter',
+            'bpbreid_tpu_torch.hyperparameter.optimizer',
+            'bpbreid_tpu_torch.hyperparameter.clearml_service',
+            'bpbreid_tpu_torch.native.rank'} <= set(names)
 
 
 def test_port_imports_no_cv2_or_pil():
     """Every module of the port, its CLI and chip_smoke.py load no
-    OpenCV, no PIL, no matplotlib and no h5py (the card's machine has
-    none of them; the ranking grids draw without them); images are
-    decoded with PIL only when a file is read, h5py only for CUHK03's raw
-    extraction. Fresh interpreter."""
+    OpenCV, no PIL, no matplotlib, no h5py and no scikit-learn (the
+    card's machine has none of them; the figures draw without them);
+    images are decoded with PIL only when a file is read, h5py only for
+    CUHK03's raw extraction, scikit-learn only by the embedding
+    projection's t-SNE. Fresh interpreter."""
     names = ['bpbreid_tpu_torch', 'bpbreid_tpu_torch.scripts.main'] + [
         m.name for m in pkgutil.walk_packages(bpbreid_tpu_torch.__path__,
                                               'bpbreid_tpu_torch.')]
@@ -112,8 +127,8 @@ def test_port_imports_no_cv2_or_pil():
             '"chip_smoke", "chip_smoke.py")\n'
             'spec.loader.exec_module(importlib.util.module_from_spec(spec))\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("cv2", "PIL", "matplotlib", "h5py", "jax", "flax", '
-            '"bpbreid_tpu")]\n'
+            '("cv2", "PIL", "matplotlib", "h5py", "sklearn", "jax", '
+            '"flax", "bpbreid_tpu")]\n'
             'print("BAD", bad)\n'
             'sys.exit(1 if bad else 0)\n').format(names)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
