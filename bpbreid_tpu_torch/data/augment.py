@@ -27,7 +27,7 @@ from bpbreid_tpu_torch.ops.masks import (GroupingSpec, add_background_mask,
 from bpbreid_tpu_torch.ops.resize import _nearest_indices, resize_nearest
 
 __all__ = ['eval_preprocess', 'mask_chain', 'mask_chain_kwargs',
-           'train_augment', 'sample_train_draws']
+           'train_augment', 'sample_train_draws', 'slice_draws']
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -324,6 +324,18 @@ def sample_train_draws(generator, n, h, w, transforms=('rc', 're'),
     if on['erase']:
         draws['erase'] = _coarse_dropout_params(generator, n, h, w)
     return draws
+
+
+def slice_draws(draws, lo, hi):
+    """The draws of samples ``lo:hi`` of a batch's ``sample_train_draws``
+    (a data-parallel rank's slice of the global batch's draws)."""
+    if draws is None:
+        return None
+    if isinstance(draws, dict):
+        return {k: slice_draws(v, lo, hi) for k, v in draws.items()}
+    if isinstance(draws, (list, tuple)):
+        return type(draws)(slice_draws(v, lo, hi) for v in draws)
+    return draws[lo:hi]
 
 
 def train_augment(imgs_u8, masks, draws, norm_mean=IMAGENET_MEAN,

@@ -49,6 +49,13 @@ class DataManager:
     def num_train_cams(self):
         return self._num_train_cams
 
+    def fetch_test_loaders(self, name):
+        """The query and gallery datasets of target ``name`` (JAX
+        :48)."""
+        q = self.test_dataset[name]['query']
+        g = self.test_dataset[name]['gallery']
+        return q, g
+
 
 class ImageDataManager(DataManager):
     """Image data manager; the arguments are ``config.imagedata_kwargs``.

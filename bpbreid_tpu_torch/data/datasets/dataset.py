@@ -81,6 +81,11 @@ class Dataset:
     def get_masks_config(cls, masks_dir):
         return cls.masks_dirs.get(masks_dir, None)
 
+    def gallery_filter(self, q_pid, q_camid, q_ann, g_pids, g_camids, g_anns):
+        """The gallery samples that share the query's identity and camera
+        (JAX :33, reference dataset.py:35-40): True where removed."""
+        return (g_camids == q_camid) & (g_pids == q_pid)
+
     def infer_masks_path(self, img_path):
         return os.path.join(
             self.dataset_dir, self.masks_base_dir, self.masks_dir,

@@ -55,6 +55,11 @@ class BatchLoader:
         self.drop_last = drop_last
         self.host_transform = host_transform
 
+    @property
+    def num_samples(self):
+        """The samples of the loader's split (JAX :62)."""
+        return self.dataset.len(self.mode)
+
     def __len__(self):
         n = len(self.sampler) if self.sampler is not None \
             else self.dataset.len(self.mode)

@@ -10,6 +10,12 @@ batch: the JAX package's grouped dispatch (``steps_per_dispatch``,
 
 ``device_prefetch`` moves the next batches to the device while the
 current step computes.
+
+Under ``parallel.distribute_engine`` (``mesh`` set: one rank of a
+data-parallel run) every rank runs the same loop on the global batches;
+``optimizer_step`` sums the gradients over the ranks, and rank 0 alone
+writes checkpoints, scalars and figures (``writes``), as JAX's single
+process writes them once.
 """
 import time
 from collections import deque
@@ -18,6 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from bpbreid_tpu_torch.parallel.mesh import all_reduce_flat, shard_bounds
 from bpbreid_tpu_torch.utils.avgmeter import MetricsSummary, TimeMeter
 from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
 from bpbreid_tpu_torch.utils.engine_state import EngineState
@@ -118,6 +125,18 @@ class Engine:
         self.open_layers = []
         self._freeze_base = False
         self.save_model_flag = False
+        # parallel.distribute_engine: this rank's Mesh
+        self.mesh = None
+
+    @property
+    def writes(self):
+        """Whether this process writes files (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def shard(self, n):
+        """``(lo, hi)`` of this rank's rows of a global batch of ``n``
+        (``(0, n)`` without a mesh)."""
+        return (0, n) if self.mesh is None else shard_bounds(n, self.mesh)
 
     def _request_preemption(self, signum=None, frame=None):
         del frame
@@ -177,23 +196,29 @@ class Engine:
         """Backward of ``loss``, the frozen-base gradient mask, then the
         optimizer's step. A parameter with no path to the loss gets a zero
         gradient, as JAX gives, so the optimizer's weight decay and
-        moments still apply to it."""
+        moments still apply to it. Under a mesh the gradients are first
+        summed over the ranks (one flat ``all_reduce``): each rank's
+        gradient flows through its own slice of the global batch only."""
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
-        for name, p in self.model.named_parameters():
+        params = list(self.model.named_parameters())
+        for _name, p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            elif self._freeze_base and not any(ol in name
-                                               for ol in self.open_layers):
-                p.grad.zero_()
+        if self.mesh is not None:
+            all_reduce_flat([p.grad for _name, p in params], self.mesh)
+        if self._freeze_base:
+            for name, p in params:
+                if not any(ol in name for ol in self.open_layers):
+                    p.grad.zero_()
         self.optimizer.step()
 
     def save_model(self, epoch, save_dir, cmc=None, mAP=None, ssmd=None,
                    is_best=False, force=False):
         """Write a checkpoint (``utils/checkpoint.py``) when
-        ``save_model_flag`` or ``force`` (preemption) is set; returns its
-        path or None."""
-        if not self.save_model_flag and not force:
+        ``save_model_flag`` or ``force`` (preemption) is set, on rank 0
+        under a mesh; returns its path or None."""
+        if (not self.save_model_flag and not force) or not self.writes:
             return None
         meta = {'epoch': epoch,
                 'rank1': float(cmc[0]) if cmc is not None else None,

@@ -19,13 +19,20 @@ the pair distances. ``save_model`` writes the port's checkpoints
 (``utils/checkpoint.py``). JAX's grouped dispatch
 (``_train_multi_step_impl``, ``_eval_multi_step_impl``,
 ``_drain_group``) is left out, as in the part-based engine.
+
+Under ``parallel.distribute_engine`` ``forward_backward`` takes the
+global batch's draws, runs the model on this rank's slice and computes
+the loss over the gathered outputs (its own slice live), so the cross
+entropy and the batch-hard triplets see the global batch. Eval runs
+whole on every rank (JAX shards only the part-based engine's eval).
 """
 import numpy as np
 import torch
 
 from bpbreid_tpu_torch import resolve_device
 from bpbreid_tpu_torch.data.augment import (eval_preprocess,
-                                            sample_train_draws, train_augment)
+                                            sample_train_draws, slice_draws,
+                                            train_augment)
 from bpbreid_tpu_torch.engine.engine import (Engine, device_prefetch,
                                              normalize)
 from bpbreid_tpu_torch.losses import deep_supervision
@@ -33,6 +40,7 @@ from bpbreid_tpu_torch.losses.cross_entropy import CrossEntropyLoss
 from bpbreid_tpu_torch.metrics.distance import compute_distance_matrix
 from bpbreid_tpu_torch.models.common import set_dropout_generator
 from bpbreid_tpu_torch.metrics.rank import evaluate_rank
+from bpbreid_tpu_torch.parallel.mesh import gather_tree
 from bpbreid_tpu_torch.utils.distribution import \
     plot_pairs_distance_distribution
 from bpbreid_tpu_torch.utils.rerank import re_ranking
@@ -118,8 +126,9 @@ class ImageSoftmaxEngine(Engine):
         """One train step on ``batch`` (``image`` ``[B, H, W, 3]`` uint8,
         ``pid`` ``[B]``; numpy or tensors). ``draws`` are the augmentation
         draws (``data.augment.sample_train_draws``), taken from the
-        engine's generator when None. Returns ``(loss, summary)`` as
-        tensors on the device (no host sync)."""
+        engine's generator when None. Under a mesh ``batch`` and ``draws``
+        are the global batch's. Returns ``(loss, summary)`` as tensors on
+        the device (no host sync)."""
         self.require_optimizer()
         imgs_u8 = torch.as_tensor(batch['image']).to(self.device)
         pids = torch.as_tensor(batch['pid']).to(self.device)
@@ -127,11 +136,17 @@ class ImageSoftmaxEngine(Engine):
         if draws is None:
             draws = sample_train_draws(self.generator, n, h, w,
                                        self.transforms, **self.cj)
+        if self.mesh is not None:
+            lo, hi = self.shard(n)
+            imgs_u8, draws = imgs_u8[lo:hi], slice_draws(draws, lo, hi)
         imgs, _ = train_augment(imgs_u8, None, draws,
                                 norm_mean=self.norm_mean,
                                 norm_std=self.norm_std)
         self.model.train()
-        loss, summary = self.compute_loss(self.model(imgs), pids)
+        outputs = self.model(imgs)
+        if self.mesh is not None:
+            outputs = gather_tree(outputs, self.mesh)
+        loss, summary = self.compute_loss(outputs, pids)
         self.optimizer_step(loss)
         return loss.detach(), summary
 

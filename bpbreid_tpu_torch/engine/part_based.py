@@ -42,6 +42,16 @@ padding rows False). Batches go to ``device`` through
 ``engine.device_prefetch`` and are processed one after another; features
 stay on the device until the distance matrix is read back for ranking.
 
+Under ``parallel.distribute_engine`` (JAX's mesh branches, :372-377,
+:577-580, :678-690, :889-896) ``forward_backward`` takes the global
+batch's draws, runs the model on this rank's slice and computes the
+GiLt + BPA loss over the gathered outputs (its own slice live);
+``eval_step`` splits a batch over the ranks when the world size divides
+it (else every rank runs it whole) and gathers its outputs; the
+query-gallery distances split the gallery columns
+(``parallel.sharded_bp_distance``). Rank 0 alone draws the figures and
+writes the features.
+
 As an ``Engine`` (``engine/engine.py``) built with a config and a data
 manager, ``run`` trains and tests it (``_evaluate`` :609 over the data
 manager's loaders) and ``save_model`` (:149) writes the port's
@@ -58,7 +68,8 @@ from bpbreid_tpu_torch.constants import (PARTS, PIXELS, bn_correspondants,
                                          get_test_embeddings_names)
 from bpbreid_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
                                             eval_preprocess,
-                                            sample_train_draws, train_augment)
+                                            sample_train_draws, slice_draws,
+                                            train_augment)
 from bpbreid_tpu_torch.engine.engine import (Engine, device_prefetch,
                                              normalize)
 from bpbreid_tpu_torch.losses.bpa import BodyPartAttentionLoss
@@ -71,6 +82,8 @@ from bpbreid_tpu_torch.ops.quant import (QuantOpts, clear_calibration,
                                          int8_calibration)
 from bpbreid_tpu_torch.ops.ranking import cmc_map, cmc_map_counting
 from bpbreid_tpu_torch.ops.resize import resize_bilinear_align_corners
+from bpbreid_tpu_torch.parallel.mesh import all_gather, gather_tree
+from bpbreid_tpu_torch.parallel.retrieval import sharded_bp_distance
 from bpbreid_tpu_torch.utils.distribution import (
     compute_ssmd, plot_pairs_distance_distribution)
 from bpbreid_tpu_torch.utils.rerank import re_ranking
@@ -230,7 +243,9 @@ class ImagePartBasedEngine(Engine):
         optional ``mask`` ``[B, h, w, C]``, ``pid`` ``[B]``; numpy or
         tensors). ``draws`` are the augmentation draws
         (``data.augment.sample_train_draws``), taken from the engine's
-        generator when None. Returns ``(loss, summary)`` as tensors on
+        generator when None. Under a mesh ``batch`` and ``draws`` are the
+        global batch's: the model runs on this rank's slice and the loss
+        on the gathered outputs. Returns ``(loss, summary)`` as tensors on
         the device (no host sync)."""
         self.require_optimizer()
         imgs_u8 = torch.as_tensor(batch['image']).to(self.device)
@@ -241,16 +256,28 @@ class ImagePartBasedEngine(Engine):
         if draws is None:
             draws = sample_train_draws(self.generator, n, h, w,
                                        self.transforms, **self.cj)
+        if self.mesh is not None:
+            lo, hi = self.shard(n)
+            imgs_u8, draws = imgs_u8[lo:hi], slice_draws(draws, lo, hi)
+            raw_masks = raw_masks[lo:hi] if raw_masks is not None else None
         imgs, masks = train_augment(imgs_u8, raw_masks, draws,
                                     norm_mean=self.norm_mean,
                                     norm_std=self.norm_std,
                                     mask_kwargs=self.mask_kwargs)
         self.model.train()
-        loss, summary = self.loss_fn(self.model(imgs, masks), masks, pids)
+        outputs = self.model(imgs, masks)
+        if self.mesh is not None:
+            # what the loss reads, over the global batch
+            outputs = tuple(gather_tree(outputs[:4], self.mesh)) + (None,
+                                                                    None)
+            masks = all_gather(masks, self.mesh) \
+                if masks is not None else None
+        loss, summary = self.loss_fn(outputs, masks, pids)
         self.optimizer_step(loss)
         freq = self.config.train.batch_debug_freq \
             if self.config is not None else 0
-        if freq and self.engine_state.global_step % freq == 0:
+        if freq and self.engine_state.global_step % freq == 0 \
+                and self.writes:
             self._debug_visualize_batch(batch)
         return loss.detach(), summary
 
@@ -294,14 +321,29 @@ class ImagePartBasedEngine(Engine):
         return paths + ([triplets] if triplets else [])
 
     @torch.inference_mode()
-    def eval_step(self, imgs_u8, raw_masks=None, quant_opts=None):
+    def eval_step(self, imgs_u8, raw_masks=None, quant_opts=None,
+                  shard=True):
         """One eval batch on the device; with ``quant_opts`` (a
-        ``QuantOpts``) through the calibrated int8 graph.
+        ``QuantOpts``) through the calibrated int8 graph. Under a mesh,
+        with ``shard``, a batch that the world size divides is split over
+        the ranks and the outputs gathered (every rank must call it);
+        other batches run whole on every rank.
 
         Returns ``(features [N, P+2, D], visibility [N, P+2] f32,
         embedding masks [N, P+2, Hf, Wf], pixels_cls_scores, masks,
         pxl_correct [N], pxl_total [N])``.
         """
+        n = imgs_u8.shape[0]
+        if shard and self.mesh is not None and self.mesh.size > 1 \
+                and n % self.mesh.size == 0:
+            lo, hi = self.shard(n)
+            out = self.eval_step(
+                imgs_u8[lo:hi],
+                raw_masks[lo:hi] if raw_masks is not None else None,
+                quant_opts, shard=False)
+            return tuple(gather_tree(t, self.mesh)
+                         if isinstance(t, torch.Tensor) and t.dim() else t
+                         for t in out)
         self.model.eval()
         imgs, masks = eval_preprocess(imgs_u8, raw_masks,
                                       norm_mean=self.norm_mean,
@@ -470,10 +512,8 @@ class ImagePartBasedEngine(Engine):
             q_camids_host = q_camids[:n_q_host]
             q_vis_host = q_vis[:n_q_host]
         else:
-            distmat, body_parts_distmat = \
-                compute_distance_matrix_using_bp_features(
-                    qf, gf, q_vis_arr, g_vis_arr, self.dist_combine_strat,
-                    self.batch_size_pairwise_dist_matrix, metric=dist_metric)
+            distmat, body_parts_distmat = self._distances(
+                qf, gf, q_vis_arr, g_vis_arr, dist_metric)
             g_pids_host, g_camids_host = g_pids, g_camids
             q_pids_host, q_camids_host, q_vis_host = q_pids, q_camids, q_vis
         if self.writer is not None:
@@ -511,13 +551,13 @@ class ImagePartBasedEngine(Engine):
         visrank_paths = []
         if visrank and big_gallery:
             print('visrank skipped: gallery too large for ranking grids')
-        elif visrank:
+        elif visrank and self.writes:
             visrank_paths = self._visrank(
                 query_loader, gallery_loader, distmat, body_parts_distmat,
                 q_vis.cpu().numpy(), g_vis.cpu().numpy(), mAP,
                 float(cmc[0]), visrank_topk, visrank_q_idx_list,
                 visrank_count, visrank_dir, dataset_name)
-        if features_dir:
+        if features_dir and self.writes:
             os.makedirs(features_dir, exist_ok=True)
             np.savez(osp.join(features_dir, 'features.npz'),
                      qf=qf.float().cpu().numpy(), gf=gf.float().cpu().numpy(),
@@ -525,7 +565,7 @@ class ImagePartBasedEngine(Engine):
                      q_pids=q_pids, g_pids=g_pids,
                      q_camids=q_camids, g_camids=g_camids)
             print('Saved features to {}'.format(features_dir))
-        if embeddings_dir is not None:
+        if embeddings_dir is not None and self.writes:
             visualize_embeddings_projection(
                 qf.float().cpu().numpy(), gf.float().cpu().numpy(), q_pids,
                 g_pids, embeddings_dir, dataset_name=dataset_name)
@@ -562,7 +602,8 @@ class ImagePartBasedEngine(Engine):
                 if 'mask' in samples[0] else None
             emb_masks = self.eval_step(
                 imgs.to(self.device),
-                masks.to(self.device) if masks is not None else None)[2]
+                masks.to(self.device) if masks is not None else None,
+                shard=False)[2]
             return emb_masks[:len(idxs)].permute(0, 2, 3, 1).float() \
                 .cpu().numpy()
 
@@ -690,9 +731,8 @@ class ImagePartBasedEngine(Engine):
                         (pad,) + tuple(qv_c.shape[1:]))])
                 qp_c = np.concatenate([qp_c, -np.ones(pad, qp_c.dtype)])
                 qc_c = np.concatenate([qc_c, np.zeros(pad, qc_c.dtype)])
-            d_c, bp_c = compute_distance_matrix_using_bp_features(
-                qf_c, gf, qv_c, g_vis_arr, self.dist_combine_strat,
-                self.batch_size_pairwise_dist_matrix, metric=dist_metric)
+            d_c, bp_c = self._distances(qf_c, gf, qv_c, g_vis_arr,
+                                        dist_metric)
             args = (torch.as_tensor(qp_c, device=device), g_pids_d,
                     torch.as_tensor(qc_c, device=device), g_camids_d)
             pair_acc += _pair_moments(d_c, args[0], g_pids_d) \
@@ -737,6 +777,20 @@ class ImagePartBasedEngine(Engine):
         return (cmc, mAP, sub_dist, sub_bp, sub_dist.shape[0],
                 np.asarray(g_pids)[sub], np.asarray(g_camids)[sub],
                 part_rows, pair_stats)
+
+    def _distances(self, qf, gf, q_vis, g_vis, dist_metric):
+        """The query-gallery distances ``([Nq, Ng], [K, Nq, Ng])``: the
+        gallery columns split over the ranks under a mesh
+        (``parallel.sharded_bp_distance``, JAX :678-690), else in gallery
+        blocks of ``batch_size_pairwise_dist_matrix``."""
+        if self.mesh is not None and self.mesh.size > 1:
+            d, bp, n_gal = sharded_bp_distance(
+                self.mesh, qf, gf, q_vis, g_vis, self.dist_combine_strat,
+                metric=dist_metric)
+            return d[:, :n_gal], bp[..., :n_gal]
+        return compute_distance_matrix_using_bp_features(
+            qf, gf, q_vis, g_vis, self.dist_combine_strat,
+            self.batch_size_pairwise_dist_matrix, metric=dist_metric)
 
     def display_individual_parts_ranking_performances(
             self, body_parts_distmat, g_camids, g_pids, q_camids, q_pids,

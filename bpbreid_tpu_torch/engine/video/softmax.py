@@ -44,7 +44,13 @@ class TrackletEngine:
 
     def forward_backward(self, batch, draws=None):
         """One train step on tracklets (``image`` ``[B, S, H, W, 3]``);
-        ``draws`` are for the ``B*S`` frames."""
+        ``draws`` are for the ``B*S`` frames. Under a mesh each rank takes
+        whole tracklets: its share of the B-major frames is its
+        tracklets' frames."""
+        b = batch['image'].shape[0]
+        if self.mesh is not None and b % self.mesh.size:
+            raise ValueError('{} tracklets do not split over a {}-rank '
+                             'mesh'.format(b, self.mesh.size))
         return super().forward_backward(flatten_tracklets(batch), draws)
 
     def feature_extraction(self, loader):

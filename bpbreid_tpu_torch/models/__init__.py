@@ -28,7 +28,8 @@ from bpbreid_tpu_torch.models.hrnet import hrnet32
 from bpbreid_tpu_torch.models.resnet import RESNETS
 from bpbreid_tpu_torch.models.resnetmid import resnet50mid
 
-__all__ = ['BACKBONES', 'NO_FEATURE_MAP', 'PORTED', 'build_model']
+__all__ = ['BACKBONES', 'NO_FEATURE_MAP', 'PORTED', 'build_model',
+           'show_avai_models', 'register_model']
 
 
 def _constructors(module, prefix=''):
@@ -67,6 +68,23 @@ NO_FEATURE_MAP = tuple(name for name in BACKBONES
 
 BPBREID_FAMILY = ('bpbreid', 'pcb', 'bot')
 PORTED = BPBREID_FAMILY + tuple(BACKBONES)
+
+
+def show_avai_models():
+    """The registry's names, sorted (JAX :108): the backbones and zoo
+    models; ``bpbreid``, ``pcb`` and ``bot`` build on top of them and are
+    not listed, as in JAX."""
+    return sorted(BACKBONES)
+
+
+def register_model(name, fn):
+    """Add constructor ``fn`` to the registry under ``name`` (JAX :112);
+    it is called as ``fn(num_classes, loss=..., pretrained=...,
+    dtype=..., **kwargs)``, as the zoo's constructors are, and can then
+    be a BPBReID backbone. A name already taken raises ``KeyError``."""
+    if name in BPBREID_FAMILY or name in BACKBONES:
+        raise KeyError('model {} already registered'.format(name))
+    BACKBONES[name] = fn
 
 
 def build_model(name, num_classes, loss='part_based', pretrained=False,

@@ -68,6 +68,7 @@ from bpbreid_tpu_torch.ops.quant import set_quant_paths
 from bpbreid_tpu_torch.ops.resize import (_linear_matrix_align_corners,
                                           linear_matrix_align_corners,
                                           resize_bilinear_align_corners)
+from bpbreid_tpu_torch.parallel.mesh import all_reduce_mean
 
 __all__ = ['BPBreID', 'BNClassifier', 'PixelToPartClassifier',
            'AfterPoolingDimReduce', 'BeforePoolingDimReduce',
@@ -123,11 +124,21 @@ class PixelToPartClassifier(nn.Module):
 
     def _batch_moments(self, x=None, branches=None, out_hw=None):
         """(mean, var) of the map, or of the virtual concat of the
-        upsampled branches, per channel in f32 (JAX :131-174)."""
+        upsampled branches, per channel in f32 (JAX :131-174). Under a
+        mesh (``bn.mesh``, a slice of the global batch on each rank) the
+        mean and E[x^2] are averaged over the ranks: the global batch's
+        moments."""
+        mean, e2 = self._local_moments(x, branches, out_hw)
+        mesh = self.bn.mesh
+        if mesh is not None:
+            mean, e2 = all_reduce_mean(torch.stack([mean, e2]), mesh)
+        return mean, e2 - mean * mean
+
+    def _local_moments(self, x=None, branches=None, out_hw=None):
+        """(mean, E[x^2]) over this process's batch."""
         if branches is None:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            return mean, (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+            return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
         hf, wf = out_hw
         n, p = branches[0].shape[0], hf * wf
         means, e2s = [], []
@@ -146,8 +157,7 @@ class PixelToPartClassifier(nn.Module):
             means.append(torch.einsum('nchw,h,w->c', yf, mh, mw) / (n * p))
             t = torch.einsum('nchw,hk->nckw', yf, gh)
             e2s.append(torch.einsum('nckw,wl,nckl->c', t, gw, yf) / (n * p))
-        mean = torch.cat(means)
-        return mean, torch.cat(e2s) - mean * mean
+        return torch.cat(means), torch.cat(e2s)
 
     def forward(self, x=None, branches=None, out_hw=None):
         bn, conv = self.bn, self.classifier

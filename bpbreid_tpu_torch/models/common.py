@@ -31,7 +31,8 @@ import torch.nn.functional as F
 
 from bpbreid_tpu_torch.ops.cuda.batchnorm import MOMENTUM as BN_MOMENTUM
 from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_apply, bn_dx,
-                                                  bn_grad_stats, bn_stats,
+                                                  bn_finalize, bn_grad_stats,
+                                                  bn_local_sums, bn_stats,
                                                   channel_view)
 from bpbreid_tpu_torch.ops.quant import (QTensor, QuantWeightCache,
                                          act_scale_from_amax, calibrated_scale,
@@ -39,6 +40,7 @@ from bpbreid_tpu_torch.ops.quant import (QTensor, QuantWeightCache,
                                          quant_shared_points, quant_skipped,
                                          quantize_calibrated, record_amax,
                                          set_quant_paths)
+from bpbreid_tpu_torch.parallel.mesh import all_reduce
 
 __all__ = ['BN_EPS', 'BN_MOMENTUM', 'PConv', 'Dense', 'FastBatchNorm',
            'InstanceNorm', 'GeneratorDropout', 'set_dropout_generator',
@@ -170,14 +172,32 @@ class _BatchNormTrain(torch.autograd.Function):
     Forward ``bn_stats`` (which also updates the running statistics in
     place, flax's ``0.9 * running + 0.1 * batch`` with the biased batch
     variance) and ``bn_apply``; backward ``bn_grad_stats`` and ``bn_dx``.
+
+    With a ``mesh`` (``parallel/``: each rank holds a slice of the global
+    batch) the statistics are the global batch's: forward, the local sums
+    (``bn_local_sums``, the ``bn_stats`` launch) are all-reduced in place
+    and ``bn_finalize`` takes the global count ``m * world size`` (and
+    updates the running statistics, the same on every rank); backward,
+    the sums of ``bn_grad_stats`` are all-reduced before ``bn_dx``. The weight and bias gradients stay the
+    rank's own sums: the engine sums every parameter gradient over the
+    ranks afterwards, and returning the all-reduced sums would count them
+    once a rank.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var, eps,
-                channel_dim, dtype):
+                channel_dim, dtype, mesh=None):
         x = x.contiguous()
-        mean, _, rstd, scale = bn_stats(x, weight, eps, channel_dim,
-                                        running_mean, running_var)
+        ctx.mesh, ctx.m = mesh, None
+        if mesh is None:
+            mean, _, rstd, scale = bn_stats(x, weight, eps, channel_dim,
+                                            running_mean, running_var)
+        else:
+            a, _, b = channel_view(x.shape, channel_dim)
+            ctx.m = a * b * mesh.size
+            mean, _, rstd, scale = bn_finalize(
+                all_reduce(bn_local_sums(x, weight, eps, channel_dim), mesh),
+                ctx.m, weight, eps, running_mean, running_var)
         ctx.save_for_backward(x, mean, rstd, scale)
         ctx.channel_dim = channel_dim
         return bn_apply(x, mean, rstd, weight, bias, channel_dim, dtype)
@@ -192,10 +212,14 @@ class _BatchNormTrain(torch.autograd.Function):
                                             ctx.channel_dim)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat,
-                       ctx.channel_dim)
+            g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
+            if ctx.mesh is not None:
+                g_dy, g_dy_xhat = all_reduce(
+                    torch.stack([sum_dy, sum_dy_xhat]), ctx.mesh)
+            dx = bn_dx(dy, x, mean, rstd, scale, g_dy, g_dy_xhat,
+                       ctx.channel_dim, ctx.m)
         dbias = sum_dy if ctx.needs_input_grad[2] else None
-        return dx, sum_dy_xhat, dbias, None, None, None, None, None
+        return dx, sum_dy_xhat, dbias, None, None, None, None, None, None
 
 
 class _BatchNormEval(torch.autograd.Function):
@@ -237,8 +261,10 @@ class FastBatchNorm(nn.Module):
     Eval mode uses the running statistics (``_BatchNormEval``). Train
     mode uses the batch statistics (``_BatchNormTrain``) and updates the
     running ones as flax does: ``0.9 * running + 0.1 * batch``, with the
-    biased batch variance.
+    biased batch variance. ``mesh`` (set by ``parallel.distribute_engine``)
+    makes train mode take the statistics of every rank's slice.
     """
+    mesh = None
 
     def __init__(self, num_features, eps=BN_EPS, bias=True, channel_dim=1,
                  dtype=torch.float32):
@@ -253,7 +279,8 @@ class FastBatchNorm(nn.Module):
         if self.training:
             return _BatchNormTrain.apply(
                 x, self.weight, self.bias, self.running_mean,
-                self.running_var, self.eps, self.channel_dim, self.dtype)
+                self.running_var, self.eps, self.channel_dim, self.dtype,
+                self.mesh)
         rstd = torch.rsqrt(self.running_var + self.eps)
         return _BatchNormEval.apply(x, self.running_mean, rstd, self.weight,
                                     self.bias, self.channel_dim, self.dtype)
@@ -288,7 +315,10 @@ class GeneratorDropout(nn.Module):
     """Dropout (flax ``nn.Dropout``: kept entries divided by the keep
     probability) whose keep-mask is drawn from ``generator``, on its
     device; the identity in eval mode. In train mode without a
-    generator it raises rather than draw from torch's global RNG."""
+    generator it raises rather than draw from torch's global RNG. With a
+    ``mesh`` (``parallel/``) it draws the global batch's mask and keeps
+    this rank's slice: the masks of the one-process step."""
+    mesh = None
 
     def __init__(self, rate):
         super().__init__()
@@ -302,8 +332,12 @@ class GeneratorDropout(nn.Module):
             raise RuntimeError('GeneratorDropout in train mode needs a '
                                'generator (set_dropout_generator)')
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        shape, lo = tuple(x.shape), 0
+        if self.mesh is not None:
+            shape = (x.shape[0] * self.mesh.size,) + shape[1:]
+            lo = x.shape[0] * self.mesh.rank
+        mask = torch.rand(shape, generator=self.generator,
+                          device=x.device)[lo:lo + x.shape[0]] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

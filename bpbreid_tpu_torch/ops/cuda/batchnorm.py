@@ -18,8 +18,16 @@ feature-last ``[M, C]`` and ``[N, K, D]`` (``channel_dim=-1``) as
   (rstd * weight) + bias`` in f32, cast to ``dtype``;
 - ``bn_grad_stats(dy, x, mean, rstd)`` -> ``(sum dy, sum dy*xhat)``,
   ``xhat = (x - mean) * rstd``: dbias and dscale;
-- ``bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat)`` -> ``dx =
-  scale * (dy - sum_dy/m - xhat * sum_dy_xhat/m)`` in x's type.
+- ``bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, m=None)`` ->
+  ``dx = scale * (dy - sum_dy/m - xhat * sum_dy_xhat/m)`` in x's type,
+  ``m = A*B`` unless given;
+- ``bn_finalize(sums, m, weight, eps)`` -> ``(mean, var, rstd, scale)``:
+  ``bn_stats``'s epilogue on given sums ``[2, C]`` of ``m`` values a
+  channel, with the running update. A batch split over ranks
+  (``parallel/``) takes its local sums with ``bn_local_sums`` (the
+  ``bn_stats`` launch), all-reduces them and finalizes them here with
+  the global count; its backward all-reduces ``bn_grad_stats``'s sums
+  and passes the global count to ``bn_dx``.
 
 Each is one kernel launch of ``bn_stats.cu`` for CUDA tensors, and
 raises if it cannot launch it; the plain versions (``*_reference``) run
@@ -32,7 +40,8 @@ from bpbreid_tpu_torch.ops.cuda.build import (check_cuda_error, launch_counts,
                                               load_kernel)
 
 __all__ = ['channel_view', 'reduce_splits', 'elementwise_splits',
-           'bn_stats', 'bn_apply', 'bn_grad_stats', 'bn_dx',
+           'bn_stats', 'bn_local_sums', 'bn_finalize', 'bn_apply',
+           'bn_grad_stats', 'bn_dx',
            'bn_stats_reference', 'bn_finalize_reference',
            'bn_apply_reference', 'bn_grad_stats_reference',
            'bn_dx_reference']
@@ -125,10 +134,10 @@ def bn_grad_stats_reference(dy, x, mean, rstd, channel_dim=1):
 
 
 def bn_dx_reference(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat,
-                    channel_dim=1):
+                    channel_dim=1, m=None):
     """Plain PyTorch version of ``bn_dx``."""
     a, c, b = channel_view(x.shape, channel_dim)
-    m = a * b
+    m = a * b if m is None else m
     xhat = (x.reshape(a, c, b).float() - mean.view(1, c, 1)) \
         * rstd.view(1, c, 1)
     dx = scale.view(1, c, 1) * (
@@ -198,6 +207,25 @@ def bn_stats(x, weight, eps, channel_dim=1, running_mean=None,
         with torch.no_grad():
             return bn_stats_reference(x, weight, eps, channel_dim,
                                       running_mean, running_var, sums)
+    return _bn_stats_launch(x, weight, eps, channel_dim, running_mean,
+                            running_var, sums).unbind(0)
+
+
+def bn_local_sums(x, weight, eps, channel_dim=1):
+    """``(sum x, sum x*x)`` as one contiguous f32 ``[2, C]``, in one
+    ``bn_stats`` launch (running statistics untouched): the sums that a
+    rank all-reduces in place before ``bn_finalize``."""
+    if not _on_cuda('bn_stats', x):
+        with torch.no_grad():
+            return torch.stack(bn_stats_reference(x, weight, eps, channel_dim,
+                                                  sums=True)[4:])
+    return _bn_stats_launch(x, weight, eps, channel_dim, None, None,
+                            True)[4:]
+
+
+def _bn_stats_launch(x, weight, eps, channel_dim, running_mean, running_var,
+                     sums):
+    """``bn_stats``'s launch: its f32 ``[4 or 6, C]`` output."""
     _check_inputs('bn_stats', x)
     a, c, b = channel_view(x.shape, channel_dim)
     _check_vectors('bn_stats', c, x.device, weight=weight,
@@ -212,6 +240,41 @@ def bn_stats(x, weight, eps, channel_dim=1, running_mean=None,
                 _ptr(running_mean), _ptr(running_var), out.data_ptr(),
                 out[4].data_ptr() if sums else None, a, c, b,
                 reduce_splits(a, c, b), eps, _DTYPE_CODES[x.dtype])
+    return out
+
+
+def bn_finalize(sums, m, weight, eps, running_mean=None, running_var=None):
+    """``(mean, var, rstd, scale)``, f32 ``[C]`` each, of the sums ``sums
+    [2, C]`` (``sum x``, ``sum x*x``) of ``m`` values a channel, in one
+    launch; with ``running_mean``/``running_var`` it also updates those in
+    place, as ``bn_stats`` does.
+
+    Args:
+        sums: contiguous f32 ``[2, C]``.
+        m: the count of values a channel (an int, > 0).
+        weight: f32 ``[C]``, the BN scale.
+    """
+    if not _on_cuda('bn_finalize', sums):
+        with torch.no_grad():
+            return bn_finalize_reference(sums[0], sums[1], m, weight, eps,
+                                         running_mean, running_var)
+    c = sums.shape[-1]
+    if (sums.dtype != torch.float32 or tuple(sums.shape) != (2, c)
+            or not sums.is_contiguous()):
+        raise ValueError('bn_finalize: sums must be a contiguous f32 [2, C] '
+                         'tensor')
+    if (running_mean is None) != (running_var is None):
+        raise ValueError('bn_finalize: running_mean and running_var go '
+                         'together')
+    if not 0 < int(m) <= 0x7fffffff:
+        raise ValueError('bn_finalize: count {} out of range'.format(m))
+    _check_vectors('bn_finalize', c, sums.device, weight=weight,
+                   running_mean=running_mean, running_var=running_var)
+    out = torch.empty((4, c), dtype=torch.float32, device=sums.device)
+    with torch.cuda.device(sums.device):
+        _launch('bn_finalize', sums.data_ptr(), weight.data_ptr(),
+                _ptr(running_mean), _ptr(running_var), out.data_ptr(), c,
+                int(m), eps)
     return out.unbind(0)
 
 
@@ -270,22 +333,28 @@ def bn_grad_stats(dy, x, mean, rstd, channel_dim=1):
     return out[0], out[1]
 
 
-def bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, channel_dim=1):
+def bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, channel_dim=1,
+          m=None):
     """``dx = scale * (dy - sum_dy/m - xhat * sum_dy_xhat/m)`` with ``xhat
     = (x - mean) * rstd``, in x's type, in one launch.
 
     Args:
         dy, x: same shape, each float32 or bfloat16.
         mean, rstd, scale, sum_dy, sum_dy_xhat: f32 ``[C]``.
+        m: the count the sums were taken over; ``A*B`` of x's view when
+            None (a batch on one rank).
     """
     if dy.shape != x.shape:
         raise ValueError('dy {} and x {} differ in shape'.format(
             tuple(dy.shape), tuple(x.shape)))
     if not _on_cuda('bn_dx', x):
         return bn_dx_reference(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat,
-                               channel_dim)
+                               channel_dim, m)
     _check_inputs('bn_dx', x, dy)
     a, c, b = channel_view(x.shape, channel_dim)
+    m = a * b if m is None else int(m)
+    if not 0 < m <= 0x7fffffff:
+        raise ValueError('bn_dx: count {} out of range'.format(m))
     _check_vectors('bn_dx', c, x.device, mean=mean, rstd=rstd, scale=scale,
                    sum_dy=sum_dy, sum_dy_xhat=sum_dy_xhat)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -293,6 +362,6 @@ def bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, channel_dim=1):
         _launch('bn_dx', dy.data_ptr(), x.data_ptr(), mean.data_ptr(),
                 rstd.data_ptr(), scale.data_ptr(), sum_dy.data_ptr(),
                 sum_dy_xhat.data_ptr(), dx.data_ptr(), a, c, b,
-                elementwise_splits(a, c, b), _DTYPE_CODES[dy.dtype],
+                elementwise_splits(a, c, b), m, _DTYPE_CODES[dy.dtype],
                 _DTYPE_CODES[x.dtype])
     return dx

@@ -23,9 +23,14 @@
 //   bn_grad_stats (K3b): sum dy and sum dy*xhat, xhat = (x - mean)*rstd:
 //                        dbias and dscale
 //   bn_dx:               dx = scale * (dy - sum dy/m - xhat * sum dy*xhat/m),
-//                        cast to x's type
+//                        cast to x's type; m is A * B or a count given by
+//                        the caller (the global batch's, across ranks)
+//   bn_finalize:         bn_stats's epilogue on given f32 sums [2, C] and
+//                        a given count m: the statistics of a batch split
+//                        over ranks, once their sums are all-reduced
 // Each is one launch: a train-mode BN is two launches forward (bn_stats,
-// bn_apply) and two backward (bn_grad_stats, bn_dx), an eval-mode BN one.
+// bn_apply) and two backward (bn_grad_stats, bn_dx), an eval-mode BN one;
+// across ranks the forward adds bn_finalize between the two.
 //
 // Bound: device-memory bytes; each element costs 2-8 flops, far below the
 // card's flop/byte balance. At bf16, per element: 2 B for the sums (read
@@ -418,6 +423,17 @@ reduce_cols_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
   cluster.sync();
 }
 
+// Finalize: grid ceil(C / kThreads), one thread a channel. The sums are
+// f32 (an all-reduce of bn_stats's f32 sums), widened to the epilogue's
+// f64 exactly.
+__global__ void __launch_bounds__(kThreads)
+finalize_kernel(const float* __restrict__ sums, StatsOut so, int C,
+                unsigned int m) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c < C) stats_epilogue(so, c, C, m, (double)sums[c],
+                            (double)sums[C + c]);
+}
+
 // Elementwise passes: per-channel constants and the map of one element.
 struct EwIn {
   const float* mean;
@@ -712,17 +728,18 @@ int bpbreid_bn_apply(const void* x, const float* mean, const float* rstd,
 }
 
 // dx = scale * (dy - sum_dy/m - xhat * sum_dy_xhat/m), dx of x's type;
-// sum_dy and sum_dy_xhat as bpbreid_bn_grad_stats gives them.
+// sum_dy and sum_dy_xhat as bpbreid_bn_grad_stats gives them (or their
+// all-reduce across ranks, with m the global count).
 int bpbreid_bn_dx(const void* dy, const void* x, const float* mean,
                   const float* rstd, const float* scale, const float* sum_dy,
                   const float* sum_dy_xhat, void* dx, int A, int C, int B,
-                  int S, int dy_dtype, int x_dtype, void* stream) {
+                  int S, int m, int dy_dtype, int x_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(A, C, B, 1, 1) || S <= 0 || S > 65535)
+  if (bad_shape(A, C, B, 1, 1) || S <= 0 || S > 65535 || m <= 0)
     return (int)cudaErrorInvalidValue;
   const EwIn p{mean,  rstd,        nullptr,
                nullptr, scale, sum_dy, sum_dy_xhat,
-               (unsigned int)((long long)A * B)};
+               (unsigned int)m};
   using bf = __nv_bfloat16;
   if (x_dtype == 0 && dy_dtype == 0)
     return (int)launch_ewise<float, float, float, true>(x, dy, dx, p, A, C, B,
@@ -736,6 +753,23 @@ int bpbreid_bn_dx(const void* dy, const void* x, const float* mean,
   if (x_dtype == 1 && dy_dtype == 1)
     return (int)launch_ewise<bf, bf, bf, true>(x, dy, dx, p, A, C, B, S, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// stats: f32 [4, C] (mean, var, rstd, scale) from sums f32 [2, C] (sum x,
+// sum x*x over m values a channel); running_mean, running_var: f32 [C],
+// both or neither, updated in place.
+int bpbreid_bn_finalize(const float* sums, const float* weight,
+                        float* running_mean, float* running_var,
+                        float* stats, int C, int m, float eps,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C <= 0 || m <= 0 ||
+      (running_mean == nullptr) != (running_var == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const StatsOut so{stats, nullptr, weight, running_mean, running_var, eps};
+  finalize_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      sums, so, C, (unsigned int)m);
+  return (int)cudaGetLastError();
 }
 
 const char* bpbreid_cuda_error_string(int code) {

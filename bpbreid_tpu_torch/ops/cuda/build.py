@@ -40,7 +40,9 @@ KERNELS = {
     'bn_apply': ('bn_stats', 'bpbreid_bn_apply', [_P] * 6 + [_I] * 6 + [_P]),
     'bn_grad_stats': ('bn_stats', 'bpbreid_bn_grad_stats',
                       [_P] * 5 + [_I] * 6 + [_P]),
-    'bn_dx': ('bn_stats', 'bpbreid_bn_dx', [_P] * 8 + [_I] * 6 + [_P]),
+    'bn_dx': ('bn_stats', 'bpbreid_bn_dx', [_P] * 8 + [_I] * 7 + [_P]),
+    'bn_finalize': ('bn_stats', 'bpbreid_bn_finalize',
+                    [_P] * 5 + [_I, _I, _F, _P]),
     'conv_chain': ('conv_chain', 'bpbreid_conv_chain',
                    [_P] * 7 + [_I] * 9 + [_P]),
     'conv_chain_bf16': ('conv_chain', 'bpbreid_conv_chain_bf16',

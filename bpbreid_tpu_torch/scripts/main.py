@@ -29,9 +29,13 @@ does not keep in float as an s8 x s8 -> s32 product (``ops/quant.py``).
 ``prid2011``, ``dukemtmcvidreid`` or ``synthetic_video``;
 ``engine/video/``: ``loss.name`` ``softmax`` or ``triplet``, the frame
 embeddings pooled by ``video.pooling_method``), with no masks.
-Not ported, and raising with its ROADMAP Queue 1 item: data
-parallelism over several cards (8). The figures are drawn without
-matplotlib: ``test.visrank`` its ranking grids
+``train.n_devices`` above 1 (or 0: every visible card) trains data
+parallel, JAX's mesh semantics on ``torch.distributed``
+(``parallel/``): the CLI spawns one process a rank (NCCL on
+``cuda:<rank>``; with ``use_gpu False``, gloo ranks on the CPU, which
+stand in for JAX's forced host devices), each loads the global batch,
+and rank 0 writes the files (``run_distributed``). The figures are
+drawn without matplotlib: ``test.visrank`` its ranking grids
 (``utils/visualization/rankings.py``), ``train.batch_debug_freq`` the
 part-based engine's feature maps and batch-hard triplets every that many
 steps, ``test.vis_embedding_projection`` the query and gallery
@@ -41,6 +45,9 @@ import argparse
 import json
 import os
 import os.path as osp
+import shutil
+import sys
+import tempfile
 
 import torch
 
@@ -60,6 +67,8 @@ from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
 from bpbreid_tpu_torch.models import build_model
 from bpbreid_tpu_torch.ops.masks import compute_parts_num_and_names
 from bpbreid_tpu_torch.optim import build_lr_scheduler, build_optimizer
+from bpbreid_tpu_torch.parallel import distribute_engine
+from bpbreid_tpu_torch.parallel.mesh import init_process_group
 from bpbreid_tpu_torch.tools.extract_part_based_features import \
     extract_reid_features
 from bpbreid_tpu_torch.utils.checkpoint import (load_checkpoint,
@@ -71,7 +80,8 @@ from bpbreid_tpu_torch.utils.torch_weights import (load_torch_state_dict,
                                                    load_torchreid_state_dict)
 from bpbreid_tpu_torch.utils.writer import Writer
 
-__all__ = ['build_config', 'build_engine', 'build_model_engine', 'main']
+__all__ = ['build_config', 'build_engine', 'build_model_engine',
+           'n_devices_for', 'maybe_distribute_engine', 'main']
 
 ENGINES = {'part_based': ImagePartBasedEngine, 'softmax': ImageSoftmaxEngine,
            'triplet': ImageTripletEngine}
@@ -98,10 +108,8 @@ def refuse_unported(cfg):
         raise ValueError('model {} takes pose heatmaps beside the images '
                          '(forward(x, pose_map)), which no data manager '
                          'gives'.format(cfg.model.name))
-    if cfg.train.n_devices > 1:
-        raise NotImplementedError(
-            'train.n_devices {}: data parallelism is not ported yet (ROADMAP '
-            'Queue 1 item 8)'.format(cfg.train.n_devices))
+    # a requested device count that does not divide the batch
+    n_devices_for(cfg, verbose=False)
 
 
 def build_config(args=None, config_file=None, config=None, makedirs=True):
@@ -242,12 +250,12 @@ def build_engine(cfg, datamanager, model, optimizer, scheduler, writer,
     return ENGINES[cfg.loss.name](datamanager, model, **kwargs)
 
 
-def build_model_engine(cfg):
+def build_model_engine(cfg, device=None):
     """Data manager, model, optimizer, schedule and engine of ``cfg`` (from
-    ``build_config``, which refuses the unported options) on the device
-    ``cfg.use_gpu`` names; returns ``(engine, model)``."""
-    device = resolve_device('cuda' if cfg.use_gpu else 'cpu')
-    logger = Logger(cfg)
+    ``build_config``, which refuses the unported options) on ``device``
+    (by default the one ``cfg.use_gpu`` names); returns ``(engine,
+    model)``."""
+    device = resolve_device(device or ('cuda' if cfg.use_gpu else 'cpu'))
     set_random_seed(cfg.train.seed)
     if cfg.project.debug_mode:
         torch.autograd.set_detect_anomaly(True)
@@ -255,7 +263,7 @@ def build_model_engine(cfg):
         if cfg.data.type == 'video' \
         else ImageDataManager(**imagedata_kwargs(cfg))
     engine_state = EngineState(cfg.train.start_epoch, cfg.train.max_epoch)
-    writer = Writer(cfg, logger=logger, engine_state=engine_state)
+    writer = Writer(cfg, logger=Logger(cfg), engine_state=engine_state)
     print('Building model: {}'.format(cfg.model.name))
     model = build_model(cfg.model.name, datamanager.num_train_pids,
                         loss=cfg.loss.name, pretrained=cfg.model.pretrained,
@@ -276,9 +284,148 @@ def build_model_engine(cfg):
     return engine, model
 
 
+def n_devices_for(cfg, available=None, verbose=True):
+    """The number of ranks for ``cfg`` by JAX's rules and messages
+    (``maybe_distribute_engine``, bpbreid_tpu/scripts/main.py:215-262):
+    ``train.n_devices`` 0 means every visible device; a count above the
+    visible ones is clamped; a requested count that does not divide
+    ``train.batch_size`` raises ``ValueError`` naming the largest divisor
+    that fits, while an automatic count shrinks to it. ``available``:
+    the visible cards with ``use_gpu`` (``torch.cuda.device_count()``);
+    on the CPU a requested count is taken as given (gloo processes stand
+    in for JAX's forced host devices) and the automatic count is 1.
+    Returns 1 for a one-process run; ``verbose`` prints JAX's messages."""
+    say = print if verbose else (lambda *args: None)
+    requested = getattr(cfg.train, 'n_devices', 0)
+    if available is None:
+        available = torch.cuda.device_count() if cfg.use_gpu \
+            else max(1, requested)
+    n = requested or available
+    if n <= 1:
+        return 1
+    if n > available:
+        say('train.n_devices={} but only {} devices visible; using {}'
+            .format(cfg.train.n_devices, available, available))
+        n = available
+        if n <= 1:
+            return 1
+    if cfg.train.batch_size % n:
+        # the largest divisor of batch_size that fits the visible devices
+        best = max(d for d in range(1, n + 1)
+                   if cfg.train.batch_size % d == 0)
+        if requested:
+            raise ValueError(
+                'train.batch_size={} is not divisible by the {}-device '
+                'mesh; set train.batch_size to a multiple of {} (or '
+                'train.n_devices to a divisor of the batch size, e.g. '
+                'n_devices={})'.format(cfg.train.batch_size, n, n, best))
+        n = best
+        if n <= 1:
+            say('auto mesh: batch_size {} shares no divisor >1 with '
+                'the {} visible devices; single-device'.format(
+                    cfg.train.batch_size, available))
+            return 1
+        say('auto mesh: batch_size {} -> using {} of {} visible '
+            'devices'.format(cfg.train.batch_size, n, available))
+    return n
+
+
+def maybe_distribute_engine(engine, cfg, mesh=None):
+    """Data parallelism for the CLI path (JAX :215): with more than one
+    rank by ``n_devices_for``'s rules, ``parallel.distribute_engine`` over
+    ``mesh`` (the initialized process group's when None); returns the
+    mesh, or None for a one-process run."""
+    n = n_devices_for(cfg)
+    if n <= 1:
+        return None
+    return _distribute(engine, mesh, n)
+
+
+def _distribute(engine, mesh, n):
+    mesh = distribute_engine(engine, mesh, n_devices=n)
+    print('Distributed training over a {}-rank "{}" mesh (batch sharded, '
+          'params replicated, BN statistics and gradients all-reduced over '
+          '{})'.format(mesh.size, ','.join(mesh.axis_names), mesh.backend))
+    return mesh
+
+
+def run(cfg, engine):
+    """``engine.run`` as the config asks, then the inference on
+    ``inference.input_folder`` (rank 0 alone under a mesh), and the
+    logger's scalars to ``scalars.json`` with ``project.logger.save_disk``;
+    returns what ``engine.run`` returns."""
+    print('Starting experiment {} with job id {}'.format(
+        cfg.project.experiment_id, cfg.project.job_id))
+    result = engine.run(**engine_run_kwargs(cfg),
+                        max_epoch=cfg.train.max_epoch,
+                        eval_freq=cfg.train.eval_freq,
+                        start_eval=cfg.test.start_eval)
+    if cfg.inference.enabled and engine.writes:
+        print('Starting inference on external data')
+        extract_reid_features(cfg, cfg.inference.input_folder,
+                              cfg.data.save_dir, engine=engine)
+    if cfg.project.logger.save_disk and engine.writer is not None \
+            and engine.writer.logger is not None:
+        # the scalars to <save_dir>/scalars.json (JAX keeps them in memory)
+        engine.writer.logger.flush()
+    return result
+
+
+def _rank_main(rank, n, cfg, init_method, results):
+    """One rank of a data-parallel CLI run: NCCL on ``cuda:<rank>``, or
+    gloo on the CPU with ``use_gpu False``. Rank 0 prints, writes the
+    files (``distribute_engine`` leaves the writer to it) and puts
+    ``engine.run``'s result on ``results``."""
+    import torch.distributed as dist
+    if rank:
+        sys.stdout = open(os.devnull, 'w')
+        # a Logger opens its backends (TensorBoard's files, W&B's run)
+        # when it is built
+        cfg.project.logger.use_tensorboard = False
+        cfg.project.logger.use_wandb = False
+    if cfg.use_gpu:
+        device, backend = 'cuda:{}'.format(rank), 'nccl'
+    else:
+        device, backend = 'cpu', 'gloo'
+        # the host's cores shared by the ranks
+        torch.set_num_threads(max(1, torch.get_num_threads() // n))
+    mesh = init_process_group(rank, n, init_method, backend, device)
+    try:
+        engine, _model = build_model_engine(cfg, device)
+        _distribute(engine, mesh, n)
+        result = run(cfg, engine)
+        if rank == 0:
+            results.put(result)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_distributed(cfg, n):
+    """``n`` ranks of the CLI (``torch.multiprocessing``, spawned), which
+    meet through a file in a temporary directory; the CUDA kernels are
+    built here first, so the ranks do not each run nvcc. Returns rank 0's
+    result; a rank that fails fails the run."""
+    import torch.multiprocessing as mp
+    if cfg.use_gpu:
+        from bpbreid_tpu_torch.ops.cuda.build import build_kernels
+        build_kernels()
+    ctx = mp.get_context('spawn')
+    results = ctx.SimpleQueue()
+    tmp = tempfile.mkdtemp(prefix='bpbreid_ranks_')
+    try:
+        mp.start_processes(_rank_main, args=(
+            n, cfg, 'file://' + osp.join(tmp, 'rendezvous'), results),
+            nprocs=n, join=True, start_method='spawn')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results.get()
+
+
 def main(argv=None):
     """Parse ``argv``, build and run; returns ``(engine, result)`` with
-    ``result`` what ``engine.run`` returns."""
+    ``result`` what ``engine.run`` returns. A data-parallel run
+    (``n_devices_for`` above 1) runs in spawned ranks and returns
+    ``(None, result)``, rank 0's result."""
     parser = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument('--config-file', type=str, default='')
@@ -293,18 +440,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = build_config(args, args.config_file)
+    n = n_devices_for(cfg)
+    if n > 1:
+        return None, run_distributed(cfg, n)
     engine, _model = build_model_engine(cfg)
-    print('Starting experiment {} with job id {}'.format(
-        cfg.project.experiment_id, cfg.project.job_id))
-    result = engine.run(**engine_run_kwargs(cfg),
-                        max_epoch=cfg.train.max_epoch,
-                        eval_freq=cfg.train.eval_freq,
-                        start_eval=cfg.test.start_eval)
-    if cfg.inference.enabled:
-        print('Starting inference on external data')
-        extract_reid_features(cfg, cfg.inference.input_folder,
-                              cfg.data.save_dir, engine=engine)
-    return engine, result
+    return engine, run(cfg, engine)
 
 
 if __name__ == '__main__':

@@ -38,6 +38,9 @@ class EngineStateListener:
 
 
 class EngineState:
+    # the last one built (JAX's ``current_engine_state``)
+    _current = None
+
     def __init__(self, start_epoch=0, max_epoch=0):
         self.start_epoch = start_epoch
         self.max_epoch = max_epoch
@@ -46,6 +49,12 @@ class EngineState:
         self.global_step = 0
         self.lr = 0.0
         self.listeners = []
+        EngineState._current = self
+
+    @classmethod
+    def current_engine_state(cls):
+        """The last ``EngineState`` built, or None."""
+        return cls._current
 
     def add_listener(self, listener):
         self.listeners.append(listener)

@@ -9,6 +9,7 @@ matplotlib), written as PNGs under ``<save_dir>/figures/`` when
 ``project.logger.save_disk`` is set; their titles go into ``tEXt``
 chunks. Unlike JAX's ``add_figure``, a failed write raises.
 """
+import json
 import os
 import os.path as osp
 
@@ -18,6 +19,9 @@ __all__ = ['Logger']
 
 
 class Logger:
+    # the last one built (JAX's ``current_logger``)
+    _current = None
+
     def __init__(self, config=None, save_dir=None):
         self.cfg = config
         self.save_dir = save_dir or (config.data.save_dir if config else 'logs')
@@ -41,6 +45,19 @@ class Logger:
                     self._backends.append(('wandb', wandb))
                 except ImportError:
                     print('wandb unavailable; falling back to disk logs')
+        Logger._current = self
+
+    @classmethod
+    def current_logger(cls):
+        """The last ``Logger`` built, or None."""
+        return cls._current
+
+    def flush(self):
+        """Write the scalars kept so far to ``<save_dir>/scalars.json``
+        (a list of ``{'name', 'value', 'step'}``)."""
+        os.makedirs(self.save_dir, exist_ok=True)
+        with open(osp.join(self.save_dir, 'scalars.json'), 'w') as f:
+            json.dump(self.scalars, f)
 
     def add_scalar(self, name, value, step=None):
         self.scalars.append({'name': name, 'value': float(value),

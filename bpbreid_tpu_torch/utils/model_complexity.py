@@ -19,7 +19,18 @@ dummy masks beside the image, as the reference feeds it.
 import torch
 from torch import nn
 
-__all__ = ['compute_model_complexity']
+__all__ = ['compute_model_complexity', 'count_params']
+
+
+def count_params(params):
+    """The entries of ``params``: a module's parameters, a dict of
+    tensors (a state dict) or any iterable of tensors (JAX :14 sums the
+    leaves of a pytree)."""
+    if isinstance(params, nn.Module):
+        params = params.parameters()
+    elif isinstance(params, dict):
+        params = params.values()
+    return sum(int(p.numel()) for p in params)
 
 
 @torch.no_grad()

@@ -12,7 +12,7 @@ import os
 import numpy as np
 import torch
 
-from bpbreid_tpu_torch.utils.avgmeter import TimeMeter
+from bpbreid_tpu_torch.utils.avgmeter import AverageMeter, TimeMeter
 from bpbreid_tpu_torch.utils.engine_state import EngineStateListener
 from bpbreid_tpu_torch.utils.visualization.imaging import TAB10, fill_rect
 
@@ -61,10 +61,15 @@ def barplot(series, width=0.7):
 
 class Writer(EngineStateListener):
     """Listens to ``engine_state`` when one is given."""
+    # the last one built (JAX's ``current_writer``)
+    _current = None
 
     def __init__(self, config=None, logger=None, engine_state=None):
         self.cfg = config
         self.logger = logger
+        # the triplet losses' counters (JAX :48-68)
+        self.invalid_pairs_meter = AverageMeter()
+        self.parts_usage = {}
         self.total_run_timer = TimeMeter('total run')
         self.epoch_timer = TimeMeter('epoch')
         self.batch_timer = TimeMeter('batch')
@@ -73,6 +78,31 @@ class Writer(EngineStateListener):
         self.qg_stats = {}
         if engine_state is not None:
             engine_state.add_listener(self)
+        Writer._current = self
+
+    @classmethod
+    def current_writer(cls):
+        """The last ``Writer`` built, or None."""
+        return cls._current
+
+    def update_invalid_pairwise_distances_count(self, pairwise_dist):
+        """The share of pairs a triplet loss could not compare (distance
+        -1) into ``invalid_pairs_meter`` (JAX :48). It reads the tensor on
+        the host: a sync with the device each call, which is why the
+        engines build their losses without a writer."""
+        arr = torch.as_tensor(pairwise_dist).detach()
+        self.invalid_pairs_meter.update(float((arr == -1).float().mean()))
+
+    def update_invalid_part_based_pairwise_distances_count(self, mask):
+        """The share of zero entries of a pair-validity mask (JAX
+        :55)."""
+        arr = torch.as_tensor(mask).detach()
+        self.invalid_pairs_meter.update(float((arr == 0).float().mean()))
+
+    def used_parts_statistics(self, parts_count, part_id):
+        """Add ``parts_count`` uses of part ``part_id`` (JAX :62)."""
+        self.parts_usage[int(part_id)] = \
+            self.parts_usage.get(int(part_id), 0) + int(parts_count)
 
     def qg_pairwise_dist_statistics(self, pairwise_dist, bp_dist, q_vis,
                                     g_vis, subsample=False):

@@ -255,14 +255,43 @@ and Market-1501 + 500k distractors scale. Phases:
    through ``HyperParameterOptimizer`` (one epoch each, its
    ``hpo_results.json``).
 
+17. data parallelism on ``torch.distributed`` (``parallel/``), every
+   launch and collective count set to 0 just before each run and read
+   just after: (a) ``bn_finalize`` (the cross-rank batch norm's epilogue)
+   on the summed sums of two equal slices with the global count, and
+   ``bn_dx`` with the global count, against their plain versions at each
+   distinct BN input of phase 6's step (the same bits over two calls),
+   and ``bn_finalize`` timed against its bound and
+   ``torch.batch_norm_gather_stats_with_counts``; (b) two flagship train
+   steps (HRNet-W32, 384x128, five_v, bf16, batch 64) through
+   ``distribute_engine`` on a one-rank NCCL process group (``bn_stats``
+   sums, ``all_reduce``, ``bn_finalize``, ``bn_dx`` with the count) against
+   the one-process steps on the same batch and draws (step 1's loss,
+   gradients and state at phase 7's tolerances), bit-equality reported;
+   (c) 2 gloo ranks on ``cuda:0`` (NCCL refuses two ranks on one GPU),
+   spawned: 2 x 32 images against the one-process 64-image step (the
+   loss), 20 steps on the one batch at phase 7's depth (the flagship's
+   width) whose loss falls, the ranks' parameters and BN statistics
+   bit-equal (sha256) after the full-depth step and after the 20, each
+   rank's BN and
+   ``bn_finalize`` launches and ``all_reduce`` calls a step, and phase 7's
+   small f32 step held to phase 7's tolerances against the one-process
+   step; (d) in the same ranks, Market-1501-size features (phase 8b's
+   recipe, 3,368 queries, a gallery of 19,733 padded to 19,734):
+   ``sharded_bp_distance`` and ``sharded_cmc_map`` against the
+   one-process distances (1e-5 relative) and ``cmc_map`` (1e-6), and the
+   engine's ``evaluate`` under the mesh. A failed collective or a rank
+   that dies fails the run.
+
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
 throughput line, the CLI line (phase 9), the inference line (phase 10),
 the PCB line (phase 11), the int8 line (phase 12), the global line
 (phase 13), the video line (phase 14), the zoo line (phase 15), the
-figures line (phase 16), the kernels line (launches: the BN kernels' in
-run 9a, phase 10, phase 11a-b, phase 13, phase 14, phase 15 and phase
-16, K2's in run 9c, phase 10, phase 13c, phase 14b, phase 15c and phase
+figures line (phase 16), the dp line (phase 17), the kernels line
+(launches: the BN kernels' in run 9a, phase 10, phase 11a-b, phase 13,
+phase 14, phase 15, phase 16 and phase 17b (``bn_finalize``: 17b alone),
+K2's in run 9c, phase 10, phase 13c, phase 14b, phase 15c and phase
 16a,
 K1's in phase 3b, ``conv_s8`` and ``quantize_s8``'s in phase 12's int8
 step, extractor batch and CLI test) and the result line
@@ -1254,16 +1283,16 @@ def phase_large_gallery_serving(torch, engine, query, gallery, results):
 
 
 def _synthetic_features(torch, gen, pids, centers, noise=3.0,
-                        chunk=1 << 16):
+                        chunk=1 << 16, device='cuda'):
     """``[len(pids), K, D]`` f32 features, L2-normalized per part: the
     identity's center plus Gaussian noise; pids without a center (>=
     len(centers)) are noise alone. Made on the card, in chunks."""
     n = len(pids)
     k, d = centers.shape[1:]
-    out = torch.empty((n, k, d), device='cuda')
+    out = torch.empty((n, k, d), device=device)
     for s in range(0, n, chunk):
         p = pids[s:s + chunk]
-        f = noise * torch.randn((len(p), k, d), device='cuda', generator=gen)
+        f = noise * torch.randn((len(p), k, d), device=device, generator=gen)
         has = p < len(centers)
         f[has] += centers[p[has]]
         out[s:s + chunk] = f / f.norm(dim=-1, keepdim=True)
@@ -1271,14 +1300,14 @@ def _synthetic_features(torch, gen, pids, centers, noise=3.0,
     return out
 
 
-def _synthetic_split(torch, gen, pids, centers):
+def _synthetic_split(torch, gen, pids, centers, device='cuda'):
     """(features, visibility [N, K] f32 with about 20 % of the part
     streams invisible, pids, camids) of one split."""
-    feats = _synthetic_features(torch, gen, pids, centers)
-    vis = torch.rand((len(pids), centers.shape[1]), device='cuda',
+    feats = _synthetic_features(torch, gen, pids, centers, device=device)
+    vis = torch.rand((len(pids), centers.shape[1]), device=device,
                      generator=gen) > 0.2
     vis[:, 0] = True                     # the foreground stream
-    camids = torch.randint(0, 6, (len(pids),), device='cuda', generator=gen)
+    camids = torch.randint(0, 6, (len(pids),), device=device, generator=gen)
     return feats, vis.float(), pids.cpu().numpy(), camids.cpu().numpy()
 
 
@@ -5131,6 +5160,555 @@ def phase_figures_and_tools(torch, results, ranking_inputs):
     return launches
 
 
+
+# phase 17: data parallelism (parallel/) on the one card. NCCL refuses two
+# ranks on one GPU, so NCCL runs at world size 1 in this process (17b) and
+# the 2-rank checks run as 2 gloo ranks on cuda:0, spawned (17c, 17d)
+DP_LEARN = 20
+DP_SAVE_DIR = os.path.join('_scratch', 'chip_smoke_dp')
+# phase 7's depth-reduced HRNet-W32
+DP_SMALL_STAGES = {'stage2': (1, 2, (2, 2), (32, 64)),
+                   'stage3': (1, 3, (2, 2, 2), (32, 64, 128)),
+                   'stage4': (1, 4, (2, 2, 2, 2), (32, 64, 128, 256))}
+BN_FINALIZE_REPLACES = ('experiments/pallas_bn_v2.py:55 (K3a, its epilogue '
+                        'on sums all-reduced across ranks; '
+                        'bpbreid_tpu/models/common.py:191)')
+
+
+def _dp_spec(device='cuda', backend='nccl', height=HEIGHT, width=WIDTH,
+             ids=TRAIN_IDS, instances=TRAIN_INSTANCES, stages=None,
+             market=(MARKET_QUERY, MARKET_GALLERY + 1, MARKET_IDS),
+             learn=DP_LEARN):
+    """What phase 17 runs at: the flagship train step (``stages`` None:
+    HRNet-W32 at full depth) and Market-1501's query and gallery counts,
+    the gallery made odd so that 2 ranks pad it."""
+    return {'device': device, 'backend': backend, 'height': height,
+            'width': width, 'ids': ids, 'instances': instances,
+            'stages': stages, 'market': market, 'learn': learn}
+
+
+def _to(tree, device):
+    """The tensors of a tree of dicts, lists and tuples on ``device``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def state_digest(model):
+    """sha256 of the bytes of every parameter and buffer, in order."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_engine(torch, spec, small=False, stages=None):
+    """The flagship train engine of ``spec`` (bf16; ``stages``: another
+    depth at the same width), or with ``small`` phase 7's f32 model at
+    64x32; seeded weights."""
+    if small:
+        cfg = train_config(64, 32, 'float32', 64)
+        return cfg, train_engine(torch, cfg, 7, spec['device'],
+                                 backbone_stages=DP_SMALL_STAGES)
+    cfg = train_config(spec['height'], spec['width'])
+    stages = stages or spec['stages']
+    kwargs = {'backbone_stages': stages} if stages else {}
+    return cfg, train_engine(torch, cfg, 751, spec['device'], **kwargs)
+
+
+def _dp_batches(torch, spec):
+    """The full-width batch with two steps' draws and the learning draws,
+    and the small f32 batch with its draws (phase 7's recipe); on the
+    CPU, to cross to the ranks."""
+    from bpbreid_tpu_torch.data.augment import sample_train_draws
+    cfg = train_config(spec['height'], spec['width'])
+    n = spec['ids'] * spec['instances']
+    gen = torch.Generator(device=spec['device']).manual_seed(SEED + 17)
+    draw = lambda k, h, w: _to(sample_train_draws(  # noqa: E731
+        gen, k, h, w, cfg.data.transforms), 'cpu')
+    return {
+        'batch': make_train_batch(np.random.default_rng(SEED + 2),
+                                  spec['ids'], spec['instances'],
+                                  spec['height'], spec['width'], 'cpu'),
+        'draws': [draw(n, spec['height'], spec['width']) for _ in range(2)],
+        'learn_draws': draw(n, spec['height'], spec['width']),
+        'small_batch': make_train_batch(np.random.default_rng(SEED + 3), 2,
+                                        4, 64, 32, 'cpu'),
+        'small_draws': draw(8, 64, 32)}
+
+
+def _bn_names(torch, model):
+    """The model's kernel-backed train-mode BNs (all but the pixel
+    classifier's, whose statistics are virtual) and those whose streams
+    feed no loss (no backward), as phase 6 counts them."""
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    bn = [n for n, mod in model.named_modules()
+          if isinstance(mod, FastBatchNorm) and n != 'pixel_classifier.bn']
+    no_grad = [n for n in bn if n.startswith((
+        'background_after_pooling_dim_reduce',
+        'background_identity_classifier', 'parts_identity_classifier'))]
+    return bn, no_grad
+
+
+def _small_step(torch, engine, model, p, device):
+    """One f32 step of phase 7's model on the small batch: the record
+    ``compare_train_steps`` reads."""
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.named_parameters()}
+    loss, _ = engine.forward_backward(_to(p['small_batch'], device),
+                                      draws=_to(p['small_draws'], device))
+    return {'loss': loss.item(), 'before': before,
+            'grads': {k: v.grad.detach().cpu().clone()
+                      for k, v in model.named_parameters()},
+            'state': {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+
+
+def _dp_bn_kernels(torch, bn_shapes):
+    """17a: ``bn_finalize`` on the sums of two ranks' equal slices (the
+    global count) and ``bn_dx`` with the global count, against their plain
+    versions at each distinct BN input of the train step (phase 6):
+    ``bn_finalize`` 1e-6 relative with its running update, ``bn_dx`` one
+    ulp plus 1e-6 of its terms, each the same bits over two calls; then
+    ``bn_finalize``'s times at the reported input's channels."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_dx, bn_dx_reference,
+                                                      bn_finalize,
+                                                      bn_finalize_reference)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 17)
+    rows, failures, timed = [], [], None
+    for (shape, dt, cd), _calls in bn_shapes:
+        x = (0.5 + torch.randn(shape, device='cuda', generator=gen)).to(dt)
+        dy = torch.randn(shape, device='cuda', generator=gen).to(dt)
+        o = _bn_operands(torch, x, dy, cd, gen)
+        a, c, b, w = o['a'], o['c'], o['b'], o['w']
+        m = 2 * a * b
+        sums = torch.stack(o['st'][4:]) * 2
+        runs = []
+        for _ in range(2):
+            rm, rv = o['rm'].clone(), o['rv'].clone()
+            runs.append(bn_finalize(sums, m, w, 1e-5, rm, rv) + (rm, rv))
+        rm, rv = o['rm'].clone(), o['rv'].clone()
+        want = bn_finalize_reference(sums[0], sums[1], m, w, 1e-5, rm, rv) \
+            + (rm, rv)
+        fin_err, ok = 0.0, True
+        for g, g2, v in zip(runs[0], runs[1], want):
+            d = (g - v).abs()
+            fin_err = max(fin_err, d.max().item())
+            ok = ok and bool((d <= 1e-6 * v.abs() + 1e-7).all()) \
+                and torch.equal(g, g2)
+        if not ok:
+            failures.append('bn_finalize at {} {}'.format(shape, dt))
+        mean, _, rstd, scale = runs[0][:4]
+        sum_dy, sum_dy_xhat = (t * 2 for t in o['g'])
+        got = [bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, cd, m)
+               for _ in range(2)]
+        x3 = x.reshape(a, c, b).float()
+        xhat = (x3 - mean.view(1, c, 1)) * rstd.view(1, c, 1)
+        terms = scale.abs().view(1, c, 1) * (
+            dy.reshape(a, c, b).float().abs()
+            + (sum_dy.abs() / m).view(1, c, 1)
+            + (xhat * sum_dy_xhat.view(1, c, 1)).abs() / m)
+        dx_err, ok = _ew_errors(torch, got[0], bn_dx_reference(
+            dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, cd, m=m),
+            terms.view(x.shape))
+        if not (ok and torch.equal(got[0], got[1])):
+            failures.append('bn_dx with a count at {} {}'.format(shape, dt))
+        row = {'shape': list(shape), 'dtype': str(dt), 'channel_dim': cd,
+               'bn_finalize_max_abs_err': fin_err,
+               'bn_dx_count_max_abs_err': dx_err}
+        rows.append(row)
+        if timed is None or (tuple(shape), str(dt)) == K3_REPORT:
+            timed = (row, sums, m, o)
+        del x, dy, x3, xhat, terms, got
+    row, sums, m, o = timed
+    c, w = o['c'], o['w']
+    rm, rv = o['rm'].clone(), o['rv'].clone()
+    t = lambda fn: time_ms(fn, torch, warmup=3, iters=20,  # noqa: E731
+                           repeats=5)
+    row['bn_finalize_ms'] = t(lambda: bn_finalize(sums, m, w, 1e-5, rm, rv))
+    row['bn_finalize_plain_ms'] = t(lambda: bn_finalize_reference(
+        sums[0], sums[1], m, w, 1e-5, rm, rv))
+    row['bn_finalize_graph_ms'] = graph_ms(
+        torch, lambda: bn_finalize(sums, m, w, 1e-5, rm, rv))
+    # PyTorch's SyncBatchNorm epilogue: the statistics of 2 ranks' means
+    # and inverse deviations with their counts, and the running update
+    mean2, invstd2 = (v.expand(2, c).contiguous() for v in (
+        o['st'][0], o['st'][2]))
+    counts = torch.full((2,), float(m // 2), device='cuda')
+    try:
+        row['bn_finalize_library_ms'] = t(
+            lambda: torch.batch_norm_gather_stats_with_counts(
+                sums, mean2, invstd2, rm, rv, 0.1, 1e-5, counts))
+    except RuntimeError as e:
+        row['bn_finalize_library_ms'] = None
+        row['bn_finalize_library_error'] = str(e).splitlines()[0][:200]
+    # each input read once (sums 2C, weight C, running 2C), each output
+    # written once (statistics 4C, running 2C); about 12 f32 operations a
+    # channel
+    row['bn_finalize_bound_ms'], row['bn_finalize_bound_by'] = \
+        _k3_bound_ms(11 * c * 4, 12.0 * c)
+    log('17a', json.dumps(row))
+    if failures:
+        raise AssertionError('\n'.join(failures))
+    return {'rows': rows, 'timed': row,
+            'bn_finalize_worst_err': max(r['bn_finalize_max_abs_err']
+                                         for r in rows),
+            'bn_dx_count_worst_err': max(r['bn_dx_count_max_abs_err']
+                                         for r in rows)}
+
+
+def _dp_world1(torch, spec, p):
+    """17b: two flagship train steps through ``distribute_engine`` on a
+    one-rank process group (NCCL on the card): ``bn_stats`` (sums) ->
+    ``all_reduce`` -> ``bn_finalize`` and ``bn_dx`` with the count, held
+    against the one-process steps on the same batch and draws: losses
+    1e-5 relative, step 1's gradients and the state after it at phase 7's
+    tolerances (``compare_train_steps``); whether the states after both
+    steps are bit-equal is reported. Returns the record and the kernel
+    launches of the distributed steps."""
+    import torch.distributed as dist
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.parallel import distribute_engine
+    from bpbreid_tpu_torch.parallel.mesh import (collective_counts,
+                                                 init_process_group,
+                                                 reset_collective_counts)
+    device = spec['device']
+    batch = _to(p['batch'], device)
+    out, states, first = {}, {}, {}
+    os.makedirs(DP_SAVE_DIR, exist_ok=True)
+    rendezvous = os.path.join(DP_SAVE_DIR, 'rendezvous_world1')
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    mesh = None
+    for name in ('one_process', 'world1'):
+        _cfg, (model, engine) = _dp_engine(torch, spec)
+        if name == 'world1':
+            mesh = init_process_group(0, 1, 'file://' + os.path.abspath(
+                rendezvous), spec['backend'], device)
+            distribute_engine(engine, mesh)
+        bn, no_grad = _bn_names(torch, model)
+        reset_launch_counts()
+        reset_collective_counts()
+        losses, step_ms = [], []
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.named_parameters()}
+        for d in p['draws']:
+            t0 = time.perf_counter()
+            losses.append(engine.forward_backward(batch, _to(d, device))[0]
+                          .item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(losses) == 1:
+                # what compare_train_steps reads of step 1
+                first[name] = {
+                    'loss': losses[0], 'before': before,
+                    'grads': {k: v.grad.detach().cpu().clone()
+                              for k, v in model.named_parameters()},
+                    'state': {k: v.detach().cpu().clone()
+                              for k, v in model.state_dict().items()}}
+        out[name] = {'losses': losses, 'launches': dict(launch_counts),
+                     'collectives': dict(collective_counts),
+                     'step_ms': step_ms}
+        states[name] = {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}
+        del model, engine
+    try:
+        diff = max((states['world1'][k].float()
+                    - v.float()).abs().max().item()
+                   for k, v in states['one_process'].items())
+        bit_equal = all(torch.equal(states['world1'][k], v)
+                        for k, v in states['one_process'].items())
+    finally:
+        dist.destroy_process_group()
+    del states
+    step1, checks = compare_train_steps(first['world1'],
+                                        first['one_process'])
+    del first
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    rec = {'backend': mesh.backend, 'steps': len(p['draws']),
+           'losses_one_process': out['one_process']['losses'],
+           'losses_world1': out['world1']['losses'],
+           'state_max_abs_diff': diff, 'bit_equal': bit_equal,
+           'step1_vs_one_process': {
+               k.replace('card', 'world1').replace('cpu', 'one_process'): v
+               for k, v in step1.items()},
+           'launches': out['world1']['launches'],
+           'collectives': out['world1']['collectives'],
+           'step_ms_one_process': out['one_process']['step_ms'],
+           'step_ms_world1': out['world1']['step_ms'],
+           'bn_modules': len(bn), 'bn_without_backward': len(no_grad)}
+    log('17b', json.dumps(rec))
+    checks = ['step 1: ' + c for c in checks]
+    for a, b in zip(rec['losses_world1'], rec['losses_one_process']):
+        if not abs(a - b) <= 1e-5 * abs(b):
+            checks.append('losses {} vs {}'.format(a, b))
+    steps = rec['steps'] if device == 'cuda' else 0    # CPU: no launch
+    for k, want in (('bn_stats', len(bn)), ('bn_finalize', len(bn)),
+                    ('bn_apply', len(bn)),
+                    ('bn_grad_stats', len(bn) - len(no_grad)),
+                    ('bn_dx', len(bn) - len(no_grad))):
+        if rec['launches'].get(k, 0) != want * steps:
+            checks.append('{} launches {} != {}'.format(
+                k, rec['launches'].get(k, 0), want * steps))
+    if checks:
+        raise AssertionError('17b: ' + '; '.join(checks))
+    return rec
+
+
+def _dp_rank(rank, world, init_method, payload_path, out_dir):
+    """One spawned rank of 17c and 17d: gloo on the spec's device."""
+    import torch
+    import torch.distributed as dist
+    from bpbreid_tpu_torch.parallel.mesh import init_process_group
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = torch.load(payload_path, weights_only=False)
+    spec = p['spec']
+    if spec['device'] == 'cpu':
+        torch.set_num_threads(2)
+    mesh = init_process_group(rank, world, init_method, 'gloo',
+                              spec['device'])
+    try:
+        out = {'17c': _dp_rank_train(torch, mesh, spec, p),
+               '17d': _dp_rank_retrieval(torch, mesh, spec)}
+        torch.save(out, os.path.join(out_dir, 'rank{}.pt'.format(rank)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_rank_train(torch, mesh, spec, p):
+    """17c on one rank: the flagship step on its half of the global batch
+    (launches and collectives of that step) and the digest of the state
+    after it; 20 steps on the one batch at phase 7's depth (the flagship's
+    width, batch and dtype) and the digest after them; phase 7's small
+    f32 step."""
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    from bpbreid_tpu_torch.parallel import distribute_engine
+    from bpbreid_tpu_torch.parallel.mesh import (collective_counts,
+                                                 reset_collective_counts)
+    device = spec['device']
+    _cfg, (model, engine) = _dp_engine(torch, spec)
+    distribute_engine(engine, mesh)
+    bn, no_grad = _bn_names(torch, model)
+    batch = _to(p['batch'], device)
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    reset_launch_counts()
+    reset_collective_counts()
+    loss = engine.forward_backward(batch, _to(p['draws'][0], device))[0]
+    out = {'loss': loss.item(), 'launches': dict(launch_counts),
+           'collectives': dict(collective_counts), 'bn_modules': len(bn),
+           'bn_without_backward': len(no_grad),
+           'digest_step': state_digest(model)}
+    del model, engine
+    # the learning check at phase 7's depth: a full-depth step on 2 gloo
+    # ranks on one card takes about 2 s (the gradient's all_reduce goes
+    # through the host)
+    _cfg, (model, engine) = _dp_engine(torch, spec, stages=DP_SMALL_STAGES)
+    distribute_engine(engine, mesh)
+    learn, step_ms = [], []
+    learn_draws = _to(p['learn_draws'], device)
+    for _ in range(spec['learn']):
+        sync()
+        t0 = time.perf_counter()
+        learn.append(engine.forward_backward(batch, learn_draws)[0].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(learning_losses=learn, step_ms_median=statistics.median(
+        step_ms), digest=state_digest(model))
+    del model, engine
+    _cfg, (model, engine) = _dp_engine(torch, spec, small=True)
+    distribute_engine(engine, mesh)
+    out['small'] = _small_step(torch, engine, model, p, device)
+    return out
+
+
+def _dp_rank_retrieval(torch, mesh, spec):
+    """17d on one rank: Market-1501-size features (phase 8b's recipe, the
+    gallery one image larger: odd), boolean visibility; the sharded
+    distances and CMC/mAP against the one-process path on this rank, and
+    the engine's ``evaluate`` under the mesh (its gallery-sharded
+    branch, then the host ranking)."""
+    from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+    from bpbreid_tpu_torch.metrics.distance import \
+        compute_distance_matrix_using_bp_features
+    from bpbreid_tpu_torch.ops.ranking import cmc_map
+    from bpbreid_tpu_torch.parallel import (sharded_bp_distance,
+                                            sharded_cmc_map)
+    device = spec['device']
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    nq, ng, n_ids = spec['market']
+    gen = torch.Generator(device=device).manual_seed(SEED + 18)
+    k, d = 6, 512
+    centers = torch.randn((2 * n_ids, k, d), device=device, generator=gen)
+    q_pids = torch.arange(nq, device=device) % n_ids
+    g_pids = torch.randint(0, 2 * n_ids, (ng,), device=device,
+                           generator=gen)
+    query = _synthetic_split(torch, gen, q_pids, centers, device)
+    gallery = _synthetic_split(torch, gen, g_pids, centers, device)
+    qf, qv, qp, qc = query
+    gf, gv, gp, gc = gallery
+    qv, gv = qv.bool(), gv.bool()
+    sync()
+    t0 = time.perf_counter()
+    dmat, bp, n_gal = sharded_bp_distance(mesh, qf, gf, qv, gv)
+    sync()
+    out = {'queries': nq, 'gallery': ng, 'padded_gallery': dmat.shape[1],
+           'distance_s': time.perf_counter() - t0}
+    d_ref, bp_ref = compute_distance_matrix_using_bp_features(
+        qf, gf, qv, gv, 'mean', 500)
+    out['distance_rel_err'] = ((dmat[:, :n_gal] - d_ref).abs().max()
+                               / d_ref.abs().max()).item()
+    out['part_distance_rel_err'] = ((bp[..., :n_gal] - bp_ref).abs().max()
+                                    / bp_ref.abs().max()).item()
+    del bp, bp_ref
+    t0 = time.perf_counter()
+    cmc, mAP, n_valid = sharded_cmc_map(mesh, dmat, qp, gp, qc, gc,
+                                        n_gallery=n_gal, max_rank=50)
+    out['cmc_s'] = time.perf_counter() - t0
+    want = cmc_map(d_ref, qp, gp, qc, gc, max_rank=50)
+    out.update(mAP=mAP, rank1=float(cmc[0]), n_valid=n_valid,
+               cmc_err=float(np.abs(cmc - want[0].cpu().numpy()).max()),
+               map_err=abs(mAP - float(want[1])),
+               n_valid_want=int(want[2]))
+    del dmat, d_ref
+    engine = ImagePartBasedEngine(torch.nn.Identity(), device=device)
+    splits = {'query': query + (0.0,), 'gallery': gallery + (0.0,)}
+    engine.feature_extraction = splits.__getitem__
+    engine.mesh = mesh
+    t0 = time.perf_counter()
+    res = engine.evaluate('query', 'gallery', normalize_feature=False)
+    out['engine_evaluate_s'] = time.perf_counter() - t0
+    out['engine_cmc_err'] = float(np.abs(res['cmc'][:50]
+                                         - want[0].cpu().numpy()).max())
+    out['engine_map_err'] = abs(res['mAP'] - float(want[1]))
+    return out
+
+
+def _dp_spawned(torch, spec, p, one_loss):
+    """17c and 17d: 2 gloo ranks on the spec's device (spawned), against
+    the one-process steps: the 64-image bf16 step's loss ``one_loss``
+    (17b's first one-process step on the same batch and draws; 2e-2
+    relative: each rank's bf16 convolutions run at 32 images), 20 steps
+    on the one batch at phase 7's depth whose loss falls, the ranks'
+    parameters and BN statistics bit-equal after the full-depth step and
+    after the 20, the small f32 step at phase 7's tolerances, and
+    each rank's BN launches a step (one ``bn_stats``, ``bn_finalize`` and
+    ``bn_apply`` for each kernel-backed BN, one ``bn_grad_stats`` and
+    ``bn_dx`` for each with a backward); 17d's distances to 1e-5
+    relative and CMC/mAP to 1e-6."""
+    import torch.multiprocessing as mp
+    device = spec['device']
+    _cfg, (model, engine) = _dp_engine(torch, spec, small=True)
+    one_small = _small_step(torch, engine, model, p, device)
+    del model, engine
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(DP_SAVE_DIR, 'ranks')
+    os.makedirs(out_dir, exist_ok=True)
+    payload_path = os.path.join(out_dir, 'payload.pt')
+    torch.save(dict(p, spec=spec), payload_path)
+    rendezvous = os.path.abspath(os.path.join(out_dir, 'rendezvous'))
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    t0 = time.perf_counter()
+    # a rank that fails (or a failed collective) raises here
+    mp.start_processes(_dp_rank, args=(2, 'file://' + rendezvous,
+                                       payload_path, out_dir),
+                       nprocs=2, join=True, start_method='spawn')
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, 'rank{}.pt'.format(r)),
+                        weights_only=False) for r in range(2)]
+    r0 = ranks[0]['17c']
+    small, checks = compare_train_steps(r0['small'], one_small)
+    bn, no_grad = r0['bn_modules'], r0['bn_without_backward']
+    rec = {'ranks': 2, 'backend': 'gloo', 'device': device,
+           'images_per_rank': len(p['batch']['pid']) // 2,
+           'loss_ranks': [r['17c']['loss'] for r in ranks],
+           'loss_one_process': one_loss,
+           'loss_rel_diff': abs(r0['loss'] - one_loss) / abs(one_loss),
+           'learning_losses': r0['learning_losses'],
+           'step_ms_median': [r['17c']['step_ms_median'] for r in ranks],
+           'digests_equal': [ranks[0]['17c'][k] == ranks[1]['17c'][k]
+                             for k in ('digest_step', 'digest')],
+           'launches_per_step': [r['17c']['launches'] for r in ranks],
+           'collectives_per_step': [r['17c']['collectives'] for r in ranks],
+           'bn_modules': bn, 'bn_without_backward': no_grad,
+           'small_f32_vs_one_process': {
+               k.replace('card', 'ranks').replace('cpu', 'one_process'): v
+               for k, v in small.items()},
+           'spawn_s': spawn_s}
+    log('17c', json.dumps(rec))
+    checks = ['small f32 step: ' + c for c in checks]
+    if len(set(rec['loss_ranks'])) != 1:
+        checks.append('the ranks\' losses differ: {}'.format(
+            rec['loss_ranks']))
+    if not rec['loss_rel_diff'] <= 2e-2:
+        checks.append('loss {} vs one process {}'.format(r0['loss'],
+                                                         one_loss))
+    learn = rec['learning_losses']
+    if not (all(np.isfinite(learn))
+            and np.mean(learn[-3:]) < np.mean(learn[:3])):
+        checks.append('loss did not fall: {}'.format(learn))
+    if not all(rec['digests_equal']):
+        checks.append('the ranks\' parameters or BN statistics differ: {}'
+                      .format(rec['digests_equal']))
+    on_card = device == 'cuda'          # the CPU runs the plain versions
+    for r, launches in enumerate(rec['launches_per_step']):
+        for k, want in (('bn_stats', bn), ('bn_finalize', bn),
+                        ('bn_apply', bn), ('bn_grad_stats', bn - no_grad),
+                        ('bn_dx', bn - no_grad)):
+            if launches.get(k, 0) != want * on_card:
+                checks.append('rank {}: {} launches {} != {}'.format(
+                    r, k, launches.get(k, 0), want))
+        reduces = rec['collectives_per_step'][r].get('all_reduce', 0)
+        if reduces < bn + (bn - no_grad) + 1:
+            checks.append('rank {}: {} all_reduce a step'.format(r, reduces))
+    ret = {'ranks': [r['17d'] for r in ranks]}
+    for r, x in enumerate(ret['ranks']):
+        for key, tol in (('distance_rel_err', 1e-5),
+                         ('part_distance_rel_err', 1e-5), ('cmc_err', 1e-6),
+                         ('map_err', 1e-6), ('engine_cmc_err', 1e-6),
+                         ('engine_map_err', 1e-6)):
+            if not x[key] <= tol:
+                checks.append('17d rank {}: {} {}'.format(r, key, x[key]))
+        if x['n_valid'] != x['n_valid_want'] or x['padded_gallery'] \
+                != x['gallery'] + 1:
+            checks.append('17d rank {}: {}'.format(r, x))
+    log('17d', json.dumps(ret))
+    if checks:
+        raise AssertionError('17c/17d: ' + '; '.join(checks))
+    return rec, ret
+
+
+def phase_data_parallel(torch, results, bn_shapes, spec=None):
+    """Phase 17: data parallelism on ``torch.distributed`` (see the module
+    docstring). Returns 17b's kernel launches (the distributed steps)."""
+    import shutil
+    spec = spec or _dp_spec()
+    t0 = time.perf_counter()
+    out = {'17a': _dp_bn_kernels(torch, bn_shapes)} if bn_shapes else {}
+    p = _dp_batches(torch, spec)
+    try:
+        out['17b'] = _dp_world1(torch, spec, p)
+        out['17c'], out['17d'] = _dp_spawned(
+            torch, spec, p, out['17b']['losses_one_process'][0])
+    finally:
+        shutil.rmtree(DP_SAVE_DIR, ignore_errors=True)
+    out['phase_s'] = time.perf_counter() - t0
+    results['data_parallel'] = out
+    return out['17b']['launches']
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5208,12 +5786,15 @@ def main():
     figures_launches = phase_figures_and_tools(torch, results,
                                                ranking_inputs)
     del ranking_inputs
-    # the launches of phases 10, 11, 13, 14, 15 and 16 (each its own
+    log('phase 17: data parallelism (parallel/): bn_finalize and bn_dx '
+        'with a count, NCCL at world size 1, 2 gloo ranks on the card')
+    dp_launches = phase_data_parallel(torch, results, bn_shapes)
+    # the launches of phases 10, 11, 13, 14, 15, 16 and 17b (each its own
     # path, counted from 0)
     path_launches = {}
     for counts in (inference_launches, pcb_launches, bot_launches,
                    global_launches, video_launches, zoo_launches,
-                   figures_launches):
+                   figures_launches, dp_launches):
         for k, v in counts.items():
             path_launches[k] = path_launches.get(k, 0) + v
 
@@ -5242,6 +5823,17 @@ def main():
             'bound_ms': k3_row[name + '_bound_ms'],
             'bound_by': k3_row[name + '_bound_by'],
             'library_ms': k3_row[name + '_library_ms']})
+    dp = results['data_parallel']
+    fin = dp['17a']['timed']
+    kernels.append({
+        'name': 'bn_finalize', 'route': 'cuda', 'source': K3_SOURCE,
+        'replaces': BN_FINALIZE_REPLACES,
+        'launches': dp_launches.get('bn_finalize', 0),
+        'max_abs_err': dp['17a']['bn_finalize_worst_err'],
+        'ms': fin['bn_finalize_ms'], 'plain_ms': fin['bn_finalize_plain_ms'],
+        'bound_ms': fin['bn_finalize_bound_ms'],
+        'bound_by': fin['bn_finalize_bound_by'],
+        'library_ms': fin['bn_finalize_library_ms']})
     k1_row = next(r for r in k1_rows
                   if (tuple(r['shape']), r['dtype']) == K1_REPORT)
     kernels.append({
@@ -5461,6 +6053,34 @@ def main():
                 'hpo_s': fg['16d']['hpo_s']},
         'seconds': {k: fg[k + '_s'] for k in ('16a', '16b', '16d')},
         'phase_s': fg['phase_s'], 'gpu': gpu}))
+    c, dd = dp['17c'], dp['17d']['ranks']
+    log('dp', json.dumps({
+        '17a': {k: dp['17a'][k] for k in ('bn_finalize_worst_err',
+                                          'bn_dx_count_worst_err')},
+        '17a_shapes': len(dp['17a']['rows']),
+        '17a_bn_finalize': {k[len('bn_finalize_'):]: v
+                            for k, v in fin.items()
+                            if k.startswith('bn_finalize_')},
+        '17b': {k: dp['17b'][k] for k in (
+            'backend', 'losses_world1', 'losses_one_process', 'bit_equal',
+            'state_max_abs_diff', 'step1_vs_one_process', 'collectives',
+            'step_ms_one_process', 'step_ms_world1')},
+        '17b_launches_per_step': {k: v / dp['17b']['steps']
+                                  for k, v in dp['17b']['launches'].items()},
+        '17c': {k: c[k] for k in (
+            'loss_ranks', 'loss_one_process', 'loss_rel_diff',
+            'digests_equal', 'step_ms_median', 'launches_per_step',
+            'collectives_per_step', 'bn_modules', 'bn_without_backward',
+            'small_f32_vs_one_process', 'spawn_s')},
+        '17c_learning_first_last': [c['learning_losses'][0],
+                                    c['learning_losses'][-1]],
+        '17d': {k: [r[k] for r in dd] for k in (
+            'distance_rel_err', 'part_distance_rel_err', 'cmc_err',
+            'map_err', 'engine_cmc_err', 'engine_map_err', 'distance_s',
+            'cmc_s', 'engine_evaluate_s')},
+        '17d_gallery': [dd[0]['gallery'], dd[0]['padded_gallery']],
+        '17d_mAP_rank1': [dd[0]['mAP'], dd[0]['rank1']],
+        'phase_s': dp['phase_s'], 'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

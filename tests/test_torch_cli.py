@@ -157,7 +157,8 @@ def test_main_raises_without_cuda_when_use_gpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('opts, error, match', [
-    (['train.n_devices', '2'], NotImplementedError, 'Queue 1 item 8'),
+    (['train.n_devices', '3', 'use_gpu', 'False'], ValueError,
+     'not divisible by the 3-device'),
     (['data.type', 'mixed'], ValueError, "data.type must be 'image' or"),
     (['data.sources', "['no_such_dataset']"], ValueError, 'Invalid dataset'),
     (['data.type', 'video', 'loss.name', 'part_based'], ValueError,

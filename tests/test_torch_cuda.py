@@ -302,6 +302,154 @@ def test_train_batch_norm_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize('shape,channel_dim', K3_SHAPES)
+@pytest.mark.parametrize('world', [1, 2, 4])
+def test_bn_finalize_kernel_matches_plain(cuda, shape, channel_dim, world):
+    """bn_finalize (the cross-rank BN's epilogue) on the sums of ``world``
+    equal slices, with the global count, against its plain version: the
+    statistics and the running update to 1e-6 relative, the same bits
+    over two calls, one launch each; at world 1 on bn_stats's own sums
+    it gives bn_stats's statistics bit for bit."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (
+        bn_finalize, bn_finalize_reference, bn_stats, channel_view)
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    x, _ = _k3_inputs(cuda, shape, torch.bfloat16, 5)
+    a, c, b = channel_view(x.shape, channel_dim)
+    weight, _, st = _stats(cuda, x, channel_dim)
+    sums = torch.stack(st[4:]) * world
+    m = a * b * world
+    rm = torch.linspace(-1, 1, c, device=cuda)
+    rv = torch.linspace(0.5, 2, c, device=cuda)
+    runs = []
+    before = launch_counts['bn_finalize']
+    for _ in range(2):
+        rm_k, rv_k = rm.clone(), rv.clone()
+        runs.append(bn_finalize(sums, m, weight, 1e-5, rm_k, rv_k)
+                    + (rm_k, rv_k))
+    assert launch_counts['bn_finalize'] == before + 2
+    rm_p, rv_p = rm.clone(), rv.clone()
+    want = bn_finalize_reference(sums[0], sums[1], m, weight, 1e-5, rm_p,
+                                 rv_p) + (rm_p, rv_p)
+    for g, g2, w in zip(runs[0], runs[1], want):
+        assert torch.equal(g, g2)
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+    if world == 1:
+        for g, w in zip(bn_finalize(sums, m, weight, 1e-5), st[:4]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('shape,channel_dim', K3_SHAPES)
+def test_bn_local_sums_kernel_matches_bn_stats(cuda, shape, channel_dim):
+    """bn_local_sums (the sums a rank all-reduces) is one bn_stats launch:
+    a contiguous f32 [2, C] with bn_stats's sums bit for bit (held
+    against the plain sums in test_bn_stats_kernels_match_plain)."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import bn_local_sums
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    x, _ = _k3_inputs(cuda, shape, torch.bfloat16, 5)
+    weight, _, st = _stats(cuda, x, channel_dim)
+    before = launch_counts['bn_stats']
+    got = bn_local_sums(x, weight, 1e-5, channel_dim)
+    assert launch_counts['bn_stats'] == before + 1
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert got.shape == (2, weight.numel())
+    assert torch.equal(got, torch.stack(st[4:]))
+
+
+@pytest.mark.parametrize('shape,channel_dim', K3_SHAPES)
+@pytest.mark.parametrize('world', [2, 4])
+def test_bn_dx_with_a_count_matches_plain(cuda, shape, channel_dim, world):
+    """bn_dx with the global count of ``world`` ranks (the sums
+    all-reduced) against bn_dx_reference with the same count: one ulp
+    plus 1e-6 of the terms, the same bits over two calls."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_dx,
+                                                      bn_dx_reference,
+                                                      bn_grad_stats,
+                                                      channel_view)
+    x, dy = _k3_inputs(cuda, shape, torch.bfloat16, 6)
+    a, c, b = channel_view(x.shape, channel_dim)
+    _, _, (mean, _, rstd, scale, _, _) = _stats(cuda, x, channel_dim)
+    sum_dy, sum_dy_xhat = (t * world for t in bn_grad_stats(
+        dy, x, mean, rstd, channel_dim))
+    m = a * b * world
+    got = [bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat,
+                 channel_dim, m) for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    want = bn_dx_reference(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat,
+                           channel_dim, m=m)
+    x3 = x.reshape(a, c, b).float()
+    xhat = (x3 - mean.view(1, c, 1)) * rstd.view(1, c, 1)
+    terms = scale.abs().view(1, c, 1) * (
+        dy.reshape(a, c, b).float().abs() + (sum_dy.abs() / m).view(1, c, 1)
+        + (xhat * sum_dy_xhat.view(1, c, 1) / m).abs())
+    _ew_close(got[0], want, terms.view(x.shape))
+    local = bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat,
+                  channel_dim)
+    assert not torch.equal(local, got[0])
+
+
+def test_bn_finalize_and_count_refuse_bad_inputs(cuda):
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import bn_dx, bn_finalize
+    w = torch.ones(8, device=cuda)
+    sums = torch.ones(2, 8, device=cuda)
+    with pytest.raises(ValueError):
+        bn_finalize(sums.t().contiguous().t(), 4, w, 1e-5)
+    with pytest.raises(ValueError):
+        bn_finalize(sums.double(), 4, w, 1e-5)
+    with pytest.raises(ValueError):
+        bn_finalize(sums, 0, w, 1e-5)
+    with pytest.raises(ValueError):
+        bn_finalize(sums, 4, w[:4], 1e-5)
+    with pytest.raises(ValueError):          # one running buffer alone
+        bn_finalize(sums, 4, w, 1e-5, running_mean=w.clone())
+    x = torch.zeros(2, 8, 4, 4, device=cuda)
+    with pytest.raises(ValueError):
+        bn_dx(x, x, w, w, w, w, w, 1, 0)
+
+
+def test_cross_rank_batch_norm_at_world_1_is_the_plain_batch_norm(
+        cuda, tmp_path):
+    """FastBatchNorm under a one-rank gloo mesh on the card: bn_stats
+    (sums) -> all_reduce -> bn_finalize -> bn_apply forward, bn_grad_stats
+    -> all_reduce -> bn_dx backward, bit-equal to the same module without
+    a mesh (f32 and bf16)."""
+    import torch.distributed as dist
+    from bpbreid_tpu_torch.models.common import FastBatchNorm
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    from bpbreid_tpu_torch.parallel.mesh import (collective_counts,
+                                                 init_process_group)
+    mesh = init_process_group(0, 1, 'file://{}'.format(tmp_path / 'rdv'),
+                              'gloo', cuda)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = _k3_inputs(cuda, (8, 16, 12, 5), dtype, 1)
+            out = []
+            for use_mesh in (False, True):
+                bn = FastBatchNorm(16, dtype=dtype).train().to(cuda)
+                with torch.no_grad():
+                    bn.weight.copy_(torch.linspace(0.5, 1.5, 16))
+                    bn.bias.fill_(0.1)
+                bn.mesh = mesh if use_mesh else None
+                xi = x.detach().clone().requires_grad_(True)
+                before = dict(launch_counts)
+                reduces = collective_counts['all_reduce']
+                y = bn(xi)
+                y.backward(dy)
+                torch.cuda.synchronize()
+                if use_mesh:
+                    for name in ('bn_stats', 'bn_finalize', 'bn_apply',
+                                 'bn_grad_stats', 'bn_dx'):
+                        assert launch_counts[name] == \
+                            before.get(name, 0) + 1, name
+                    assert collective_counts['all_reduce'] == reduces + 2
+                out.append([t.detach() for t in (
+                    y, xi.grad, bn.weight.grad, bn.bias.grad,
+                    bn.running_mean, bn.running_var)])
+            for a, b in zip(*out):
+                assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize('shape,channel_dim,dtype', [
     ((4, 16, 12, 8), 1, torch.bfloat16), ((6, 5, 32), -1, torch.float32)])
 def test_eval_batch_norm_on_the_card_is_one_launch(cuda, shape, channel_dim,
