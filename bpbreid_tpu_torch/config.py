@@ -188,7 +188,8 @@ class TrainCfg:
     batch_log_freq: int = 0
     # multi-device data parallelism (not ported yet)
     n_devices: int = 0
-    # train steps per dispatch (read by the JAX engine; kept so configs load)
+    # train steps per dispatch: groups of k batches through
+    # forward_backward_multi (a CUDA graph's replays on one card)
     steps_per_dispatch: int = 8
 
 
@@ -264,7 +265,8 @@ class TestCfg:
     batch_size: int = 128
     batch_size_pairwise_dist_matrix: int = 500
     dist_metric: str = 'euclidean'
-    # eval batches per dispatch (read by the JAX engine; kept so configs load)
+    # eval batches per dispatch: groups of k batches (a CUDA graph's
+    # replays on one card)
     batches_per_dispatch: int = 8
     # calibrated int8 eval (ops/quant.py): the engine, the extractor and
     # the CLI

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from bpbreid_tpu_torch.ops.masks import (GroupingSpec, add_background_mask,
                                          group_masks, group_masks_special,
                                          masks_preprocess_all)
-from bpbreid_tpu_torch.ops.resize import _nearest_indices, resize_nearest
+from bpbreid_tpu_torch.ops.resize import nearest_indices, resize_nearest
+from bpbreid_tpu_torch.ops.tensortools import constant
 
 __all__ = ['eval_preprocess', 'mask_chain', 'mask_chain_kwargs',
            'train_augment', 'sample_train_draws', 'slice_draws']
@@ -49,8 +50,8 @@ def _masks_to_image_grid(masks, h, w):
 
 def _normalize(imgs, mean=IMAGENET_MEAN, std=IMAGENET_STD):
     """``[N, H, W, 3]`` float -> normalized, same layout."""
-    mean = torch.as_tensor(mean, dtype=imgs.dtype, device=imgs.device)
-    std = torch.as_tensor(std, dtype=imgs.dtype, device=imgs.device)
+    mean = constant(tuple(mean), imgs.device, dtype=imgs.dtype)
+    std = constant(tuple(std), imgs.device, dtype=imgs.dtype)
     return (imgs - mean) / std
 
 
@@ -191,7 +192,7 @@ def _coarse_dropout(imgs, masks, params, mean=IMAGENET_MEAN):
     inside = ((yy >= y0[:, None, None]) & (yy < (y0 + hole_h)[:, None, None])
               & (xx >= x0[:, None, None]) & (xx < (x0 + hole_w)[:, None, None])
               & apply[:, None, None])[..., None]
-    fill = torch.as_tensor(mean, dtype=imgs.dtype, device=imgs.device)
+    fill = constant(tuple(mean), imgs.device, dtype=imgs.dtype)
     imgs = torch.where(inside, fill, imgs)
     if masks is not None:
         masks = torch.where(inside, torch.zeros_like(masks), masks)
@@ -221,8 +222,8 @@ def _mask_composed_chain(masks, full_h, full_w, off, flip, erase,
     out_h, out_w = full_h // mask_scale, full_w // mask_scale
     n, h0, w0, _ = masks.shape
     dev = masks.device
-    y_f = torch.as_tensor(_nearest_indices(full_h, out_h), device=dev)
-    x_f = torch.as_tensor(_nearest_indices(full_w, out_w), device=dev)
+    y_f = nearest_indices(full_h, out_h, dev)
+    x_f = nearest_indices(full_w, out_w, dev)
 
     # crop: position in the unpadded (post-flip) image + validity
     row_valid = col_valid = None

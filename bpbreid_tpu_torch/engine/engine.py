@@ -4,12 +4,24 @@
 checkpoint, with the frozen-base epochs of two-stepped transfer learning
 (``fixbase_epoch``, ``open_layers``), resume (``start_epoch``) and
 graceful preemption: SIGTERM or SIGINT stops training at the next batch,
-writes an emergency checkpoint and returns zeros. One train step a
-batch: the JAX package's grouped dispatch (``steps_per_dispatch``,
-``batches_per_dispatch``) is a TPU dispatch trick with the same math.
+writes an emergency checkpoint and returns zeros.
 
-``device_prefetch`` moves the next batches to the device while the
-current step computes.
+Grouped dispatch, as in JAX: ``train`` stacks ``train.steps_per_dispatch``
+consecutive batches into one ``[k, B, ...]`` group
+(``group_train_batches``; a trailing partial group runs as single steps)
+and runs it through ``forward_backward_multi``; the engines group their
+eval batches by ``test.batches_per_dispatch``
+(``_eval_batch_groups``). On a CUDA device without a mesh the k steps
+(or batches) replay a captured CUDA graph of the step
+(``engine/graphs.py``) with no host sync in between, where JAX scans
+them in one compiled program; on the CPU, under a mesh (gloo cannot be
+captured) or with an optimizer whose step reads the host
+(``optim.OptaxRule``; an Adam built without ``capturable``) they run as
+k eager steps. The choice is made from the configuration alone
+(``train_graphs``); a capture that fails raises.
+
+``device_prefetch`` moves the next batches (or groups) to the device
+while the current step computes.
 
 Under ``parallel.distribute_engine`` (``mesh`` set: one rank of a
 data-parallel run) every rank runs the same loop on the global batches;
@@ -24,12 +36,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from bpbreid_tpu_torch.engine.graphs import GraphStep, tensor_addresses
+from bpbreid_tpu_torch.optim.optimizer import OptaxRule
 from bpbreid_tpu_torch.parallel.mesh import all_reduce_flat, shard_bounds
 from bpbreid_tpu_torch.utils.avgmeter import MetricsSummary, TimeMeter
 from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
 from bpbreid_tpu_torch.utils.engine_state import EngineState
 
-__all__ = ['Engine', 'device_prefetch', 'normalize']
+__all__ = ['Engine', 'device_prefetch', 'group_train_batches',
+           'normalize', 'stack_steps', 'valid_rows']
 
 DEVICE_KEYS = ('image', 'mask', 'pid')
 # batches copied ahead of the one the step reads
@@ -41,6 +56,52 @@ def normalize(features, dim=-1):
     :352)."""
     f = features.float()
     return f / f.norm(dim=dim, keepdim=True).clamp(min=1e-12)
+
+
+def group_train_batches(loader, k, keys=DEVICE_KEYS):
+    """Stack ``k`` consecutive train batches into one ``[k, B, ...]``
+    group for ``forward_backward_multi`` (JAX ``group_train_batches``
+    :23): yields the stacked ``keys`` with ``_k`` = k for each full group,
+    then the batches of a trailing partial group as they are (no
+    ``_k``), which run as single steps."""
+    buf = []
+    for batch in loader:
+        buf.append(batch)
+        if len(buf) == k:
+            stacked = {key: np.stack([np.asarray(b[key]) for b in buf])
+                       for key in keys if buf[0].get(key) is not None}
+            stacked['_k'] = k
+            yield stacked
+            buf = []
+    yield from buf
+
+
+def stack_steps(outputs):
+    """``[(loss, summary)]`` of k steps -> ``(losses [k], summary with
+    [k] leaves)``, on the device."""
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {key: stack([t[key] for t in trees]) for key in trees[0]}
+        return torch.stack(trees)
+    return stack([loss for loss, _ in outputs]), stack(
+        [summary for _, summary in outputs])
+
+
+def valid_rows(t, valid):
+    """The rows of ``t`` where the host's bool ``valid`` is True, taken by
+    an index tensor (no readback); ``t`` itself when all are."""
+    if valid.all():
+        return t
+    rows = torch.as_tensor(np.flatnonzero(valid)).to(t.device,
+                                                      non_blocking=True)
+    return t.index_select(0, rows)
+
+
+def _last_step(summary):
+    """The last step's terms of a summary with ``[k]`` leaves."""
+    if isinstance(summary, dict):
+        return {key: _last_step(v) for key, v in summary.items()}
+    return summary[-1]
 
 
 def device_prefetch(loader, device, keys=DEVICE_KEYS):
@@ -104,9 +165,30 @@ def device_prefetch(loader, device, keys=DEVICE_KEYS):
 
 class Engine:
     """The host control flow of training and testing; subclasses supply
-    ``forward_backward`` (through ``optimizer_step``) and ``_evaluate``,
-    and set ``model``, ``optimizer``, ``scheduler``, ``open_layers`` and
-    ``save_model_flag``."""
+    ``train_inputs`` and ``train_step`` (through ``optimizer_step``),
+    ``forward_backward`` and ``_evaluate``, and set ``model``,
+    ``optimizer``, ``scheduler``, ``open_layers``, ``save_model_flag``,
+    ``device`` and ``generator``."""
+
+    @staticmethod
+    def _eval_batch_groups(loader, k):
+        """Lists of ``k`` consecutive eval batches
+        (``test.batches_per_dispatch``; JAX :77). A trailing short group
+        is padded with copies of its last batch whose rows are all
+        invalid (``valid`` False), so every group has k batches of one
+        shape; the padding contributes nothing to the outputs."""
+        buf = []
+        for batch in loader:
+            buf.append(batch)
+            if len(buf) == k:
+                yield buf
+                buf = []
+        if buf:
+            filler = dict(buf[-1])
+            filler['valid'] = np.zeros(len(np.asarray(buf[-1]['pid'])),
+                                       bool)
+            buf.extend([filler] * (k - len(buf)))
+            yield buf
 
     def __init__(self, config=None, datamanager=None, writer=None,
                  engine_state=None):
@@ -127,6 +209,142 @@ class Engine:
         self.save_model_flag = False
         # parallel.distribute_engine: this rank's Mesh
         self.mesh = None
+        # the CUDA graphs of the train and eval steps (engine/graphs.py)
+        self._train_graph = self._eval_graph = None
+
+    @property
+    def steps_per_dispatch(self):
+        """k of the grouped train dispatch: ``train.steps_per_dispatch``
+        (1 without a config, and with ``train.batch_debug_freq``, whose
+        figures need each step's outputs)."""
+        tcfg = getattr(self.config, 'train', None)
+        if tcfg is None or getattr(tcfg, 'batch_debug_freq', 0):
+            return 1
+        return max(1, int(getattr(tcfg, 'steps_per_dispatch', 1) or 1))
+
+    @property
+    def batches_per_dispatch(self):
+        """k of the grouped eval dispatch: ``test.batches_per_dispatch``
+        (1 without a config)."""
+        tcfg = getattr(self.config, 'test', None)
+        if tcfg is None:
+            return 1
+        return max(1, int(getattr(tcfg, 'batches_per_dispatch', 1) or 1))
+
+    @property
+    def eval_graphs(self):
+        """Whether grouped eval batches replay a CUDA graph: on a CUDA
+        device without a mesh."""
+        return torch.device(self.device).type == 'cuda' and self.mesh is None
+
+    @property
+    def train_graphs(self):
+        """Whether ``forward_backward_multi`` replays a CUDA graph of the
+        train step: on a CUDA device, without a mesh (gloo cannot be
+        captured), with an optimizer whose step reads nothing on the
+        host: SGD, or Adam built with ``capturable=True``
+        (``optim.build_optimizer`` builds it so on a CUDA device).
+        ``OptaxRule`` computes its scalars on the host and an Adam without
+        ``capturable`` keeps its step count there, so both take k eager
+        steps."""
+        opt = self.optimizer
+        capturable = isinstance(opt, torch.optim.SGD) or (
+            isinstance(opt, torch.optim.Adam) and all(
+                g.get('capturable', False) for g in opt.param_groups))
+        return (self.eval_graphs and capturable
+                and not isinstance(opt, OptaxRule))
+
+    def _train_state(self):
+        """Where the tensors a train step reads and writes lie: the
+        parameters, their gradients, the buffers and the optimizer's
+        state."""
+        params = list(self.model.parameters())
+        opt_state = [v for p in params
+                     for v in self.optimizer.state.get(p, {}).values()
+                     if isinstance(v, torch.Tensor)]
+        return tensor_addresses(params + [p.grad for p in params]
+                                + list(self.model.buffers()) + opt_state)
+
+    def _eval_state(self):
+        """Where the parameters and buffers an eval step reads lie, and
+        their versions (the int8 weight cache follows them)."""
+        return tensor_addresses(list(self.model.parameters())
+                                + list(self.model.buffers()), versions=True)
+
+    def _eval_batches(self, loader, step, keys=('image',), key=()):
+        """``(batch, step(*inputs))`` for each batch of ``loader`` with a
+        valid row (``valid`` filled in when missing), ``inputs`` the
+        batch's ``keys`` on the device (None where missing). With
+        ``batches_per_dispatch`` k above 1 the batches come in groups of
+        k (``_eval_batch_groups``; the padding of a trailing group has no
+        valid row and is skipped) and, with ``eval_graphs``, each replays
+        the CUDA graph of ``step`` (``key`` keys it beside the inputs'
+        shapes and the model's state), captured at the second batch."""
+        k = self.batches_per_dispatch
+        batches = loader
+        if k > 1:
+            batches = (b for group in self._eval_batch_groups(loader, k)
+                       for b in group)
+        graph = None
+        if k > 1 and self.eval_graphs:
+            if self._eval_graph is None or self._eval_graph.fn != step:
+                self._eval_graph = GraphStep(step, state=self._eval_state)
+            graph = self._eval_graph
+        for batch in device_prefetch(batches, self.device, keys=keys):
+            batch['valid'] = np.asarray(batch.get(
+                'valid', np.ones(len(batch['pid']), bool)), bool)
+            if not batch['valid'].any():
+                continue
+            inputs = [batch.get(name) for name in keys]
+            yield batch, (graph(inputs, key) if graph is not None
+                          else step(*inputs))
+
+    def train_inputs(self, batch):
+        """The train step's input tensors of ``batch`` on the device."""
+        raise NotImplementedError
+
+    def train_step(self, *inputs, draws=None):
+        """One train step on the device tensors ``inputs``; returns
+        ``(loss, summary)`` as tensors on the device."""
+        raise NotImplementedError
+
+    def forward_backward_multi(self, batch, draws=None):
+        """``k = batch['image'].shape[0]`` train steps on the step-stacked
+        ``[k, B, ...]`` arrays of ``batch`` (JAX ``forward_backward_multi``,
+        part_based.py:262): through the train step's CUDA graph with
+        ``train_graphs`` (k replays, no host sync in between), else k
+        eager steps. ``draws`` (eager path only) is a list of k
+        augmentation draws. Returns the ``[k]`` loss vector and the
+        summary with ``[k]`` leaves, on the device."""
+        self.require_optimizer()
+        inputs = self.train_inputs(batch)
+        k = inputs[0].shape[0]
+        steps = [[None if t is None else t[i] for t in inputs]
+                 for i in range(k)]
+        if not self.train_graphs:
+            draws = draws if draws is not None else [None] * k
+            return stack_steps([self.train_step(*s, draws=d)
+                                for s, d in zip(steps, draws)])
+        if draws is not None:
+            raise ValueError('draws are taken from the engine\'s generator '
+                             'on the CUDA graph path')
+        if self._train_graph is None:
+            self._train_graph = GraphStep(
+                self.train_step, generators=self.step_generators(),
+                state=self._train_state)
+        key = (tuple(g['lr'] for g in self.optimizer.param_groups),
+               self._freeze_base)
+        out = stack_steps([self._train_graph(s, key) for s in steps])
+        # the replays wrote the parameters and buffers in place: their
+        # version counters move as an eager step's would (caches such as
+        # the int8 weights' key on them)
+        for t in list(self.model.parameters()) + list(self.model.buffers()):
+            torch.autograd.graph.increment_version(t)
+        return out
+
+    def step_generators(self):
+        """The generators the train step draws from: the engine's."""
+        return [getattr(self, 'generator', None)]
 
     @property
     def writes(self):
@@ -314,9 +532,14 @@ class Engine:
 
     def train(self, epoch, print_freq=10):
         """One epoch over the train loader; returns the loss meters.
-        ``batch`` and ``data loading`` times are host wall clock: a step
-        returns before the device finishes it, so they show where the
-        host waits (for the loader, or for the device's queue)."""
+        With ``steps_per_dispatch`` k above 1 the batches run in groups
+        of k through ``forward_backward_multi`` (JAX :251-318): the
+        engine-state bus sees k batch events, the time meters take the
+        group's time per step with weight k, and the loss meters each
+        step's terms. ``batch`` and ``data loading`` times are host wall
+        clock: a step returns before the device finishes it, so they show
+        where the host waits (for the loader, or for the device's
+        queue)."""
         losses = MetricsSummary()
         w = self.writer
         batch_time = w.batch_timer if w is not None else TimeMeter()
@@ -325,26 +548,39 @@ class Engine:
             w.epoch_timer.start()
         log_freq = self.config.train.batch_log_freq \
             if self.config is not None else 0
+        spd = self.steps_per_dispatch
         self.engine_state.epoch_started()
-        num_batches = len(self.datamanager.train_loader)
+        loader = self.datamanager.train_loader
+        num_batches = len(loader)
+        if spd > 1:
+            loader = group_train_batches(loader, spd)
         done = logged = printed = 0
         end = time.perf_counter()
-        for batch in device_prefetch(self.datamanager.train_loader,
-                                     self.device):
+        for batch in device_prefetch(loader, self.device):
             if self._preempted:
                 break
             data_start = time.perf_counter()
-            self.engine_state.batch_started()
-            loss, loss_summary = self.forward_backward(batch)
-            data_time.meter.update(data_start - end)
+            k = int(batch.pop('_k', 0))
+            n = k or 1
+            for _ in range(n):
+                self.engine_state.batch_started()
+            if k:
+                loss_vec, loss_summary = self.forward_backward_multi(batch)
+                loss = loss_vec[-1]
+            else:
+                loss, loss_summary = self.forward_backward(batch)
+            data_time.meter.update((data_start - end) / n, n)
             losses.update(loss_summary)
-            batch_time.meter.update(time.perf_counter() - end)
+            batch_time.meter.update((time.perf_counter() - end) / n, n)
             end = time.perf_counter()
-            done += 1
-            self.engine_state.batch_completed()
+            done += n
+            for _ in range(n):
+                self.engine_state.batch_completed()
             if w is not None and log_freq > 0 and done // log_freq > logged:
                 logged = done // log_freq
-                w.report_global_step(loss_summary, self.engine_state.lr)
+                # the group's last step's terms
+                latest = _last_step(loss_summary) if k else loss_summary
+                w.report_global_step(latest, self.engine_state.lr)
             if print_freq > 0 and done // print_freq > printed:
                 printed = done // print_freq
                 print('epoch: [{}/{}][{}/{}] time {:.3f} data {:.3f} '

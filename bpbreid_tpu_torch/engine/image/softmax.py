@@ -17,8 +17,11 @@ matrix, optional k-reciprocal re-ranking (on the host, as in JAX),
 CMC/mAP (the CUHK03 metric with ``use_metric_cuhk03``) and the SSMD of
 the pair distances. ``save_model`` writes the port's checkpoints
 (``utils/checkpoint.py``). JAX's grouped dispatch
-(``_train_multi_step_impl``, ``_eval_multi_step_impl``,
-``_drain_group``) is left out, as in the part-based engine.
+(``_train_multi_step_impl``, ``_eval_multi_step_impl``: :146-235) is
+``Engine.forward_backward_multi`` over ``train_step`` and grouped
+``feature_extraction``, through CUDA graphs on the card, as in the
+part-based engine; the valid rows are taken on the device, so no group
+is read back one behind as JAX's ``_drain_group`` reads it.
 
 Under ``parallel.distribute_engine`` ``forward_backward`` takes the
 global batch's draws, runs the model on this rank's slice and computes
@@ -33,8 +36,7 @@ from bpbreid_tpu_torch import resolve_device
 from bpbreid_tpu_torch.data.augment import (eval_preprocess,
                                             sample_train_draws, slice_draws,
                                             train_augment)
-from bpbreid_tpu_torch.engine.engine import (Engine, device_prefetch,
-                                             normalize)
+from bpbreid_tpu_torch.engine.engine import Engine, normalize, valid_rows
 from bpbreid_tpu_torch.losses import deep_supervision
 from bpbreid_tpu_torch.losses.cross_entropy import CrossEntropyLoss
 from bpbreid_tpu_torch.metrics.distance import compute_distance_matrix
@@ -130,8 +132,16 @@ class ImageSoftmaxEngine(Engine):
         are the global batch's. Returns ``(loss, summary)`` as tensors on
         the device (no host sync)."""
         self.require_optimizer()
-        imgs_u8 = torch.as_tensor(batch['image']).to(self.device)
-        pids = torch.as_tensor(batch['pid']).to(self.device)
+        return self.train_step(*self.train_inputs(batch), draws=draws)
+
+    def train_inputs(self, batch):
+        """``(image, pid)`` of ``batch`` on the device."""
+        return (torch.as_tensor(batch['image']).to(self.device),
+                torch.as_tensor(batch['pid']).to(self.device))
+
+    def train_step(self, imgs_u8, pids, draws=None):
+        """The train step on device tensors (``forward_backward``'s, and
+        what the train graph captures)."""
         n, h, w = imgs_u8.shape[:3]
         if draws is None:
             draws = sample_train_draws(self.generator, n, h, w,
@@ -166,16 +176,18 @@ class ImageSoftmaxEngine(Engine):
     def feature_extraction(self, loader):
         """Embeddings of every valid sample of ``loader`` on the device,
         with their ``pids`` and ``camids`` (numpy; ``_feature_extraction``
-        :209)."""
+        :209). With ``test.batches_per_dispatch`` above 1 the batches go in
+        groups (``_eval_batch_groups``), each batch through the eval
+        graph with ``eval_graphs``, as the part-based engine's; the valid
+        rows are taken by index tensors made from the host's ``valid``."""
         f_, pids_, camids_ = [], [], []
-        for batch in device_prefetch(loader, self.device, keys=('image',)):
-            valid = np.asarray(batch.get(
-                'valid', np.ones(len(batch['pid']), bool)), bool)
-            feats = self.eval_step(batch['image'])
-            f_.append(feats[torch.as_tensor(valid, device=self.device)])
+        for batch, feats in self._eval_batches(loader, self.eval_step):
+            valid = batch['valid']
+            f_.append(valid_rows(feats, valid))
             pids_.append(np.asarray(batch['pid'])[valid])
             camids_.append(np.asarray(batch['camid'])[valid])
         return torch.cat(f_), np.concatenate(pids_), np.concatenate(camids_)
+
 
     def _evaluate(self, epoch, dataset_name='', query_loader=None,
                   gallery_loader=None, dist_metric='euclidean',

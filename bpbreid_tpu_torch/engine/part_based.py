@@ -14,7 +14,10 @@ config, ``feature_extraction`` first calibrates the activation ranges on
 the first ``test.int8_calib_batches`` batches of the first loader it
 evaluates (the query loader; ``_calibrate_int8`` :422), keeps them for
 every later loader, and extracts with the int8 graph (:468-498,
-:577-584). JAX's grouped ``batches_per_dispatch`` path is left out.
+:577-584). ``forward_backward_multi`` (``engine/engine.py``) runs k
+stacked steps, and ``feature_extraction`` goes in groups of
+``test.batches_per_dispatch`` batches, JAX's grouped dispatch (:262,
+:491-590), through CUDA graphs of the train and eval steps on the card.
 ``evaluate`` (``_evaluate`` :609): features of the query and gallery
 loaders, L2-normalize, then either
 the visibility-masked part distance on the device, optional
@@ -39,8 +42,8 @@ A loader is any iterable of batch dicts holding numpy arrays: ``image``
 ``[B, H, W, 3]`` uint8, optional ``mask`` ``[B, h, w, C]`` float
 confidence fields, ``pid``, ``camid`` and optional ``valid`` (bool,
 padding rows False). Batches go to ``device`` through
-``engine.device_prefetch`` and are processed one after another; features
-stay on the device until the distance matrix is read back for ranking.
+``engine.device_prefetch``; features stay on the device until the
+distance matrix is read back for ranking.
 
 Under ``parallel.distribute_engine`` (JAX's mesh branches, :372-377,
 :577-580, :678-690, :889-896) ``forward_backward`` takes the global
@@ -70,8 +73,7 @@ from bpbreid_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
                                             eval_preprocess,
                                             sample_train_draws, slice_draws,
                                             train_augment)
-from bpbreid_tpu_torch.engine.engine import (Engine, device_prefetch,
-                                             normalize)
+from bpbreid_tpu_torch.engine.engine import Engine, normalize, valid_rows
 from bpbreid_tpu_torch.losses.bpa import BodyPartAttentionLoss
 from bpbreid_tpu_torch.losses.gilt import GiLtLoss
 from bpbreid_tpu_torch.metrics.distance import \
@@ -175,6 +177,8 @@ class ImagePartBasedEngine(Engine):
         # cfg.test.int8: the model's activation ranges, recorded once on
         # the first loader evaluated
         self.int8_calibrated = False
+        # the QuantOpts feature extraction's step runs under
+        self._eval_quant_opts = None
 
     @classmethod
     def from_config(cls, config, model, mask_kwargs=None, device=None,
@@ -248,10 +252,28 @@ class ImagePartBasedEngine(Engine):
         on the gathered outputs. Returns ``(loss, summary)`` as tensors on
         the device (no host sync)."""
         self.require_optimizer()
-        imgs_u8 = torch.as_tensor(batch['image']).to(self.device)
-        raw_masks = torch.as_tensor(batch['mask']).to(self.device) \
-            if batch.get('mask') is not None else None
-        pids = torch.as_tensor(batch['pid']).to(self.device)
+        loss, summary = self.train_step(*self.train_inputs(batch),
+                                        draws=draws)
+        freq = self.config.train.batch_debug_freq \
+            if self.config is not None else 0
+        if freq and self.engine_state.global_step % freq == 0 \
+                and self.writes:
+            self._debug_visualize_batch(batch)
+        return loss, summary
+
+    def train_inputs(self, batch):
+        """``(image, mask or None, pid)`` of ``batch`` on the device."""
+        return (torch.as_tensor(batch['image']).to(self.device),
+                torch.as_tensor(batch['mask']).to(self.device)
+                if batch.get('mask') is not None else None,
+                torch.as_tensor(batch['pid']).to(self.device))
+
+    def train_step(self, imgs_u8, raw_masks, pids, draws=None):
+        """The train step on device tensors (``forward_backward``'s, and
+        what the train graph captures): augmentation (its draws from the
+        engine's generator when ``draws`` is None), the forward in train
+        mode, GiLt + BPA, backward and the optimizer's step. Returns
+        ``(loss, summary)`` on the device."""
         n, h, w = imgs_u8.shape[:3]
         if draws is None:
             draws = sample_train_draws(self.generator, n, h, w,
@@ -274,11 +296,6 @@ class ImagePartBasedEngine(Engine):
                 if masks is not None else None
         loss, summary = self.loss_fn(outputs, masks, pids)
         self.optimizer_step(loss)
-        freq = self.config.train.batch_debug_freq \
-            if self.config is not None else 0
-        if freq and self.engine_state.global_step % freq == 0 \
-                and self.writes:
-            self._debug_visualize_batch(batch)
         return loss.detach(), summary
 
     def _debug_visualize_batch(self, batch, max_samples=4):
@@ -422,31 +439,47 @@ class ImagePartBasedEngine(Engine):
                 float(getattr(tcfg, 'int8_calib_percentile', 99.9)))
         return QuantOpts.from_config(tcfg)
 
+    @torch.inference_mode()
+    def _eval_outputs(self, imgs_u8, raw_masks):
+        """What feature extraction keeps of ``eval_step`` (features,
+        visibility, pixel-accuracy counts), under ``_eval_quant_opts``:
+        the function the eval graph captures (JAX's scan body
+        ``_eval_multi_step_impl`` :310 returns the same four)."""
+        feats, vis, _m, _pxl, _masks, corr, tot = self.eval_step(
+            imgs_u8, raw_masks, self._eval_quant_opts)
+        return feats, vis, corr, tot
+
     def feature_extraction(self, loader):
         """Features of every valid sample of ``loader`` (through the int8
         graph with ``test.int8``).
 
+        With ``test.batches_per_dispatch`` k above 1 the batches go in
+        groups of k (``_eval_batch_groups``; a padded trailing group's
+        all-invalid batches are skipped), and with ``eval_graphs`` each
+        batch replays a CUDA graph of ``_eval_outputs``, captured after
+        the int8 calibration (JAX :491-590). The valid rows are taken with
+        index tensors made from the host's ``valid`` and the pixel counts
+        summed on the device (exact in f64), so nothing is read back until
+        the pixel accuracy at the end.
+
         Returns ``(features [N, P+2, D], visibility [N, P+2])`` on the
         device, ``(pids, camids)`` numpy and the pixel accuracy.
         """
-        f_, vis_, pids_, camids_ = [], [], [], []
-        pxl_correct = pxl_total = 0.0
-        quant_opts = self.int8_quant_opts(loader)
-        for batch in device_prefetch(loader, self.device,
-                                     keys=('image', 'mask')):
-            imgs, masks = batch['image'], batch.get('mask')
-            valid = np.asarray(batch.get(
-                'valid', np.ones(len(batch['pid']), bool)), bool)
-            feats, vis, _m, _pxl, _masks, corr, tot = self.eval_step(
-                imgs, masks, quant_opts)
-            keep = torch.as_tensor(valid, device=self.device)
-            f_.append(feats[keep])
-            vis_.append(vis[keep])
+        f_, vis_, pids_, camids_, corr_, tot_ = [], [], [], [], [], []
+        quant_opts = self._eval_quant_opts = self.int8_quant_opts(loader)
+        for batch, (feats, vis, corr, tot) in self._eval_batches(
+                loader, self._eval_outputs, keys=('image', 'mask'),
+                key=quant_opts):
+            valid = batch['valid']
+            f_.append(valid_rows(feats, valid))
+            vis_.append(valid_rows(vis, valid))
             pids_.append(np.asarray(batch['pid'])[valid])
             camids_.append(np.asarray(batch['camid'])[valid])
             if corr.dim():
-                pxl_correct += float(corr[keep].sum())
-                pxl_total += float(tot[keep].sum())
+                corr_.append(valid_rows(corr, valid).sum(dtype=torch.float64))
+                tot_.append(valid_rows(tot, valid).sum(dtype=torch.float64))
+        pxl_correct = float(torch.stack(corr_).sum()) if corr_ else 0.0
+        pxl_total = float(torch.stack(tot_).sum()) if tot_ else 0.0
         acc = pxl_correct / pxl_total if pxl_total else 0.0
         return (torch.cat(f_), torch.cat(vis_), np.concatenate(pids_),
                 np.concatenate(camids_), acc)

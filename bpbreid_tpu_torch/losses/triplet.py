@@ -18,7 +18,8 @@ between tied entries as ``jnp.max``/``jnp.min`` do.
 import torch
 import torch.nn.functional as F
 
-from bpbreid_tpu_torch.ops.tensortools import masked_mean, replace_values
+from bpbreid_tpu_torch.ops.tensortools import (masked_mean, replace_values,
+                                               scalar_like)
 
 __all__ = [
     'part_based_pairwise_distance_matrix', 'hard_mine_triplet_loss',
@@ -65,7 +66,7 @@ def hard_mine_triplet_loss(batch_pairwise_dist, labels, margin=0.3,
     """
     dist = batch_pairwise_dist
     valid = dist != -1.0
-    big = torch.tensor(_MAX, dtype=dist.dtype, device=dist.device)
+    big = scalar_like(_MAX, dist)
 
     pos_mask = _anchor_positive_mask(labels)[None] & valid
     hardest_pos = (dist * pos_mask - (~pos_mask).to(dist.dtype)).amax(dim=-1)
@@ -223,7 +224,7 @@ class InterPartsTripletLoss:
         pos_mask = same_id & same_part & ~torch.eye(
             k * n, dtype=torch.bool, device=labels.device)
         neg_mask = ~same_id
-        big = torch.tensor(_MAX, dtype=dist.dtype, device=dist.device)
+        big = scalar_like(_MAX, dist)
         hardest_pos = (dist * pos_mask - (~pos_mask) * 1.0).amax(dim=-1)
         hardest_neg = (dist * neg_mask + (~neg_mask) * big).amin(dim=-1)
         valid = (hardest_pos != -1.0) & (hardest_neg != big)

@@ -68,6 +68,7 @@ from bpbreid_tpu_torch.ops.quant import set_quant_paths
 from bpbreid_tpu_torch.ops.resize import (_linear_matrix_align_corners,
                                           linear_matrix_align_corners,
                                           resize_bilinear_align_corners)
+from bpbreid_tpu_torch.ops.tensortools import constant, scalar_like
 from bpbreid_tpu_torch.parallel.mesh import all_reduce_mean
 
 __all__ = ['BPBreID', 'BNClassifier', 'PixelToPartClassifier',
@@ -92,6 +93,19 @@ class BNClassifier(nn.Module):
     def forward(self, x):
         feature = self.bn(x)
         return feature, self.classifier(feature)
+
+
+def _moment_matrices(h_i, hf, w_i, wf, device):
+    """The column sums and Gram matrices of the align-corners resize
+    matrices of an ``[h_i, w_i]`` branch to ``[hf, wf]`` (``a.sum(0)``,
+    ``b.sum(0)``, ``a.T a``, ``b.T b``) on ``device``, kept
+    (``ops.tensortools.constant``)."""
+    a = _linear_matrix_align_corners(h_i, hf)                 # [hf, h_i]
+    b = _linear_matrix_align_corners(w_i, wf)
+    return tuple(constant(('bn_moments', h_i, hf, w_i, wf, i), device,
+                          lambda v=v: np.asarray(v))
+                 for i, v in enumerate((a.sum(0), b.sum(0), a.T @ a,
+                                        b.T @ b)))
 
 
 class PixelToPartClassifier(nn.Module):
@@ -150,10 +164,7 @@ class PixelToPartClassifier(nn.Module):
                 means.append(yf.mean(dim=(0, 2, 3)))
                 e2s.append((yf * yf).mean(dim=(0, 2, 3)))
                 continue
-            a = _linear_matrix_align_corners(h_i, hf)          # [hf, h_i]
-            b = _linear_matrix_align_corners(w_i, wf)
-            mh, mw, gh, gw = (torch.as_tensor(np.asarray(v), device=y.device)
-                              for v in (a.sum(0), b.sum(0), a.T @ a, b.T @ b))
+            mh, mw, gh, gw = _moment_matrices(h_i, hf, w_i, wf, y.device)
             means.append(torch.einsum('nchw,h,w->c', yf, mh, mw) / (n * p))
             t = torch.einsum('nchw,hk->nckw', yf, gh)
             e2s.append(torch.einsum('nckw,wl,nckl->c', t, gw, yf) / (n * p))
@@ -403,9 +414,7 @@ class BPBreID(nn.Module):
                 target = ext[:, 1:].amax(dim=1) > ext[:, 0]
                 background_masks = (~target).to(parts_masks.dtype)
                 parts_masks = torch.where(target[:, None], parts_masks,
-                                          torch.tensor(1e-12,
-                                                       dtype=parts_masks.dtype,
-                                                       device=probs.device))
+                                          scalar_like(1e-12, parts_masks))
                 # the reference writes the floor into a VIEW of the
                 # probabilities, so visibility below sees the floored
                 # parts channels with the original background channel

@@ -20,7 +20,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ['eval_market1501', 'eval_cuhk03', 'load', 'library_path']
+__all__ = ['eval_market1501', 'eval_cuhk03', 'load', 'library_path',
+           'is_available']
 
 SRC = Path(__file__).resolve().parent / 'rank.cpp'
 BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
@@ -81,6 +82,17 @@ def load():
                 fn.restype = ctypes.c_int
             _libs[out] = lib
         return _libs[out]
+
+
+def is_available():
+    """Whether the library loads (JAX ``is_available`` :61): True once
+    ``load`` builds or finds it, False where the build or the load fails.
+    The rankers themselves still raise on a failed build."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _operands(distmat, q_pids, g_pids, q_camids, g_camids):

@@ -22,6 +22,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from bpbreid_tpu_torch.ops.tensortools import constant
+
 __all__ = [
     'PIFPAF_KEYPOINTS', 'PIFPAF_JOINTS', 'PIFPAF_PARTS', 'COCO_KEYPOINTS',
     'GROUPING_STRATEGIES', 'get_grouping', 'grouping_matrix', 'group_masks',
@@ -387,13 +389,15 @@ def group_masks(masks, matrix, combine='max'):
         version's max over ``masks * matrix`` (non-members give 0).
     """
     matrix = np.asarray(matrix)
+    key = ('grouping', matrix.dtype.str, matrix.shape, matrix.tobytes())
     if combine == 'sum':
         out = torch.einsum('nchw,ck->nkhw', masks.float(),
-                           torch.as_tensor(matrix, device=masks.device))
+                           constant(key, masks.device, lambda: matrix))
     else:
         out = torch.stack([
-            masks.index_select(1, torch.as_tensor(
-                np.flatnonzero(matrix[:, k]), device=masks.device)
+            masks.index_select(1, constant(
+                key + (k,), masks.device,
+                lambda k=k: np.flatnonzero(matrix[:, k]))
             ).amax(dim=1) for k in range(matrix.shape[1])], dim=1)
     return out.clamp(0.0, 1.0)
 
@@ -442,13 +446,15 @@ def pcb_stripe_masks(parts_num, height, width, dtype=torch.float32,
     """K horizontal-stripe masks ``[K, H, W]``: stripe ``i`` covers the
     rows ``[round(i H / K), round((i + 1) H / K))`` (numpy's
     round-half-even, as the JAX version)."""
-    bounds = np.round(np.arange(parts_num + 1) * height / parts_num) \
-        .astype(int)
-    rows = np.zeros((parts_num, height), dtype=np.float32)
-    for i in range(parts_num):
-        rows[i, bounds[i]:bounds[i + 1]] = 1.0
-    return torch.as_tensor(rows, dtype=dtype, device=device)[:, :, None] \
-        .expand(parts_num, height, width)
+    def rows():
+        bounds = np.round(np.arange(parts_num + 1) * height / parts_num) \
+            .astype(int)
+        out = np.zeros((parts_num, height), dtype=np.float32)
+        for i in range(parts_num):
+            out[i, bounds[i]:bounds[i + 1]] = 1.0
+        return out
+    return constant(('stripes', parts_num, height), device or 'cpu', rows,
+                    dtype)[:, :, None].expand(parts_num, height, width)
 
 
 def identity_masks(height, width, dtype=torch.float32, device=None):

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from bpbreid_tpu_torch.ops.tensortools import constant
+
 __all__ = ['resize_nearest', 'resize_bilinear_align_corners']
 
 
@@ -22,12 +24,19 @@ def _nearest_indices(in_size, out_size):
     return np.minimum(idx, in_size - 1)
 
 
+def nearest_indices(in_size, out_size, device):
+    """``_nearest_indices`` as an int64 tensor on ``device`` (kept:
+    ``ops.tensortools.constant``)."""
+    return constant(('nearest', in_size, out_size), device,
+                    lambda: _nearest_indices(in_size, out_size))
+
+
 def resize_nearest(x, out_h, out_w, spatial_axes=(-2, -1)):
     """Nearest-neighbor resize matching ``F.interpolate(mode='nearest')``."""
     ax_h, ax_w = spatial_axes
     ih, iw = x.shape[ax_h], x.shape[ax_w]
-    idx_h = torch.as_tensor(_nearest_indices(ih, out_h), device=x.device)
-    idx_w = torch.as_tensor(_nearest_indices(iw, out_w), device=x.device)
+    idx_h = nearest_indices(ih, out_h, x.device)
+    idx_w = nearest_indices(iw, out_w, x.device)
     return x.index_select(ax_h, idx_h).index_select(ax_w, idx_w)
 
 
@@ -48,9 +57,10 @@ def _linear_matrix_align_corners(in_size, out_size):
 
 
 def linear_matrix_align_corners(in_size, out_size, device):
-    """``_linear_matrix_align_corners`` as an f32 tensor on ``device``."""
-    return torch.as_tensor(_linear_matrix_align_corners(in_size, out_size),
-                           device=device)
+    """``_linear_matrix_align_corners`` as an f32 tensor on ``device``
+    (kept: ``ops.tensortools.constant``)."""
+    return constant(('align_corners', in_size, out_size), device,
+                    lambda: _linear_matrix_align_corners(in_size, out_size))
 
 
 def resize_bilinear_align_corners(x, out_h, out_w):

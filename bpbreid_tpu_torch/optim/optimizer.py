@@ -18,9 +18,20 @@ maximum of the bias-corrected second moment, its rmsprop divides by
 ``sqrt(nu + eps)`` without bias correction, and its radam rectifies from
 the step where rho reaches 5. The step's scalars (bias corrections,
 rho, the rectification) are computed on the host in float32, in optax's
-order of operations, so radam switches on at the same step as JAX. The
-JAX version's ``flatten_bucketed`` is a TPU dispatch trick with the same
-math and has no port.
+order of operations, so radam switches on at the same step as JAX; so
+its step cannot run inside a CUDA graph. The JAX version's
+``flatten_bucketed`` is a TPU dispatch trick with the same math and has
+no port.
+
+Adam over parameters on a CUDA device is built ``capturable``: its step
+count and bias corrections live on the device
+(``torch.optim.Adam(capturable=True)``), as a CUDA graph of the train
+step needs (``engine/graphs.py``); eager Adam keeps the count on the
+host, where a graph would freeze it. The bias corrections are then
+computed in f32 on the device, not in f64 on the host, so the card's
+updates differ from the CPU's in the last bits (on the CPU, Adam cannot
+be capturable). SGD reads nothing on the host and is captured as it is;
+the learning rates are part of a graph's key.
 """
 import numpy as np
 import torch
@@ -159,9 +170,12 @@ def build_optimizer(model, optim='adam', lr=0.0003, weight_decay=5e-4,
         return OptaxRule(groups, optim, lr=lr, weight_decay=weight_decay,
                          b1=adam_beta1, b2=adam_beta2, alpha=rmsprop_alpha)
     if optim == 'adam':
+        on_cuda = any(p.device.type == 'cuda'
+                      for g in groups for p in g['params'])
         return torch.optim.Adam(groups, lr=lr,
                                 betas=(adam_beta1, adam_beta2),
-                                eps=ADAM_EPS, weight_decay=weight_decay)
+                                eps=ADAM_EPS, weight_decay=weight_decay,
+                                capturable=on_cuda)
     return torch.optim.SGD(groups, lr=lr, momentum=momentum, dampening=0.0,
                            nesterov=sgd_nesterov and momentum > 0,
                            weight_decay=weight_decay)

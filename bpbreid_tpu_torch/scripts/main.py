@@ -72,6 +72,7 @@ from bpbreid_tpu_torch.parallel.mesh import init_process_group
 from bpbreid_tpu_torch.tools.extract_part_based_features import \
     extract_reid_features
 from bpbreid_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                load_optimizer_state,
                                                 resume_from_checkpoint)
 from bpbreid_tpu_torch.utils.engine_state import EngineState
 from bpbreid_tpu_torch.utils.logging import Logger
@@ -80,7 +81,8 @@ from bpbreid_tpu_torch.utils.torch_weights import (load_torch_state_dict,
                                                    load_torchreid_state_dict)
 from bpbreid_tpu_torch.utils.writer import Writer
 
-__all__ = ['build_config', 'build_engine', 'build_model_engine',
+__all__ = ['build_config', 'build_datamanager', 'build_engine',
+           'build_model_engine',
            'n_devices_for', 'maybe_distribute_engine', 'main']
 
 ENGINES = {'part_based': ImagePartBasedEngine, 'softmax': ImageSoftmaxEngine,
@@ -198,7 +200,7 @@ def load_pretrained_weights(engine, path):
         payload, _meta = load_checkpoint(path)
         engine.model.load_state_dict(payload['model'])
         if engine.optimizer is not None and payload['optimizer'] is not None:
-            engine.optimizer.load_state_dict(payload['optimizer'])
+            load_optimizer_state(engine.optimizer, payload['optimizer'])
         print('Loaded checkpoint from {}'.format(path))
         return None
     sd, _extra = load_torch_state_dict(path)
@@ -250,6 +252,15 @@ def build_engine(cfg, datamanager, model, optimizer, scheduler, writer,
     return ENGINES[cfg.loss.name](datamanager, model, **kwargs)
 
 
+def build_datamanager(cfg):
+    """The data manager of ``cfg``: a ``VideoDataManager`` with
+    ``data.type video``, else an ``ImageDataManager`` (JAX
+    ``build_datamanager`` :35)."""
+    if cfg.data.type == 'video':
+        return VideoDataManager(**videodata_kwargs(cfg))
+    return ImageDataManager(**imagedata_kwargs(cfg))
+
+
 def build_model_engine(cfg, device=None):
     """Data manager, model, optimizer, schedule and engine of ``cfg`` (from
     ``build_config``, which refuses the unported options) on ``device``
@@ -259,9 +270,7 @@ def build_model_engine(cfg, device=None):
     set_random_seed(cfg.train.seed)
     if cfg.project.debug_mode:
         torch.autograd.set_detect_anomaly(True)
-    datamanager = VideoDataManager(**videodata_kwargs(cfg)) \
-        if cfg.data.type == 'video' \
-        else ImageDataManager(**imagedata_kwargs(cfg))
+    datamanager = build_datamanager(cfg)
     engine_state = EngineState(cfg.train.start_epoch, cfg.train.max_epoch)
     writer = Writer(cfg, logger=Logger(cfg), engine_state=engine_state)
     print('Building model: {}'.format(cfg.model.name))

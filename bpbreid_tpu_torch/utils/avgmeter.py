@@ -4,11 +4,14 @@
 ``MetricsSummary`` keeps the train step's loss terms as device tensors
 and reads them back lazily, all pending values in one copy, at the next
 read (a print or a log) or every ``_MAX_PENDING`` steps: a readback per
-step would make the host wait for the device every step.
+step would make the host wait for the device every step. A ``[k]``
+value (the per-step terms of a grouped dispatch,
+``forward_backward_multi``) counts as k updates of its mean, as in JAX.
 """
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 __all__ = ['AverageMeter', 'MetricsSummary', 'TimeMeter']
@@ -55,10 +58,18 @@ class MetricsSummary:
         self._pending.clear()
         tensors = [e[2] for e in entries if isinstance(e[2], torch.Tensor)]
         # one device-to-host copy for every pending tensor
-        read = iter(torch.stack([t.detach().float().reshape(())
-                                 for t in tensors]).tolist()) \
+        read = iter(torch.cat([t.detach().float().reshape(-1)
+                               for t in tensors]).tolist()) \
             if tensors else iter(())
         for group, name, value, n in entries:
+            if isinstance(value, torch.Tensor) and value.dim():
+                # a [k] per-step vector == k updates of its mean
+                size = value.numel()
+                steps = np.asarray([next(read) for _ in range(size)],
+                                   np.float32)
+                self.meters[group][name].update(float(steps.mean()),
+                                                n * size)
+                continue
             if isinstance(value, torch.Tensor):
                 value = next(read)
             self.meters[group][name].update(value, n)

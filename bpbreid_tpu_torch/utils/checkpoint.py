@@ -7,6 +7,10 @@ read back with ``weights_only=True`` (tensors and plain containers, no
 pickled code), beside ``<path>.meta.json`` with the JAX package's keys
 (epoch, rank1, mAP, ssmd, config). ``is_best`` also copies both to
 ``model-best.pt``. ``resume_from_checkpoint`` returns ``epoch + 1``.
+``load_optimizer_state`` loads an optimizer's state and keeps the
+optimizer's own ``capturable`` (an Adam of the CUDA-graph train step
+keeps its step count on the device, an eager one on the host), so a
+checkpoint of either kind loads into the other.
 """
 import json
 import os
@@ -17,7 +21,7 @@ import shutil
 import torch
 
 __all__ = ['FORMAT', 'save_checkpoint', 'load_checkpoint',
-           'resume_from_checkpoint']
+           'load_optimizer_state', 'resume_from_checkpoint']
 
 FORMAT = 'bpbreid_tpu_torch'
 
@@ -65,6 +69,27 @@ def load_checkpoint(path):
     return payload, meta
 
 
+def load_optimizer_state(optimizer, state_dict):
+    """``optimizer.load_state_dict(state_dict)``, keeping each param
+    group's own ``capturable`` (``load_state_dict`` takes the saved
+    one): the step counts go to the parameter's device as f32 for a
+    capturable group, to the host as f32 for another."""
+    own = [g.get('capturable') for g in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for group, capturable in zip(optimizer.param_groups, own):
+        if capturable is None:           # no such setting (SGD, OptaxRule)
+            group.pop('capturable', None)
+            continue
+        group['capturable'] = capturable
+        for p in group['params']:
+            step = optimizer.state.get(p, {}).get('step')
+            if isinstance(step, torch.Tensor):
+                optimizer.state[p]['step'] = step.to(
+                    dtype=torch.float32,
+                    device=p.device if capturable else 'cpu')
+    return optimizer
+
+
 def resume_from_checkpoint(path, model, optimizer=None):
     """Load the model's and the optimizer's state; returns
     ``(start_epoch, meta)`` with ``start_epoch = epoch + 1``."""
@@ -72,7 +97,7 @@ def resume_from_checkpoint(path, model, optimizer=None):
     payload, meta = load_checkpoint(path)
     model.load_state_dict(payload['model'])
     if optimizer is not None and payload['optimizer'] is not None:
-        optimizer.load_state_dict(payload['optimizer'])
+        load_optimizer_state(optimizer, payload['optimizer'])
     start_epoch = int(meta.get('epoch', -1)) + 1
     print('Last epoch = {}'.format(start_epoch))
     if meta.get('rank1') is not None:

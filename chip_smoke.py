@@ -283,16 +283,40 @@ and Market-1501 + 500k distractors scale. Phases:
    engine's ``evaluate`` under the mesh. A failed collective or a rank
    that dies fails the run.
 
+18. grouped dispatch through CUDA graphs (``engine/graphs.py``), every
+   launch count set to 0 just before 18a and read just after 18b:
+   (a) the flagship train config (HRNet-W32, 384x128, five_v, bf16,
+   batch 64, capturable Adam): k = 8 steps through
+   ``forward_backward_multi`` (an eager step, a capture and its replay,
+   six replays) against 8 eager steps from the same state, run twice,
+   all with cuDNN's deterministic algorithms:
+   the losses, parameters, BN running statistics, Adam's state and the
+   generator's state bit-equal wherever the two eager runs are, else
+   within phase 7's tolerances or 4 times the eager runs' own
+   difference; 24 steps on one batch through a graph without
+   augmentation whose loss falls; the step ms of graph and eager
+   (median of 3 groups of 8) and, from ``torch.profiler``, the device
+   kernels, the host's kernel-launch calls and ``cudaGraphLaunch`` calls
+   a step and the busy share (8 graph steps, 3 eager ones); (b) the serving config (K2): 10 batches of
+   64 (the last half padding) through grouped eval
+   (``batches_per_dispatch`` 8: a group of 8, a trailing group of 2)
+   against per-batch eval, float and int8: features, visibility and
+   pixel accuracy bit-equal, and the images/s of each; (c)
+   ``tools/bench_train.py`` at its defaults with ``--iters 5``, its
+   record printed.
+
 Any failed check exits non-zero and prints no result. On success the
 last lines are the GPU's name and power limit (nvidia-smi), the
 throughput line, the CLI line (phase 9), the inference line (phase 10),
 the PCB line (phase 11), the int8 line (phase 12), the global line
 (phase 13), the video line (phase 14), the zoo line (phase 15), the
-figures line (phase 16), the dp line (phase 17), the kernels line
+figures line (phase 16), the dp line (phase 17), the graphs line
+(phase 18), the kernels line
 (launches: the BN kernels' in run 9a, phase 10, phase 11a-b, phase 13,
-phase 14, phase 15, phase 16 and phase 17b (``bn_finalize``: 17b alone),
-K2's in run 9c, phase 10, phase 13c, phase 14b, phase 15c and phase
-16a,
+phase 14, phase 15, phase 16, phase 17b and phase 18 (``bn_finalize``:
+17b alone), K2's in run 9c, phase 10, phase 13c, phase 14b, phase 15c,
+phase 16a and phase 18b, each replay of a CUDA graph counting the
+launches its capture made,
 K1's in phase 3b, ``conv_s8`` and ``quantize_s8``'s in phase 12's int8
 step, extractor batch and CLI test) and the result line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -1865,50 +1889,79 @@ def cli_argv(job_id, *opts, config=CLI_CONFIG, dataset=CLI_DATASET):
 
 
 class CliRecorder:
-    """Wraps ``forward_backward``, ``save_model`` and (the part-based
-    engine's) ``_visrank`` of the engine class ``cls`` (the part-based
-    engine by default) for one CLI run: each step's host entry time, loss
-    tensor and BN launches, the train-mode FastBatchNorm calls of each
-    step (forward hooks, set on the first step) and the first step's BN
-    inputs (shape, dtype, channel_dim -> calls), the first batch as the
-    prefetch put it on the card, the checkpoint's path and write
-    seconds, and the ranking grids' files, seconds and launches (the
-    ``eval_step`` run again for their attention maps). Reads nothing
-    back from the card during the steps."""
+    """Wraps ``forward_backward``, ``forward_backward_multi``,
+    ``save_model`` and (the part-based engine's) ``_visrank`` of the
+    engine class ``cls`` (the part-based engine by default) for one CLI
+    run: each step's host entry time (a group's once, with its step
+    count), loss tensor and BN launches (a group's per step), the
+    train-mode FastBatchNorm calls of each step (forward hooks, set on
+    the first step) and the first step's BN inputs (shape, dtype,
+    channel_dim -> calls), the first batch as the prefetch put it on the
+    card, the checkpoint's path and write seconds, and the ranking grids'
+    files, seconds and launches (the ``eval_step`` run again for their
+    attention maps). The hooks' counts are replayed with the CUDA graphs'
+    launch counts (``engine.graphs.replayed_counter``): a replay runs the
+    calls its capture recorded. Reads nothing back from the card during
+    the steps."""
 
     def __init__(self, torch, cls=None):
         from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
         self.torch, self.cls = torch, cls or ImagePartBasedEngine
         self.fb = self.cls.forward_backward
+        self.fb_multi = self.cls.forward_backward_multi
         self.save = self.cls.save_model
         self.visrank = getattr(self.cls, '_visrank', None)
         self.entries, self.losses, self.launches = [], [], []
+        self.entry_steps = []
         self.bn_calls = {'train': 0, 'eval': 0}
         self.train_bn_calls = []
-        self.bn_inputs = collections.Counter()
+        self.first_step_inputs = []
         self.first_batch = self.checkpoint = self.save_s = None
         self.visrank_paths, self.visrank_s, self.visrank_launches = [], 0.0, {}
 
     def _hook(self, mod, inp):
         self.bn_calls['train' if mod.training else 'eval'] += 1
-        if mod.training and len(self.entries) == 1:
-            self.bn_inputs[(tuple(inp[0].shape), inp[0].dtype,
-                            mod.channel_dim)] += 1
+        if mod.training and len(self.entries) == 1 \
+                and not self.torch.cuda.is_current_stream_capturing():
+            self.first_step_inputs.append((tuple(inp[0].shape), inp[0].dtype,
+                                           mod.channel_dim))
+
+    @property
+    def bn_inputs(self):
+        """The first step's BN inputs (shape, dtype, channel_dim ->
+        calls): the first Python run's calls of the hooks."""
+        n = self.train_bn_calls[0] if self.train_bn_calls else 0
+        return collections.Counter(self.first_step_inputs[:n])
+
+    def step_intervals_ms(self):
+        """Host ms between step entries, a group's interval split over
+        its steps."""
+        return [(b - a) * 1e3 / n
+                for a, b, n in zip(self.entries, self.entries[1:],
+                                   self.entry_steps)
+                for _ in range(n)]
+
+    def _first(self, engine, batch, step):
+        from bpbreid_tpu_torch.models.common import FastBatchNorm
+        if self.first_batch is None:
+            for m in engine.model.modules():
+                if isinstance(m, FastBatchNorm):
+                    m.register_forward_pre_hook(self._hook)
+            self.first_batch = {
+                k: (batch[k] if step is None else batch[k][step]).cpu().clone()
+                for k in ('image', 'mask', 'pid') if batch.get(k) is not None}
 
     def __enter__(self):
-        from bpbreid_tpu_torch.models.common import FastBatchNorm
+        from bpbreid_tpu_torch.engine.graphs import replayed_counter
         from bpbreid_tpu_torch.ops.cuda.build import launch_counts
         rec = self
+        self._replayed = replayed_counter(self.bn_calls)
+        self._replayed.__enter__()
 
         def forward_backward(engine, batch, draws=None):
-            if rec.first_batch is None:
-                for m in engine.model.modules():
-                    if isinstance(m, FastBatchNorm):
-                        m.register_forward_pre_hook(rec._hook)
-                rec.first_batch = {k: batch[k].cpu().clone()
-                                   for k in ('image', 'mask', 'pid')
-                                   if batch.get(k) is not None}
+            rec._first(engine, batch, None)
             rec.entries.append(time.perf_counter())
+            rec.entry_steps.append(1)
             before = dict(launch_counts)
             calls = rec.bn_calls['train']
             loss, summary = rec.fb(engine, batch, draws)
@@ -1917,6 +1970,25 @@ class CliRecorder:
             rec.train_bn_calls.append(rec.bn_calls['train'] - calls)
             rec.losses.append(loss)
             return loss, summary
+
+        def forward_backward_multi(engine, batch, draws=None):
+            k = batch['image'].shape[0]
+            rec._first(engine, batch, 0)
+            rec.entries.append(time.perf_counter())
+            rec.entry_steps.append(k)
+            before = dict(launch_counts)
+            calls = rec.bn_calls['train']
+            losses, summary = rec.fb_multi(engine, batch, draws)
+            per_step = {n: (launch_counts[n] - before.get(n, 0)) / k
+                        for n in BN_KERNELS}
+            rec.launches += [{n: int(v) if v == int(v) else v
+                              for n, v in per_step.items()}
+                             for _ in range(k)]
+            calls = (rec.bn_calls['train'] - calls) / k
+            rec.train_bn_calls += [int(calls) if calls == int(calls)
+                                   else calls] * k
+            rec.losses += list(losses.unbind(0))
+            return losses, summary
 
         def save_model(engine, *args, **kwargs):
             rec.torch.cuda.synchronize()
@@ -1940,6 +2012,7 @@ class CliRecorder:
             return paths
 
         self.cls.forward_backward = forward_backward
+        self.cls.forward_backward_multi = forward_backward_multi
         self.cls.save_model = save_model
         if self.visrank is not None:
             self.cls._visrank = visrank
@@ -1947,6 +2020,8 @@ class CliRecorder:
 
     def __exit__(self, *exc):
         self.cls.forward_backward, self.cls.save_model = self.fb, self.save
+        self.cls.forward_backward_multi = self.fb_multi
+        self._replayed.__exit__(*exc)
         if self.visrank is not None:
             self.cls._visrank = self.visrank
         return False
@@ -2063,7 +2138,7 @@ def phase_cli(torch, results):
     checks += _visrank_checks(rec, engine, bn, '9a')
     if not all(np.isfinite(losses)):
         checks.append('9a: non-finite loss {}'.format(losses))
-    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    intervals = rec.step_intervals_ms()
     step_ms = statistics.median(intervals)
     data_ms = engine.writer.data_loading_timer.meter.avg * 1e3
     ckpt, save_s = rec.checkpoint, rec.save_s
@@ -2151,7 +2226,7 @@ def phase_cli(torch, results):
     checks += bad
     if len(losses_d) != steps_per_epoch or not all(np.isfinite(losses_d)):
         checks.append('9d: losses {}'.format(losses_d))
-    d_ms = statistics.median((np.diff(rec.entries) * 1e3).tolist())
+    d_ms = statistics.median(rec.step_intervals_ms())
     out['9d'] = {'steps': len(losses_d), 'losses': losses_d,
                  'step_ms_median': d_ms,
                  'bn_launches_per_step': want_d,
@@ -2264,7 +2339,7 @@ def phase_pcb(torch, results):
                       'eval-mode BN calls'.format(eval_apply, vis_apply,
                                                   rec.bn_calls['eval']))
     checks += _visrank_checks(rec, engine, bn, '11a')
-    step_ms = statistics.median((np.diff(rec.entries) * 1e3).tolist())
+    step_ms = statistics.median(rec.step_intervals_ms())
     out['11a'] = {'steps': len(losses), 'losses': losses,
                   'step_ms_median': step_ms,
                   'images_per_s': BATCH / step_ms * 1e3,
@@ -3585,7 +3660,7 @@ def _global_run(torch, what, job_id, opts, cls, name, loss):
     if counts.get('attention_pool', 0) or not 0.0 <= float(mAP) <= 1.0:
         checks.append('{}: K2 launches {}, mAP {}'.format(
             what, counts.get('attention_pool', 0), mAP))
-    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    intervals = rec.step_intervals_ms()
     step_ms = statistics.median(intervals)
     # learning: 20 steps on one batch with one set of draws, every layer
     # open (the recipe's run had only the classifier open)
@@ -3998,7 +4073,7 @@ def _phase_video(torch, checks):
             np.isfinite(float(mAP)) and np.isfinite(float(cmc[0]))):
         checks.append('14a: K2 {}, mAP {}, rank-1 {}'.format(
             counts.get('attention_pool', 0), mAP, cmc[0]))
-    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    intervals = rec.step_intervals_ms()
     step_ms = statistics.median(intervals)
     frames = VIDEO_BATCH * VIDEO_SEQ
     batch = {k: rec.first_batch[k].to('cuda') for k in ('image', 'pid')}
@@ -4154,7 +4229,7 @@ def _phase_occluded(torch, checks):
     shutil.rmtree(root, ignore_errors=True)
     out = {'config': OCC_CONFIG, 'steps': len(losses), 'losses': losses,
            'step_ms_median': statistics.median(
-               (np.diff(rec.entries) * 1e3).tolist()) if len(losses) > 1
+               rec.step_intervals_ms()) if len(losses) > 1
            else None,
            'mask_channels_on_disk': mask_channels,
            'mask_channels_after_chain': chain_channels,
@@ -4571,7 +4646,7 @@ def _zoo_cli(torch, what, job_id, opts, cls, name, loss, hw, small_hw,
             or not np.isfinite(float(cmc[0])):
         checks.append('15b {}: K2 launches {}, mAP {}, rank-1 {}'.format(
             what, counts.get('attention_pool', 0), mAP, cmc[0]))
-    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    intervals = rec.step_intervals_ms()
     step_ms = statistics.median(intervals)
     batch = make_train_batch(np.random.default_rng(SEED + 16), TRAIN_IDS,
                              TRAIN_INSTANCES, *hw, 'cuda')
@@ -4996,7 +5071,7 @@ def phase_figures_and_tools(torch, results, ranking_inputs):
     if figures != {'feature_maps': 4, 'triplets': 1, 'projection': 1,
                    'barplots': 2}:
         checks.append('16a: figures {}'.format(figures))
-    intervals = (np.diff(rec.entries) * 1e3).tolist()
+    intervals = rec.step_intervals_ms()
     debug_ms = [c['ms'] for c in dbg.calls]
     # the intervals less the debug figures drawn inside their step
     own = [ms - sum(c['ms'] for c in dbg.calls if c['step'] == i)
@@ -5709,6 +5784,300 @@ def phase_data_parallel(torch, results, bn_shapes, spec=None):
     return out['17b']['launches']
 
 
+# phase 18: grouped dispatch through CUDA graphs (engine/graphs.py):
+# train.steps_per_dispatch and test.batches_per_dispatch at full width
+GRAPH_K = 8
+GRAPH_LEARN_GROUPS = 3            # 24 learning steps through the graph
+GRAPH_EVAL_BATCHES = 10           # a group of 8, then 2 and 6 padding
+
+
+def _graph_snapshot(engine):
+    import copy
+    return ({k: v.clone() for k, v in engine.model.state_dict().items()},
+            copy.deepcopy(engine.optimizer.state_dict()),
+            engine.generator.get_state())
+
+
+def _graph_restore(engine, snap):
+    """``snap`` back into the engine. The optimizer gets a copy: its
+    ``load_state_dict`` keeps the given tensors when their device and
+    dtype fit, and the steps would then write into the snapshot."""
+    import copy
+    from bpbreid_tpu_torch.utils.checkpoint import load_optimizer_state
+    engine.model.load_state_dict(snap[0])
+    load_optimizer_state(engine.optimizer, copy.deepcopy(snap[1]))
+    engine.generator.set_state(snap[2])
+
+
+def _graph_state(engine):
+    """Parameters, buffers (BN running statistics) and Adam's state."""
+    out = {'param.' + n: p.detach().clone()
+           for n, p in engine.model.named_parameters()}
+    out.update({'buffer.' + n: b.clone()
+                for n, b in engine.model.named_buffers()})
+    for i, p in enumerate(engine.model.parameters()):
+        for k, v in engine.optimizer.state[p].items():
+            out['adam.{}.{}'.format(i, k)] = v.clone()
+    return out
+
+
+def _graph_vs_eager(torch, graph, eager_a, eager_b):
+    """Each quantity of the graph run against the first eager run:
+    bit-equal where the two eager runs are; else within phase 7's
+    tolerances (the loss 1e-5 relative, BN statistics 1e-4 of 1 + their
+    scale, parameters 2 k lr: the most k Adam steps can move an entry
+    apart) or within 4 times the two eager runs' own difference."""
+    counts = {'bit_equal': 0, 'eager_differs': 0}
+    worst, checks = {}, []
+    for name, a in eager_a.items():
+        b, g = eager_b[name], graph[name]
+        if torch.equal(a, b):
+            counts['bit_equal'] += 1
+            if not torch.equal(g, a):
+                checks.append('{}: the eager runs are bit-equal, the graph '
+                              'run is not'.format(name))
+            continue
+        counts['eager_differs'] += 1
+        d = (g.double() - a.double()).abs().max().item()
+        spread = (b.double() - a.double()).abs().max().item()
+        if name == 'loss':
+            bound = 1e-5 * a.double().abs().max().item()
+        elif name.endswith(('running_mean', 'running_var')):
+            bound = 1e-4 * (1 + a.double().abs().max().item())
+        elif name.startswith('param.'):
+            bound = 2 * GRAPH_K * LR
+        else:
+            bound = 0.0
+        bound = max(bound, 4 * spread)
+        kind = name.split('.')[0] if '.' in name else name
+        worst[kind] = max(worst.get(kind, 0.0), d / bound if bound else 0.0)
+        if d > bound:
+            checks.append('{}: graph vs eager {} > {} (eager vs eager '
+                          '{})'.format(name, d, bound, spread))
+    return counts, worst, checks[:5]
+
+
+def _host_launch_profile(torch, fn, steps):
+    """torch.profiler over ``fn()``: device kernels, the host's kernel
+    launch calls and graph launches per step, and the device's busy
+    share of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, kernels = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA \
+                and not getattr(e, 'is_user_annotation', False):
+            busy_ms += e.time_range.elapsed_us() / 1e3
+            kernels += 1
+    host = {k.key: k.count for k in prof.key_averages()}
+    launch_api = sum(v for k, v in host.items()
+                     if k.startswith(('cudaLaunchKernel', 'cuLaunchKernel')))
+    return {'steps': steps, 'wall_ms': wall_ms,
+            'device_kernels_per_step': kernels / steps if kernels
+            else 'not measured',
+            'kernel_launch_calls_per_step': launch_api / steps,
+            'graph_launches_per_step': host.get('cudaGraphLaunch', 0) / steps,
+            'busy_share': busy_ms / wall_ms if kernels else 'not measured'}
+
+
+def _phase_graph_train(torch, checks):
+    """18a: the flagship train config, k = 8 steps through the graph
+    against 8 eager steps from the same state (twice), then learning
+    through the graph and the step times."""
+    cfg = train_config()
+    cfg.train.steps_per_dispatch = GRAPH_K
+    model, engine = train_engine(torch, cfg, 751, 'cuda')
+    if not engine.train_graphs:
+        raise AssertionError('18a: the engine does not take the graph path')
+    rng = np.random.default_rng(SEED + 18)
+    batches = [make_train_batch(rng, TRAIN_IDS, TRAIN_INSTANCES, HEIGHT,
+                                WIDTH, 'cuda') for _ in range(GRAPH_K)]
+    stacked = {k: torch.stack([b[k] for b in batches])
+               for k in ('image', 'mask', 'pid')}
+    # cuDNN's deterministic algorithms for the comparison (its default
+    # backward algorithms sum with atomics: two eager runs would differ)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    # one eager step first: the optimizer's state exists in the snapshot
+    engine.forward_backward(batches[0])
+    snap = _graph_snapshot(engine)
+    eager = []
+    for _ in range(2):
+        _graph_restore(engine, snap)
+        losses = torch.stack([engine.forward_backward(b)[0]
+                              for b in batches])
+        torch.cuda.synchronize()
+        state = _graph_state(engine)
+        state['loss'] = losses
+        state['generator'] = engine.generator.get_state()
+        eager.append(state)
+    _graph_restore(engine, snap)
+    losses, summary = engine.forward_backward_multi(stacked)
+    torch.cuda.synchronize()
+    graph = _graph_state(engine)
+    graph['loss'] = losses
+    graph['generator'] = engine.generator.get_state()
+    g = engine._train_graph
+    calls = (g.eager_steps, g.captures, g.replays)
+    if calls != (1, 1, GRAPH_K - 1):
+        checks.append('18a: eager, capture, replay calls {}'.format(calls))
+    torch.backends.cudnn.deterministic = deterministic
+    engine._train_graph = None
+    counts, worst, bad = _graph_vs_eager(torch, graph, *eager)
+    checks += ['18a ' + b for b in bad]
+    leaves = [v for grp in summary.values() for v in grp.values()]
+    if not all(tuple(v.shape) == (GRAPH_K,) for v in leaves):
+        checks.append('18a: summary leaves are not [k]')
+
+    # learning: one batch repeated through a graph of the step without
+    # augmentation (fresh draws at 16 x 4 move the loss by more than 20
+    # steps lower it, phase 6), then the graph of the recipe again
+    one = {k: v[:1].expand(GRAPH_K, *v.shape[1:]).contiguous()
+           for k, v in stacked.items()}
+    transforms, engine.transforms = engine.transforms, ()
+    engine._train_graph = None
+    learn = torch.cat([engine.forward_backward_multi(one)[0]
+                       for _ in range(GRAPH_LEARN_GROUPS)]).tolist()
+    engine.transforms, engine._train_graph = transforms, None
+    if not (all(np.isfinite(learn)) and np.mean(learn[-4:])
+            < np.mean(learn[:4])):
+        checks.append('18a: the graph steps do not learn: {}'.format(learn))
+    engine.forward_backward_multi(stacked)      # eager step and capture
+
+    # step ms: median of 3 groups of k, graph and eager, same batches
+    def group_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / GRAPH_K
+    graph_ms = [group_ms(lambda: engine.forward_backward_multi(stacked))
+                for _ in range(3)]
+    eager_ms = [group_ms(lambda: [engine.forward_backward(b)
+                                  for b in batches]) for _ in range(3)]
+    prof_graph = _host_launch_profile(
+        torch, lambda: engine.forward_backward_multi(stacked), GRAPH_K)
+    prof_eager = _host_launch_profile(
+        torch, lambda: [engine.forward_backward(b) for b in batches[:3]], 3)
+    out = {'calls_eager_capture_replay': calls,
+           'cudnn_deterministic_in_comparison': True,
+           'vs_eager': counts, 'worst_over_bound': worst,
+           'loss_graph': graph['loss'].tolist(),
+           'loss_eager': eager[0]['loss'].tolist(),
+           'learning_losses': learn,
+           'graph_step_ms_median': statistics.median(graph_ms),
+           'eager_step_ms_median': statistics.median(eager_ms),
+           'graph_step_ms': graph_ms, 'eager_step_ms': eager_ms,
+           'graph_images_per_s': BATCH * 1e3 / statistics.median(graph_ms),
+           'eager_images_per_s': BATCH * 1e3 / statistics.median(eager_ms),
+           'profile_graph': prof_graph, 'profile_eager': prof_eager}
+    log('18a', json.dumps({k: v for k, v in out.items()
+                           if k not in ('learning_losses',)}))
+    del engine, model, snap, eager, graph
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase_graph_eval(torch, checks):
+    """18b: grouped eval (8 batches a group, a trailing group of 2)
+    through the eval graph against per-batch eval, float and int8, on
+    the serving config (K2)."""
+    from bpbreid_tpu_torch.data.augment import mask_chain_kwargs
+    from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
+    from bpbreid_tpu_torch.models import build_model
+    cfg = serving_config()
+    cfg.test.batches_per_dispatch = GRAPH_K
+    model = build_model('bpbreid', 751, config=cfg, device='cuda', seed=SEED)
+    engine = ImagePartBasedEngine.from_config(cfg, model,
+                                              mask_chain_kwargs(cfg),
+                                              device='cuda')
+    rng = np.random.default_rng(SEED + 19)
+    base = rng.integers(0, 256, size=(N_IDS, HEIGHT, WIDTH, 3))
+    batches = make_batches(GRAPH_EVAL_BATCHES, rng, base, 0)
+    for b in batches:
+        b['valid'] = np.ones(BATCH, bool)
+    batches[-1]['valid'][BATCH // 2:] = False      # a padded last batch
+    out = {}
+    for mode in ('float', 'int8'):
+        cfg.test.int8 = mode == 'int8'
+        engine.int8_quant_opts(batches)            # calibrates int8 once
+        runs = {}
+        for k in (GRAPH_K, 1, GRAPH_K):
+            cfg.test.batches_per_dispatch = k
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = engine.feature_extraction(batches)
+            torch.cuda.synchronize()
+            runs.setdefault(k, []).append(
+                (res, time.perf_counter() - t0))
+        grouped, single = runs[GRAPH_K][-1][0], runs[1][0][0]
+        equal = (torch.equal(grouped[0], single[0])
+                 and torch.equal(grouped[1], single[1])
+                 and grouped[4] == single[4])
+        if not equal:
+            checks.append('18b {}: grouped eval differs from per-batch: '
+                          'features {}, visibility {}'.format(
+                              mode, (grouped[0].float() - single[0].float())
+                              .abs().max().item(),
+                              (grouped[1] - single[1]).abs().max().item()))
+        n = int(sum(b['valid'].sum() for b in batches))
+        if grouped[0].shape[0] != n:
+            checks.append('18b {}: {} rows for {} valid'.format(
+                mode, grouped[0].shape[0], n))
+        g = engine._eval_graph
+        out[mode] = {'bit_equal': equal, 'images': n,
+                     'grouped_images_per_s': n / runs[GRAPH_K][-1][1],
+                     'per_batch_images_per_s': n / runs[1][0][1],
+                     'first_grouped_s': runs[GRAPH_K][0][1],
+                     'graph_calls': [g.eager_steps, g.captures, g.replays]}
+    log('18b', json.dumps(out))
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase_bench_train(torch):
+    """18c: tools/bench_train.py at its defaults, five timed loops."""
+    from bpbreid_tpu_torch.tools import bench_train
+    record = bench_train.main(['--iters', '5'])
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_graphs(torch, results):
+    """Phase 18 (see the module docstring). Returns the launch counts of
+    18a and 18b."""
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    t_phase = time.perf_counter()
+    checks, out, part_s = [], {}, {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for key, run in (('18a', _phase_graph_train),
+                     ('18b', _phase_graph_eval)):
+        t0 = time.perf_counter()
+        out[key] = run(torch, checks)
+        part_s[key] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(launch_counts)
+    out['launches'] = launches
+    t0 = time.perf_counter()
+    out['18c'] = _phase_bench_train(torch)
+    part_s['18c'] = time.perf_counter() - t0
+    out['part_s'] = part_s
+    out['phase_s'] = time.perf_counter() - t_phase
+    results['graphs'] = out
+    if checks:
+        raise AssertionError('; '.join(checks))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5789,12 +6158,15 @@ def main():
     log('phase 17: data parallelism (parallel/): bn_finalize and bn_dx '
         'with a count, NCCL at world size 1, 2 gloo ranks on the card')
     dp_launches = phase_data_parallel(torch, results, bn_shapes)
+    log('phase 18: grouped dispatch through CUDA graphs '
+        '(forward_backward_multi, grouped eval, tools/bench_train.py)')
+    graph_launches = phase_graphs(torch, results)
     # the launches of phases 10, 11, 13, 14, 15, 16 and 17b (each its own
     # path, counted from 0)
     path_launches = {}
     for counts in (inference_launches, pcb_launches, bot_launches,
                    global_launches, video_launches, zoo_launches,
-                   figures_launches, dp_launches):
+                   figures_launches, dp_launches, graph_launches):
         for k, v in counts.items():
             path_launches[k] = path_launches.get(k, 0) + v
 
@@ -6081,6 +6453,20 @@ def main():
         '17d_gallery': [dd[0]['gallery'], dd[0]['padded_gallery']],
         '17d_mAP_rank1': [dd[0]['mAP'], dd[0]['rank1']],
         'phase_s': dp['phase_s'], 'gpu': gpu}))
+    gr = results['graphs']
+    log('graphs', json.dumps({
+        '18a': {k: gr['18a'][k] for k in (
+            'calls_eager_capture_replay', 'vs_eager', 'worst_over_bound',
+            'graph_step_ms_median', 'eager_step_ms_median',
+            'graph_images_per_s', 'eager_images_per_s')},
+        '18a_learning_first_last': [gr['18a']['learning_losses'][0],
+                                    gr['18a']['learning_losses'][-1]],
+        '18a_profile': {run: {k: gr['18a'][run][k] for k in (
+            'device_kernels_per_step', 'kernel_launch_calls_per_step',
+            'graph_launches_per_step', 'busy_share')}
+            for run in ('profile_graph', 'profile_eager')},
+        '18b': gr['18b'], '18c': gr['18c'], 'launches': gr['launches'],
+        'part_s': gr['part_s'], 'phase_s': gr['phase_s'], 'gpu': gpu}))
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

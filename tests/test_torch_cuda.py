@@ -669,6 +669,7 @@ def test_cli_launches_the_bn_kernels(cuda, tmp_path):
     import os
     import types
     from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    from bpbreid_tpu_torch.engine.graphs import replayed_counter
     from bpbreid_tpu_torch.models.common import FastBatchNorm
     from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
                                                   reset_launch_counts)
@@ -687,7 +688,11 @@ def test_cli_launches_the_bn_kernels(cuda, tmp_path):
         if isinstance(m, FastBatchNorm):
             m.register_forward_pre_hook(hook)
     reset_launch_counts()
-    engine.run(max_epoch=1, test_only=False, save_dir=cfg.data.save_dir)
+    # grouped eval replays a CUDA graph: its replays repeat the calls
+    # the capture made, counted as the launch counts are
+    with replayed_counter(calls):
+        engine.run(max_epoch=1, test_only=False,
+                   save_dir=cfg.data.save_dir)
     torch.cuda.synchronize()
     assert calls['train'] > 0 and calls['eval'] > 0
     assert launch_counts['bn_stats'] == calls['train']
@@ -1465,3 +1470,226 @@ def test_profile_summary_of_a_cuda_trace(cuda, tmp_path):
     assert label.startswith('device') and own_us > 0
     assert abs(total_ns / 1e3 - own_us) <= 0.01 * own_us
     assert cats['convolution'] > 0 and cats['batch norm'] > 0
+
+
+# grouped dispatch through CUDA graphs (engine/graphs.py): the smoke
+# config's BPBReID (resnet18 at 64x32, batch 8, f32, capturable Adam)
+def _graph_engine(tmp_path, *opts):
+    import os
+    import types
+    from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    from bpbreid_tpu_torch.scripts import main as cli
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    clear_dataset_cache()
+    cfg = cli.build_config(
+        types.SimpleNamespace(save_dir=str(tmp_path), job_id=1, opts=[
+            'model.compute_dtype', 'float32', 'data.transforms',
+            "['rf', 'rc', 're']"] + list(opts)),
+        os.path.join(repo, 'configs/bpbreid/bpbreid_synthetic_smoke.yaml'))
+    engine, _model = cli.build_model_engine(cfg)
+    return engine
+
+
+def _graph_batches(engine, k):
+    import itertools
+    import numpy as np
+    batches = list(itertools.islice(
+        itertools.cycle(engine.datamanager.train_loader), k))
+    stacked = {key: torch.as_tensor(np.stack([b[key] for b in batches]))
+               .cuda() for key in ('image', 'mask', 'pid')}
+    return batches, stacked
+
+
+def _train_snapshot(engine):
+    import copy
+    return ({k: v.clone() for k, v in engine.model.state_dict().items()},
+            copy.deepcopy(engine.optimizer.state_dict()),
+            engine.generator.get_state())
+
+
+def _train_restore(engine, snap):
+    # the optimizer gets a copy: load_state_dict keeps tensors that fit
+    import copy
+    from bpbreid_tpu_torch.utils.checkpoint import load_optimizer_state
+    engine.model.load_state_dict(snap[0])
+    load_optimizer_state(engine.optimizer, copy.deepcopy(snap[1]))
+    engine.generator.set_state(snap[2])
+
+
+def _train_state(engine):
+    out = {'param.' + n: p.detach().clone()
+           for n, p in engine.model.named_parameters()}
+    out.update({'buffer.' + n: b.clone()
+                for n, b in engine.model.named_buffers()})
+    for i, p in enumerate(engine.model.parameters()):
+        for k, v in engine.optimizer.state[p].items():
+            out['adam.{}.{}'.format(i, k)] = v.clone()
+    return out
+
+
+def test_graph_steps_equal_eager_steps(cuda, tmp_path, monkeypatch):
+    """k = 4 steps through the train step's CUDA graph (an eager step,
+    a capture and its replay, two replays) against 4 eager steps from
+    the same state, twice, with cuDNN's deterministic algorithms (its
+    default backward sums with atomics): losses, parameters, BN
+    statistics, Adam's moments and the generator's state (the
+    augmentation's and the dropout's draws) bit-equal wherever the two
+    eager runs are, else within 4 times their own difference."""
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    engine = _graph_engine(tmp_path)
+    assert engine.train_graphs
+    batches, stacked = _graph_batches(engine, 4)
+    snap = _train_snapshot(engine)
+    runs = []
+    for _ in range(2):
+        _train_restore(engine, snap)
+        losses = torch.stack([engine.forward_backward(b)[0]
+                              for b in batches])
+        torch.cuda.synchronize()
+        runs.append((losses, _train_state(engine),
+                     engine.generator.get_state()))
+    _train_restore(engine, snap)
+    losses, summary = engine.forward_backward_multi(stacked)
+    torch.cuda.synchronize()
+    graph = engine._train_graph
+    assert (graph.eager_steps, graph.captures, graph.replays) == (1, 1, 3)
+    state = _train_state(engine)
+    (l_a, s_a, g_a), (l_b, s_b, g_b) = runs
+    assert torch.equal(engine.generator.get_state(), g_a)
+    for name, got, a, b in [('loss', losses, l_a, l_b)] + [
+            (k, state[k], s_a[k], s_b[k]) for k in s_a]:
+        if torch.equal(a, b):
+            assert torch.equal(got, a), name
+        else:
+            spread = (b - a).abs().max().item()
+            assert (got - a).abs().max().item() <= 4 * spread, name
+    leaves = [v for group in summary.values() for v in group.values()]
+    assert leaves and all(tuple(v.shape) == (4,) for v in leaves)
+
+
+def test_graph_recaptures_on_lr_and_frozen_base(cuda, tmp_path):
+    """The CLI's Adam on the card is capturable. A new lr or frozen-base
+    flag re-keys the graph: an eager step, then a new capture; the same
+    key replays."""
+    engine = _graph_engine(tmp_path)
+    assert all(g['capturable'] for g in engine.optimizer.param_groups)
+    _batches, stacked = _graph_batches(engine, 3)
+    engine.forward_backward_multi(stacked)
+    graph = engine._train_graph
+    assert (graph.eager_steps, graph.captures, graph.replays) == (1, 1, 2)
+    engine.forward_backward_multi(stacked)
+    assert (graph.eager_steps, graph.captures, graph.replays) == (1, 1, 5)
+    for group in engine.optimizer.param_groups:
+        group['lr'] *= 0.1
+    engine.forward_backward_multi(stacked)
+    assert (graph.eager_steps, graph.captures, graph.replays) == (2, 2, 7)
+    engine.set_freeze_base(True)
+    engine.forward_backward_multi(stacked)
+    assert (graph.eager_steps, graph.captures, graph.replays) == (3, 3, 9)
+    torch.cuda.synchronize()
+
+
+def test_graph_replays_add_the_captured_launch_counts(cuda, tmp_path):
+    """Each replay adds the BN launches its capture made: k grouped
+    steps count k times an eager step's launches."""
+    from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
+                                                  reset_launch_counts)
+    engine = _graph_engine(tmp_path)
+    batches, stacked = _graph_batches(engine, 5)
+    reset_launch_counts()
+    engine.forward_backward(batches[0])
+    one = dict(launch_counts)
+    assert one.get('bn_stats', 0) > 0
+    reset_launch_counts()
+    engine.forward_backward_multi(stacked)
+    torch.cuda.synchronize()
+    assert engine._train_graph.replays == 4
+    assert dict(launch_counts) == {k: 5 * v for k, v in one.items()}
+
+
+def test_graph_capture_failure_raises(cuda, tmp_path, monkeypatch):
+    """A step that fails while it is captured raises out of
+    ``forward_backward_multi``: no eager step is taken in its place."""
+    engine = _graph_engine(tmp_path)
+    _batches, stacked = _graph_batches(engine, 3)
+    step = engine.train_step
+
+    def failing(*inputs, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            raise ValueError('refused while capturing')
+        return step(*inputs, **kwargs)
+    monkeypatch.setattr(engine, 'train_step', failing)
+    engine._train_graph = None
+    with pytest.raises(ValueError, match='refused while capturing'):
+        engine.forward_backward_multi(stacked)
+    graph = engine._train_graph
+    assert (graph.eager_steps, graph.captures, graph.replays) == (1, 0, 0)
+    torch.cuda.synchronize()
+
+
+def test_capturable_adam_checkpoint_loads_into_an_eager_engine(cuda,
+                                                               tmp_path):
+    """A graph engine's checkpoint (capturable Adam, step counts on the
+    card) loads into an engine of eager steps (Adam without
+    ``capturable``, step counts on the host), which trains on; its
+    checkpoint loads back into the graph engine, which replays."""
+    from bpbreid_tpu_torch.utils.checkpoint import (resume_from_checkpoint,
+                                                    save_checkpoint)
+    graph = _graph_engine(tmp_path / 'g')
+    eager = _graph_engine(tmp_path / 'e')
+    # build_optimizer makes a card's Adam capturable: the eager engine's
+    # is built without
+    eager.optimizer = torch.optim.Adam(
+        eager.model.parameters(), lr=graph.optimizer.param_groups[0]['lr'],
+        weight_decay=5e-4)
+    assert graph.train_graphs and not eager.train_graphs
+    batches, stacked = _graph_batches(graph, 3)
+    graph.forward_backward_multi(stacked)
+    path = save_checkpoint(graph.model, graph.optimizer, {'epoch': 0},
+                           str(tmp_path / 'ckpt'), epoch=0)
+    resume_from_checkpoint(path, eager.model, eager.optimizer)
+    for pg, pe in zip(graph.model.parameters(), eager.model.parameters()):
+        assert torch.equal(pg, pe)
+        sg, se = graph.optimizer.state[pg], eager.optimizer.state[pe]
+        assert torch.equal(sg['exp_avg'], se['exp_avg'])
+        assert se['step'].device.type == 'cpu' and float(se['step']) == 3
+        assert sg['step'].device.type == 'cuda'
+    assert not any(g['capturable'] for g in eager.optimizer.param_groups)
+    assert torch.isfinite(eager.forward_backward(batches[0])[0])
+    path = save_checkpoint(eager.model, eager.optimizer, {'epoch': 1},
+                           str(tmp_path / 'ckpt'), epoch=1)
+    resume_from_checkpoint(path, graph.model, graph.optimizer)
+    assert all(g['capturable'] for g in graph.optimizer.param_groups)
+    losses, _ = graph.forward_backward_multi(stacked)
+    assert graph._train_graph.eager_steps == 2      # re-keyed by the load
+    assert torch.isfinite(losses).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize('int8', [False, True])
+def test_grouped_eval_graph_equals_per_batch_eval(cuda, tmp_path, int8):
+    """Grouped eval (``batches_per_dispatch`` 4 over 6 query batches: a
+    padded trailing group) replays the eval graph and gives the
+    per-batch eval's features, visibility and pixel accuracy bit for
+    bit, float and int8; a train step re-keys the graph."""
+    opts = ['test.batch_size', '8', 'test.batches_per_dispatch', '4']
+    if int8:
+        opts += ['test.int8', 'True']
+    engine = _graph_engine(tmp_path, *opts)
+    loader = engine.datamanager.test_loader['synthetic']['query']
+    assert len(loader) == 6
+    grouped = engine.feature_extraction(loader)
+    graph = engine._eval_graph
+    # batch 1 eager, batch 2 captured and replayed, batches 3-6 replayed
+    assert (graph.eager_steps, graph.captures, graph.replays) == (1, 1, 5)
+    engine.config.test.batches_per_dispatch = 1
+    single = engine.feature_extraction(loader)
+    torch.cuda.synchronize()
+    assert torch.equal(grouped[0], single[0])
+    assert torch.equal(grouped[1], single[1])
+    assert grouped[4] == single[4]
+    engine.config.test.batches_per_dispatch = 4
+    engine.forward_backward(next(iter(engine.datamanager.train_loader)))
+    engine.feature_extraction(loader)
+    assert graph.eager_steps == 2 and graph.captures == 2
+    torch.cuda.synchronize()

@@ -15,7 +15,11 @@ JAX's, and the triplet losses' writer counters.
 - ``Logger.flush`` (the same ``scalars.json``) and
   ``Logger.current_logger``, ``EngineState.current_engine_state``,
   ``Writer.current_writer``;
-- ``count_params`` of a model against JAX's on the same weights.
+- ``count_params`` of a model against JAX's on the same weights;
+- ``scripts.main.build_datamanager`` against JAX's on the synthetic
+  image and video configs (the same type, identities and first train
+  batch), and ``native.rank.is_available`` (True once the library loads;
+  False, without raising, where the build fails).
 """
 import json
 
@@ -39,6 +43,7 @@ from bpbreid_tpu.ops.masks import compute_parts_num_and_names as j_parts
 from bpbreid_tpu.utils.engine_state import EngineState as JEngineState
 from bpbreid_tpu.utils.logging import Logger as JLogger
 from bpbreid_tpu.utils.model_complexity import count_params as j_count_params
+from bpbreid_tpu.scripts.main import build_datamanager as j_build_dm
 from bpbreid_tpu.utils.writer import Writer as JWriter
 from bpbreid_tpu_torch import models as tmodels
 from bpbreid_tpu_torch.config import get_default_config, imagedata_kwargs
@@ -48,9 +53,11 @@ from bpbreid_tpu_torch.data.datasets import image_datasets
 from bpbreid_tpu_torch.data.loader import BatchLoader
 from bpbreid_tpu_torch.losses.triplet import PartAveragedTripletLoss
 from bpbreid_tpu_torch.models.bpbreid import BPBreID as TBPBreID
+from bpbreid_tpu_torch.native import rank as native_rank
 from bpbreid_tpu_torch.ops.masks import compute_parts_num_and_names
 from bpbreid_tpu_torch.utils.engine_state import EngineState
 from bpbreid_tpu_torch.utils.logging import Logger
+from bpbreid_tpu_torch.scripts.main import build_datamanager
 from bpbreid_tpu_torch.utils.model_complexity import count_params
 from bpbreid_tpu_torch.utils.writer import Writer
 from tests.torch_port_helpers import limit_torch_threads, seeded_variables
@@ -205,3 +212,35 @@ def test_count_params_matches_jax():
     assert count_params({k: params[k] for k in keys}) == want
     assert count_params(tmodel) >= want
     assert count_params(list(params.values())) == count_params(tmodel)
+
+
+@pytest.mark.parametrize('data_type', ['image', 'video'])
+def test_build_datamanager_matches_jax(data_type):
+    jcfg, cfg = j_default_config(), get_default_config()
+    name = 'synthetic' if data_type == 'image' else 'synthetic_video'
+    for c, parts in ((jcfg, j_parts), (cfg, compute_parts_num_and_names)):
+        c.merge_from_dict({'data': {'type': data_type, 'sources': [name],
+                                    'targets': [name], 'height': 32,
+                                    'width': 16, 'workers': 1,
+                                    'transforms': []},
+                           'train': {'batch_size': 4},
+                           'sampler': {'num_instances': 2},
+                           'video': {'seq_len': 2}})
+        parts(c)
+    jds.clear_dataset_cache()
+    tds.clear_dataset_cache()
+    want, got = j_build_dm(jcfg), build_datamanager(cfg)
+    assert type(got).__name__ == type(want).__name__
+    assert got.num_train_pids == want.num_train_pids
+    g, w = next(iter(got.train_loader)), next(iter(want.train_loader))
+    for key in ('image', 'pid'):
+        np.testing.assert_array_equal(g[key], np.asarray(w[key]))
+
+
+def test_native_rank_is_available(monkeypatch):
+    assert native_rank.is_available() is True
+
+    def failed_build():
+        raise RuntimeError('native ranker build failed')
+    monkeypatch.setattr(native_rank, 'load', failed_build)
+    assert native_rank.is_available() is False

@@ -367,3 +367,78 @@ def check_zoo_bpbreid(name, hw, seed=7):
     assert fmap.shape[1] == backbone.feature_dim, (fmap.shape,
                                                    backbone.feature_dim)
     return fmap
+
+
+# aten ops that read the device back or make a tensor from host data:
+# neither may run inside a captured CUDA graph (engine/graphs.py)
+_HOST_OPS = ('aten.lift_fresh', 'aten._local_scalar_dense', 'aten.nonzero',
+             'aten.masked_select', 'aten._unique', 'aten.unique',
+             'aten.equal', 'aten.is_nonzero', 'aten.item')
+_HOST_METHODS = ('tolist', 'numpy', 'cpu', 'item', '__bool__', '__float__',
+                 '__int__', '__index__')
+
+
+class HostSyncRecorder:
+    """A CPU rehearsal of what a CUDA graph capture refuses: records, for
+    the code run inside it, each tensor made from host data, each read
+    of a tensor's value on the host and each op whose output shape
+    depends on the data (boolean indexing, nonzero). ``found`` lists
+    ``(what, file:line)`` of the innermost frame of the port. The range
+    checks that ``F.one_hot`` with a class count makes on the CPU alone
+    (on CUDA it relies on the scatter's device assert) are not
+    recorded."""
+
+    def __init__(self):
+        self.found = []
+        self._quiet = 0
+
+    def _where(self):
+        import traceback
+        for frame in reversed(traceback.extract_stack()):
+            if 'bpbreid_tpu_torch' in frame.filename:
+                return '{}:{}'.format(
+                    frame.filename.split('bpbreid_tpu_torch')[-1],
+                    frame.lineno)
+        return '?'
+
+    def __enter__(self):
+        from torch.overrides import TorchFunctionMode
+        from torch.utils._python_dispatch import TorchDispatchMode
+        rec = self
+
+        class Functions(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                name = getattr(func, '__name__', '')
+                kwargs = kwargs or {}
+                if name in _HOST_METHODS and not rec._quiet:
+                    rec.found.append((name, rec._where()))
+                if name == 'one_hot' and (len(args) > 1 or 'num_classes'
+                                          in kwargs):
+                    rec._quiet += 1
+                    try:
+                        return func(*args, **kwargs)
+                    finally:
+                        rec._quiet -= 1
+                return func(*args, **kwargs)
+
+        class Dispatch(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = str(func)
+                bool_index = name.startswith(('aten.index.', 'aten.index_put')) \
+                    and any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                            for i in (args[1] if len(args) > 1 else ()) or ()
+                            if i is not None)
+                if (name.startswith(_HOST_OPS) or bool_index) \
+                        and not rec._quiet:
+                    rec.found.append((name, rec._where()))
+                return func(*args, **(kwargs or {}))
+
+        self._modes = [Functions(), Dispatch()]
+        for m in self._modes:
+            m.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for m in reversed(self._modes):
+            m.__exit__(*exc)
+        return False
