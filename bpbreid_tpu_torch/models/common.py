@@ -30,8 +30,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bpbreid_tpu_torch.ops.cuda.batchnorm import MOMENTUM as BN_MOMENTUM
-from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_apply, bn_dx,
-                                                  bn_finalize, bn_grad_stats,
+from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_apply, bn_apply_sums,
+                                                  bn_dx, bn_grad_local_sums,
+                                                  bn_grad_stats,
                                                   bn_local_sums, bn_stats,
                                                   channel_view)
 from bpbreid_tpu_torch.ops.quant import (QTensor, QuantWeightCache,
@@ -174,14 +175,17 @@ class _BatchNormTrain(torch.autograd.Function):
     variance) and ``bn_apply``; backward ``bn_grad_stats`` and ``bn_dx``.
 
     With a ``mesh`` (``parallel/``: each rank holds a slice of the global
-    batch) the statistics are the global batch's: forward, the local sums
-    (``bn_local_sums``, the ``bn_stats`` launch) are all-reduced in place
-    and ``bn_finalize`` takes the global count ``m * world size`` (and
-    updates the running statistics, the same on every rank); backward,
-    the sums of ``bn_grad_stats`` are all-reduced before ``bn_dx``. The weight and bias gradients stay the
-    rank's own sums: the engine sums every parameter gradient over the
-    ranks afterwards, and returning the all-reduced sums would count them
-    once a rank.
+    batch) the statistics are the global batch's, and a BN is still two
+    launches each way: forward, the local sums (``bn_local_sums``, the
+    ``bn_stats`` launch) are all-reduced in place and ``bn_apply_sums``
+    finalizes them with the global count ``m * world size`` (updating the
+    running statistics, the same on every rank) and normalizes; backward,
+    ``bn_grad_local_sums`` (the ``bn_grad_stats`` launch) writes the sums
+    twice, one copy is all-reduced in place and ``bn_dx`` takes it with
+    the global count. The weight and bias gradients stay the rank's own
+    sums: the engine sums every parameter gradient over the ranks
+    afterwards, and returning the all-reduced sums would count them once
+    a rank.
     """
 
     @staticmethod
@@ -189,18 +193,20 @@ class _BatchNormTrain(torch.autograd.Function):
                 channel_dim, dtype, mesh=None):
         x = x.contiguous()
         ctx.mesh, ctx.m = mesh, None
+        ctx.channel_dim = channel_dim
         if mesh is None:
             mean, _, rstd, scale = bn_stats(x, weight, eps, channel_dim,
                                             running_mean, running_var)
-        else:
-            a, _, b = channel_view(x.shape, channel_dim)
-            ctx.m = a * b * mesh.size
-            mean, _, rstd, scale = bn_finalize(
-                all_reduce(bn_local_sums(x, weight, eps, channel_dim), mesh),
-                ctx.m, weight, eps, running_mean, running_var)
+            ctx.save_for_backward(x, mean, rstd, scale)
+            return bn_apply(x, mean, rstd, weight, bias, channel_dim, dtype)
+        a, _, b = channel_view(x.shape, channel_dim)
+        ctx.m = a * b * mesh.size
+        y, (mean, _, rstd, scale) = bn_apply_sums(
+            x, all_reduce(bn_local_sums(x, weight, eps, channel_dim), mesh),
+            ctx.m, weight, bias, eps, channel_dim, dtype, running_mean,
+            running_var)
         ctx.save_for_backward(x, mean, rstd, scale)
-        ctx.channel_dim = channel_dim
-        return bn_apply(x, mean, rstd, weight, bias, channel_dim, dtype)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
@@ -208,14 +214,17 @@ class _BatchNormTrain(torch.autograd.Function):
         # autograd may hand over a strided gradient: the kernels read a
         # contiguous one
         dy = dy.contiguous()
-        sum_dy, sum_dy_xhat = bn_grad_stats(dy, x, mean, rstd,
-                                            ctx.channel_dim)
+        if ctx.mesh is None:
+            sum_dy, sum_dy_xhat = bn_grad_stats(dy, x, mean, rstd,
+                                                ctx.channel_dim)
+            g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
+        else:
+            sum_dy, sum_dy_xhat, sums = bn_grad_local_sums(
+                dy, x, mean, rstd, ctx.channel_dim)
         dx = None
         if ctx.needs_input_grad[0]:
-            g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
             if ctx.mesh is not None:
-                g_dy, g_dy_xhat = all_reduce(
-                    torch.stack([sum_dy, sum_dy_xhat]), ctx.mesh)
+                g_dy, g_dy_xhat = all_reduce(sums, ctx.mesh)
             dx = bn_dx(dy, x, mean, rstd, scale, g_dy, g_dy_xhat,
                        ctx.channel_dim, ctx.m)
         dbias = sum_dy if ctx.needs_input_grad[2] else None

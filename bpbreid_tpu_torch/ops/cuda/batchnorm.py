@@ -21,16 +21,20 @@ feature-last ``[M, C]`` and ``[N, K, D]`` (``channel_dim=-1``) as
 - ``bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, m=None)`` ->
   ``dx = scale * (dy - sum_dy/m - xhat * sum_dy_xhat/m)`` in x's type,
   ``m = A*B`` unless given;
-- ``bn_finalize(sums, m, weight, eps)`` -> ``(mean, var, rstd, scale)``:
-  ``bn_stats``'s epilogue on given sums ``[2, C]`` of ``m`` values a
-  channel, with the running update. A batch split over ranks
+- ``bn_apply_sums(x, sums, m, weight, bias, eps)`` -> ``(y, (mean, var,
+  rstd, scale))``: ``bn_stats``'s epilogue on given sums ``[2, C]`` of
+  ``m`` values a channel (with the running update), then ``bn_apply``
+  with those statistics, in one launch. A batch split over ranks
   (``parallel/``) takes its local sums with ``bn_local_sums`` (the
-  ``bn_stats`` launch), all-reduces them and finalizes them here with
-  the global count; its backward all-reduces ``bn_grad_stats``'s sums
-  and passes the global count to ``bn_dx``.
+  ``bn_stats`` launch), all-reduces them in place and normalizes here
+  with the global count; its backward takes ``bn_grad_stats``'s sums
+  twice with ``bn_grad_local_sums`` (the rank's own for the weight and
+  bias gradients, a copy all-reduced in place) and passes the global
+  count to ``bn_dx``.
 
-Each is one kernel launch of ``bn_stats.cu`` for CUDA tensors, and
-raises if it cannot launch it; the plain versions (``*_reference``) run
+Each is one kernel launch of ``bn_stats.cu`` for CUDA tensors, counted
+once under its own name in ``launch_counts``, and raises if it cannot
+launch it; the plain versions (``*_reference``) run
 only for tensors on the CPU. The kernels take contiguous input and raise
 otherwise: the caller makes a tensor contiguous explicitly.
 """
@@ -40,11 +44,11 @@ from bpbreid_tpu_torch.ops.cuda.build import (check_cuda_error, launch_counts,
                                               load_kernel)
 
 __all__ = ['channel_view', 'reduce_splits', 'elementwise_splits',
-           'bn_stats', 'bn_local_sums', 'bn_finalize', 'bn_apply',
-           'bn_grad_stats', 'bn_dx',
+           'bn_stats', 'bn_local_sums', 'bn_apply', 'bn_apply_sums',
+           'bn_grad_stats', 'bn_grad_local_sums', 'bn_dx',
            'bn_stats_reference', 'bn_finalize_reference',
-           'bn_apply_reference', 'bn_grad_stats_reference',
-           'bn_dx_reference']
+           'bn_apply_reference', 'bn_apply_sums_reference',
+           'bn_grad_stats_reference', 'bn_dx_reference']
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MOMENTUM = 0.9      # flax: running = 0.9 * running + 0.1 * batch
@@ -122,6 +126,17 @@ def bn_apply_reference(x, mean, rstd, weight, bias=None, channel_dim=1,
     if bias is not None:
         y = y + bias.view(1, c, 1)
     return y.to(x.dtype if dtype is None else dtype).view(x.shape)
+
+
+def bn_apply_sums_reference(x, sums, m, weight, bias=None, eps=1e-5,
+                            channel_dim=1, dtype=None, running_mean=None,
+                            running_var=None):
+    """Plain PyTorch version of ``bn_apply_sums``: ``bn_finalize_reference``
+    then ``bn_apply_reference``."""
+    stats = bn_finalize_reference(sums[0], sums[1], m, weight, eps,
+                                  running_mean, running_var)
+    return bn_apply_reference(x, stats[0], stats[2], weight, bias,
+                              channel_dim, dtype), stats
 
 
 def bn_grad_stats_reference(dy, x, mean, rstd, channel_dim=1):
@@ -214,7 +229,7 @@ def bn_stats(x, weight, eps, channel_dim=1, running_mean=None,
 def bn_local_sums(x, weight, eps, channel_dim=1):
     """``(sum x, sum x*x)`` as one contiguous f32 ``[2, C]``, in one
     ``bn_stats`` launch (running statistics untouched): the sums that a
-    rank all-reduces in place before ``bn_finalize``."""
+    rank all-reduces in place before ``bn_apply_sums``."""
     if not _on_cuda('bn_stats', x):
         with torch.no_grad():
             return torch.stack(bn_stats_reference(x, weight, eps, channel_dim,
@@ -241,41 +256,6 @@ def _bn_stats_launch(x, weight, eps, channel_dim, running_mean, running_var,
                 out[4].data_ptr() if sums else None, a, c, b,
                 reduce_splits(a, c, b), eps, _DTYPE_CODES[x.dtype])
     return out
-
-
-def bn_finalize(sums, m, weight, eps, running_mean=None, running_var=None):
-    """``(mean, var, rstd, scale)``, f32 ``[C]`` each, of the sums ``sums
-    [2, C]`` (``sum x``, ``sum x*x``) of ``m`` values a channel, in one
-    launch; with ``running_mean``/``running_var`` it also updates those in
-    place, as ``bn_stats`` does.
-
-    Args:
-        sums: contiguous f32 ``[2, C]``.
-        m: the count of values a channel (an int, > 0).
-        weight: f32 ``[C]``, the BN scale.
-    """
-    if not _on_cuda('bn_finalize', sums):
-        with torch.no_grad():
-            return bn_finalize_reference(sums[0], sums[1], m, weight, eps,
-                                         running_mean, running_var)
-    c = sums.shape[-1]
-    if (sums.dtype != torch.float32 or tuple(sums.shape) != (2, c)
-            or not sums.is_contiguous()):
-        raise ValueError('bn_finalize: sums must be a contiguous f32 [2, C] '
-                         'tensor')
-    if (running_mean is None) != (running_var is None):
-        raise ValueError('bn_finalize: running_mean and running_var go '
-                         'together')
-    if not 0 < int(m) <= 0x7fffffff:
-        raise ValueError('bn_finalize: count {} out of range'.format(m))
-    _check_vectors('bn_finalize', c, sums.device, weight=weight,
-                   running_mean=running_mean, running_var=running_var)
-    out = torch.empty((4, c), dtype=torch.float32, device=sums.device)
-    with torch.cuda.device(sums.device):
-        _launch('bn_finalize', sums.data_ptr(), weight.data_ptr(),
-                _ptr(running_mean), _ptr(running_var), out.data_ptr(), c,
-                int(m), eps)
-    return out.unbind(0)
 
 
 def bn_apply(x, mean, rstd, weight, bias=None, channel_dim=1, dtype=None):
@@ -306,6 +286,57 @@ def bn_apply(x, mean, rstd, weight, bias=None, channel_dim=1, dtype=None):
     return y
 
 
+def bn_apply_sums(x, sums, m, weight, bias=None, eps=1e-5, channel_dim=1,
+                  dtype=None, running_mean=None, running_var=None):
+    """Train-mode BN's forward from given sums, in one launch: the
+    statistics of ``m`` values a channel whose ``sum x`` and ``sum x*x``
+    are ``sums`` (``bn_stats``'s epilogue, with the running update in
+    place when given), and ``y = (x - mean) * (rstd * weight) + bias``
+    with them, cast to ``dtype`` (x's by default).
+
+    Args:
+        x: float32 or bfloat16, channels at ``channel_dim``.
+        sums: contiguous f32 ``[2, C]``.
+        m: the count of values a channel (an int, > 0).
+        weight: f32 ``[C]``, the BN scale; bias: f32 ``[C]`` or None.
+        running_mean, running_var: f32 ``[C]`` updated in place, or None.
+    Returns:
+        ``(y, (mean, var, rstd, scale))``, the statistics f32 ``[C]``
+        each, as ``bn_stats`` returns them for the same sums.
+    """
+    dtype = x.dtype if dtype is None else dtype
+    if not _on_cuda('bn_apply_sums', x):
+        with torch.no_grad():
+            return bn_apply_sums_reference(x, sums, m, weight, bias, eps,
+                                           channel_dim, dtype, running_mean,
+                                           running_var)
+    _check_inputs('bn_apply_sums', x)
+    if dtype not in _DTYPE_CODES:
+        raise TypeError('bn_apply_sums: float32 or bfloat16 output expected, '
+                        'got {}'.format(dtype))
+    a, c, b = channel_view(x.shape, channel_dim)
+    if (sums.dtype != torch.float32 or tuple(sums.shape) != (2, c)
+            or not sums.is_contiguous() or sums.device != x.device):
+        raise ValueError('bn_apply_sums: sums must be a contiguous f32 '
+                         '[2, {}] tensor on {}'.format(c, x.device))
+    if (running_mean is None) != (running_var is None):
+        raise ValueError('bn_apply_sums: running_mean and running_var go '
+                         'together')
+    if not 0 < int(m) <= 0x7fffffff:
+        raise ValueError('bn_apply_sums: count {} out of range'.format(m))
+    _check_vectors('bn_apply_sums', c, x.device, weight=weight, bias=bias,
+                   running_mean=running_mean, running_var=running_var)
+    y = torch.empty(x.shape, dtype=dtype, device=x.device)
+    stats = torch.empty((4, c), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch('bn_apply_sums', x.data_ptr(), sums.data_ptr(),
+                weight.data_ptr(), _ptr(bias), _ptr(running_mean),
+                _ptr(running_var), stats.data_ptr(), y.data_ptr(), a, c, b,
+                elementwise_splits(a, c, b), int(m), eps,
+                _DTYPE_CODES[x.dtype], _DTYPE_CODES[dtype])
+    return y, stats.unbind(0)
+
+
 def bn_grad_stats(dy, x, mean, rstd, channel_dim=1):
     """Per-channel ``(sum dy, sum dy * (x - mean) * rstd)`` in f32, in one
     launch.
@@ -321,16 +352,41 @@ def bn_grad_stats(dy, x, mean, rstd, channel_dim=1):
             tuple(dy.shape), tuple(x.shape)))
     if not _on_cuda('bn_grad_stats', x):
         return bn_grad_stats_reference(dy, x, mean, rstd, channel_dim)
+    out = _bn_grad_stats_launch(dy, x, mean, rstd, channel_dim, False)
+    return out[0], out[1]
+
+
+def bn_grad_local_sums(dy, x, mean, rstd, channel_dim=1):
+    """``bn_grad_stats``'s sums twice, from one launch: ``(sum_dy,
+    sum_dy_xhat, sums)``, the rank's own two f32 ``[C]`` (its weight and
+    bias gradients) and a contiguous f32 ``[2, C]`` copy of them, which a
+    rank all-reduces in place before ``bn_dx``."""
+    if dy.shape != x.shape:
+        raise ValueError('dy {} and x {} differ in shape'.format(
+            tuple(dy.shape), tuple(x.shape)))
+    if not _on_cuda('bn_grad_stats', x):
+        s = bn_grad_stats_reference(dy, x, mean, rstd, channel_dim)
+        out = torch.stack(s + s)
+    else:
+        out = _bn_grad_stats_launch(dy, x, mean, rstd, channel_dim, True)
+    return out[0], out[1], out[2:]
+
+
+def _bn_grad_stats_launch(dy, x, mean, rstd, channel_dim, twice):
+    """``bn_grad_stats``'s launch: its f32 ``[2, C]`` output, or with
+    ``twice`` ``[4, C]``, the two sums written again in rows 2 and 3."""
     _check_inputs('bn_grad_stats', x, dy)
     a, c, b = channel_view(x.shape, channel_dim)
     _check_vectors('bn_grad_stats', c, x.device, mean=mean, rstd=rstd)
-    out = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((4 if twice else 2, c), dtype=torch.float32,
+                      device=x.device)
     with torch.cuda.device(x.device):
         _launch('bn_grad_stats', dy.data_ptr(), x.data_ptr(), mean.data_ptr(),
-                rstd.data_ptr(), out.data_ptr(), a, c, b,
+                rstd.data_ptr(), out.data_ptr(),
+                out[2].data_ptr() if twice else None, a, c, b,
                 reduce_splits(a, c, b), _DTYPE_CODES[dy.dtype],
                 _DTYPE_CODES[x.dtype])
-    return out[0], out[1]
+    return out
 
 
 def bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, channel_dim=1,

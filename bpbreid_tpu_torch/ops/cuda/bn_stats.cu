@@ -25,12 +25,17 @@
 //   bn_dx:               dx = scale * (dy - sum dy/m - xhat * sum dy*xhat/m),
 //                        cast to x's type; m is A * B or a count given by
 //                        the caller (the global batch's, across ranks)
-//   bn_finalize:         bn_stats's epilogue on given f32 sums [2, C] and
-//                        a given count m: the statistics of a batch split
-//                        over ranks, once their sums are all-reduced
+//   bn_apply_sums:       bn_apply from given f32 sums [2, C] of a given
+//                        count m (a batch split over ranks, its sums
+//                        all-reduced): each CTA runs bn_stats's epilogue
+//                        on its channel's sums in registers, the CTAs of
+//                        share 0 write the statistics [4, C] and move the
+//                        running statistics, then it is bn_apply
 // Each is one launch: a train-mode BN is two launches forward (bn_stats,
 // bn_apply) and two backward (bn_grad_stats, bn_dx), an eval-mode BN one;
-// across ranks the forward adds bn_finalize between the two.
+// across ranks too (bn_stats's sums, all_reduce, bn_apply_sums forward;
+// bn_grad_stats, writing its sums twice so that one copy is all-reduced in
+// place, all_reduce, bn_dx with the global count backward).
 //
 // Bound: device-memory bytes; each element costs 2-8 flops, far below the
 // card's flop/byte balance. At bf16, per element: 2 B for the sums (read
@@ -58,7 +63,11 @@
 //    group sums in f64.
 //  - Elementwise passes: the same walk over a grid of (share, channel)
 //    CTAs, each with its channel's constants in registers; x (and dy) read
-//    once, y (dx) written once.
+//    once, y (dx) written once. bn_apply_sums works its constants out of
+//    the sums in every CTA of the channel (a few operations on 4 loads,
+//    the same f32 operations in the same order in each, so every CTA
+//    holds the same bits and the statistics equal bn_stats's epilogue on
+//    the same sums): the finalize is no launch of its own.
 //  - Rounding: the f32 arithmetic rounds each operation on its own (no
 //    contraction), in the order of the plain PyTorch versions in
 //    batchnorm.py; a division by m is a product with the f32 reciprocal of
@@ -207,30 +216,60 @@ struct GradIn {
   const float* mean;
   const float* rstd;
   float* out;                 // [2, C]: sum dy, sum dy*xhat
+  float* out2;                // the same sums again, or null
 };
+
+__device__ __forceinline__ void write_grad_sums(const GradIn& gi, int c,
+                                                int C, double t1, double t2) {
+  gi.out[c] = (float)t1;
+  gi.out[C + c] = (float)t2;
+  if (gi.out2 != nullptr) {
+    gi.out2[c] = (float)t1;
+    gi.out2[C + c] = (float)t2;
+  }
+}
+
+// bn_stats's epilogue on f32 sums s1 = sum x, s2 = sum x*x of m values
+struct BnStats {
+  float mean, var, rstd, scale;
+};
+
+__device__ __forceinline__ BnStats finalize_stats(float s1, float s2,
+                                                  unsigned int m, float eps,
+                                                  float weight) {
+  const float inv_m = __fdiv_rn(1.0f, (float)m);
+  const float mean = __fmul_rn(s1, inv_m);
+  const float d = __fsub_rn(__fmul_rn(s2, inv_m), __fmul_rn(mean, mean));
+  const float var = d < 0.f ? 0.f : d;
+  const float rstd = rsqrtf(__fadd_rn(var, eps));
+  return {mean, var, rstd, __fmul_rn(rstd, weight)};
+}
+
+// The statistics [4, C] and the running update of channel c
+__device__ __forceinline__ void write_stats(float* stats, float* running_mean,
+                                            float* running_var, int c, int C,
+                                            const BnStats& st) {
+  stats[c] = st.mean;
+  stats[C + c] = st.var;
+  stats[2 * C + c] = st.rstd;
+  stats[3 * C + c] = st.scale;
+  if (running_mean != nullptr) {
+    running_mean[c] = __fadd_rn(__fmul_rn(kMomentum, running_mean[c]),
+                                __fmul_rn(kOneMinusMomentum, st.mean));
+    running_var[c] = __fadd_rn(__fmul_rn(kMomentum, running_var[c]),
+                               __fmul_rn(kOneMinusMomentum, st.var));
+  }
+}
 
 __device__ __forceinline__ void stats_epilogue(const StatsOut& o, int c,
                                                int C, unsigned int m,
                                                double t1, double t2) {
   const float s1 = (float)t1, s2 = (float)t2;
-  const float inv_m = __fdiv_rn(1.0f, (float)m);
-  const float mean = __fmul_rn(s1, inv_m);
-  const float d = __fsub_rn(__fmul_rn(s2, inv_m), __fmul_rn(mean, mean));
-  const float var = d < 0.f ? 0.f : d;
-  const float rstd = rsqrtf(__fadd_rn(var, o.eps));
-  o.stats[c] = mean;
-  o.stats[C + c] = var;
-  o.stats[2 * C + c] = rstd;
-  o.stats[3 * C + c] = __fmul_rn(rstd, o.weight[c]);
+  write_stats(o.stats, o.running_mean, o.running_var, c, C,
+              finalize_stats(s1, s2, m, o.eps, o.weight[c]));
   if (o.sums != nullptr) {
     o.sums[c] = s1;
     o.sums[C + c] = s2;
-  }
-  if (o.running_mean != nullptr) {
-    o.running_mean[c] = __fadd_rn(__fmul_rn(kMomentum, o.running_mean[c]),
-                                  __fmul_rn(kOneMinusMomentum, mean));
-    o.running_var[c] = __fadd_rn(__fmul_rn(kMomentum, o.running_var[c]),
-                                 __fmul_rn(kOneMinusMomentum, var));
   }
 }
 
@@ -326,8 +365,7 @@ reduce_rows_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
     t2 = warp_sum(t2);
     if (lane == 0) {
       if constexpr (GRAD) {
-        gi.out[c] = (float)t1;
-        gi.out[C + c] = (float)t2;
+        write_grad_sums(gi, c, C, t1, t2);
       } else {
         stats_epilogue(so, c, C, w.total * V, t1, t2);
       }
@@ -414,8 +452,7 @@ reduce_cols_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
       }
     }
     if constexpr (GRAD) {
-      gi.out[c] = (float)t1;
-      gi.out[C + c] = (float)t2;
+      write_grad_sums(gi, c, C, t1, t2);
     } else {
       stats_epilogue(so, c, C, (unsigned int)A, t1, t2);
     }
@@ -423,18 +460,11 @@ reduce_cols_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
   cluster.sync();
 }
 
-// Finalize: grid ceil(C / kThreads), one thread a channel. The sums are
-// f32 (an all-reduce of bn_stats's f32 sums), widened to the epilogue's
-// f64 exactly.
-__global__ void __launch_bounds__(kThreads)
-finalize_kernel(const float* __restrict__ sums, StatsOut so, int C,
-                unsigned int m) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c < C) stats_epilogue(so, c, C, m, (double)sums[c],
-                            (double)sums[C + c]);
-}
-
 // Elementwise passes: per-channel constants and the map of one element.
+// kApply: y from given statistics; kApplySums: y from given sums, the
+// statistics worked out in each CTA (and written by share 0's); kDx: dx.
+constexpr int kApply = 0, kApplySums = 1, kDx = 2;
+
 struct EwIn {
   const float* mean;
   const float* rstd;
@@ -443,7 +473,12 @@ struct EwIn {
   const float* scale;         // dx
   const float* sum_dy;        // dx
   const float* sum_dy_xhat;   // dx
-  unsigned int m;             // dx
+  unsigned int m;             // dx, apply from sums: the count
+  const float* sums;          // apply from sums: [2, C]
+  float* stats;               // apply from sums: [4, C] out
+  float* running_mean;        // apply from sums: [C] or null
+  float* running_var;
+  float eps;
 };
 
 struct EwConsts {
@@ -451,20 +486,34 @@ struct EwConsts {
   bool has_bias;
 };
 
-template <bool DX>
-__device__ __forceinline__ EwConsts ew_consts(const EwIn& p, int c) {
+// writer: the one thread a channel that stores the statistics (share 0)
+template <int OP>
+__device__ __forceinline__ EwConsts ew_consts(const EwIn& p, int c, int C,
+                                              bool writer) {
   EwConsts k;
-  k.mu = p.mean[c];
-  k.rs = p.rstd[c];
   k.bi = k.c1 = k.c2 = 0.f;
   k.has_bias = false;
-  if constexpr (DX) {
+  if constexpr (OP == kDx) {
     const float inv_m = __fdiv_rn(1.0f, (float)p.m);
+    k.mu = p.mean[c];
+    k.rs = p.rstd[c];
     k.sc = p.scale[c];
     k.c1 = __fmul_rn(p.sum_dy[c], inv_m);
     k.c2 = __fmul_rn(p.sum_dy_xhat[c], inv_m);
   } else {
-    k.sc = __fmul_rn(k.rs, p.weight[c]);
+    if constexpr (OP == kApplySums) {
+      const BnStats st = finalize_stats(p.sums[c], p.sums[C + c], p.m,
+                                        p.eps, p.weight[c]);
+      if (writer)
+        write_stats(p.stats, p.running_mean, p.running_var, c, C, st);
+      k.mu = st.mean;
+      k.rs = st.rstd;
+      k.sc = st.scale;
+    } else {
+      k.mu = p.mean[c];
+      k.rs = p.rstd[c];
+      k.sc = __fmul_rn(k.rs, p.weight[c]);
+    }
     if (p.bias != nullptr) {
       k.bi = p.bias[c];
       k.has_bias = true;
@@ -473,9 +522,9 @@ __device__ __forceinline__ EwConsts ew_consts(const EwIn& p, int c) {
   return k;
 }
 
-template <bool DX>
+template <int OP>
 __device__ __forceinline__ float ew_map(const EwConsts& k, float x, float g) {
-  if constexpr (DX) {
+  if constexpr (OP == kDx) {
     const float xhat = __fmul_rn(__fsub_rn(x, k.mu), k.rs);
     return __fmul_rn(k.sc, __fsub_rn(__fsub_rn(g, k.c1),
                                      __fmul_rn(xhat, k.c2)));
@@ -486,13 +535,15 @@ __device__ __forceinline__ float ew_map(const EwConsts& k, float x, float g) {
 }
 
 // B > 1: grid (S, C). apply: out = y (type TO); dx: out = dx (TO = TX).
-template <typename TX, typename TG, typename TO, bool DX, bool VEC>
+template <typename TX, typename TG, typename TO, int OP, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 ewise_rows_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
                   TO* __restrict__ out, EwIn p, int C, int B, Walk w) {
   constexpr int V = VEC ? kVec : 1;
+  constexpr bool DX = OP == kDx;
   const int c = blockIdx.y;
-  const EwConsts k = ew_consts<DX>(p, c);
+  const EwConsts k =
+      ew_consts<OP>(p, c, C, blockIdx.x == 0 && threadIdx.x == 0);
   const unsigned int v0 = blockIdx.x * w.chunk;
   const unsigned int v1 = min(w.total, v0 + w.chunk);
   Cursor cur = walk_start(w, v0 + threadIdx.x, c, C, B, V);
@@ -518,25 +569,26 @@ ewise_rows_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
       float o[V];
 #pragma unroll
       for (int e = 0; e < V; ++e)
-        o[e] = ew_map<DX>(k, xv[u][e], DX ? gv[u][e] : 0.f);
+        o[e] = ew_map<OP>(k, xv[u][e], DX ? gv[u][e] : 0.f);
       store_vec<V>(out + off[u], o);
     }
   }
 }
 
 // B == 1: grid (ceil(A / chunk), ceil(C / 32)), block (32, 8).
-template <typename TX, typename TG, typename TO, bool DX>
+template <typename TX, typename TG, typename TO, int OP>
 __global__ void __launch_bounds__(kColTile * kColRows)
 ewise_cols_kernel(const TX* __restrict__ x, const TG* __restrict__ dy,
                   TO* __restrict__ out, EwIn p, int A, int C, int chunk) {
   const int c = blockIdx.y * kColTile + threadIdx.x;
   if (c >= C) return;
-  const EwConsts k = ew_consts<DX>(p, c);
+  const EwConsts k =
+      ew_consts<OP>(p, c, C, blockIdx.x == 0 && threadIdx.y == 0);
   const int r1 = min(A, (int)(blockIdx.x + 1) * chunk);
   for (int r = blockIdx.x * chunk + threadIdx.y; r < r1; r += kColRows) {
     const size_t off = (size_t)r * C + c;
-    const float g = DX ? to_float(dy[off]) : 0.f;
-    out[off] = from_float<TO>(ew_map<DX>(k, to_float(x[off]), g));
+    const float g = OP == kDx ? to_float(dy[off]) : 0.f;
+    out[off] = from_float<TO>(ew_map<OP>(k, to_float(x[off]), g));
   }
 }
 
@@ -618,7 +670,7 @@ cudaError_t launch_reduce(const void* xp, const void* dyp, StatsOut so,
                         dim3(kThreads), S, st, x, dy, so, gi, C, B, w);
 }
 
-template <typename TX, typename TG, typename TO, bool DX>
+template <typename TX, typename TG, typename TO, int OP>
 cudaError_t launch_ewise(const void* xp, const void* dyp, void* outp,
                          EwIn p, int A, int C, int B, int S,
                          cudaStream_t st) {
@@ -628,21 +680,38 @@ cudaError_t launch_ewise(const void* xp, const void* dyp, void* outp,
   if (B == 1) {
     const int chunk = (A + S - 1) / S;
     const dim3 grid((A + chunk - 1) / chunk, (C + kColTile - 1) / kColTile);
-    ewise_cols_kernel<TX, TG, TO, DX><<<grid, dim3(kColTile, kColRows), 0,
+    ewise_cols_kernel<TX, TG, TO, OP><<<grid, dim3(kColTile, kColRows), 0,
                                         st>>>(x, dy, out, p, A, C, chunk);
     return cudaGetLastError();
   }
   const bool vec = B % kVec == 0 && aligned16(xp) && aligned16(outp) &&
-                   (!DX || aligned16(dyp));
+                   (OP != kDx || aligned16(dyp));
   const Walk w = make_walk(A, C, B, S, vec);
   const dim3 grid(S, C);
   if (vec)
-    ewise_rows_kernel<TX, TG, TO, DX, true><<<grid, kThreads, 0, st>>>(
+    ewise_rows_kernel<TX, TG, TO, OP, true><<<grid, kThreads, 0, st>>>(
         x, dy, out, p, C, B, w);
   else
-    ewise_rows_kernel<TX, TG, TO, DX, false><<<grid, kThreads, 0, st>>>(
+    ewise_rows_kernel<TX, TG, TO, OP, false><<<grid, kThreads, 0, st>>>(
         x, dy, out, p, C, B, w);
   return cudaGetLastError();
+}
+
+// bn_apply's two modes over x's and y's types
+template <int OP>
+cudaError_t launch_apply(const void* x, void* y, const EwIn& p, int A, int C,
+                         int B, int S, int x_dtype, int y_dtype,
+                         cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  if (x_dtype == 0 && y_dtype == 0)
+    return launch_ewise<float, float, float, OP>(x, x, y, p, A, C, B, S, st);
+  if (x_dtype == 0 && y_dtype == 1)
+    return launch_ewise<float, float, bf, OP>(x, x, y, p, A, C, B, S, st);
+  if (x_dtype == 1 && y_dtype == 0)
+    return launch_ewise<bf, bf, float, OP>(x, x, y, p, A, C, B, S, st);
+  if (x_dtype == 1 && y_dtype == 1)
+    return launch_ewise<bf, bf, bf, OP>(x, x, y, p, A, C, B, S, st);
+  return cudaErrorInvalidValue;
 }
 
 // Per-channel counts are 32-bit; C lies on the grid's y axis.
@@ -671,7 +740,7 @@ int bpbreid_bn_stats(const void* x, const float* weight, float* running_mean,
     return (int)cudaErrorInvalidValue;
   const StatsOut so{stats, sums, weight, running_mean, running_var,
                     eps};
-  const GradIn gi{nullptr, nullptr, nullptr};
+  const GradIn gi{nullptr, nullptr, nullptr, nullptr};
   if (x_dtype == 0)
     return (int)launch_reduce<float, float, false>(x, x, so, gi, A, C, B, S,
                                                    st);
@@ -681,14 +750,16 @@ int bpbreid_bn_stats(const void* x, const float* weight, float* running_mean,
   return (int)cudaErrorInvalidValue;
 }
 
-// out: f32 [2, C] (sum dy, sum dy*xhat).
+// out: f32 [2, C] (sum dy, sum dy*xhat); out2: null, or f32 [2, C] that
+// gets the same sums (the copy a rank all-reduces in place).
 int bpbreid_bn_grad_stats(const void* dy, const void* x, const float* mean,
-                          const float* rstd, float* out, int A, int C, int B,
-                          int S, int dy_dtype, int x_dtype, void* stream) {
+                          const float* rstd, float* out, float* out2, int A,
+                          int C, int B, int S, int dy_dtype, int x_dtype,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(A, C, B, S, kMaxCluster)) return (int)cudaErrorInvalidValue;
   const StatsOut so{};
-  const GradIn gi{mean, rstd, out};
+  const GradIn gi{mean, rstd, out, out2};
   using bf = __nv_bfloat16;
   if (x_dtype == 0 && dy_dtype == 0)
     return (int)launch_reduce<float, float, true>(x, dy, so, gi, A, C, B, S,
@@ -711,20 +782,40 @@ int bpbreid_bn_apply(const void* x, const float* mean, const float* rstd,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(A, C, B, 1, 1) || S <= 0 || S > 65535)
     return (int)cudaErrorInvalidValue;
-  const EwIn p{mean, rstd, weight, bias, nullptr, nullptr, nullptr, 0u};
-  using bf = __nv_bfloat16;
-  if (x_dtype == 0 && y_dtype == 0)
-    return (int)launch_ewise<float, float, float, false>(x, x, y, p, A, C, B,
-                                                         S, st);
-  if (x_dtype == 0 && y_dtype == 1)
-    return (int)launch_ewise<float, float, bf, false>(x, x, y, p, A, C, B, S,
-                                                      st);
-  if (x_dtype == 1 && y_dtype == 0)
-    return (int)launch_ewise<bf, bf, float, false>(x, x, y, p, A, C, B, S,
-                                                   st);
-  if (x_dtype == 1 && y_dtype == 1)
-    return (int)launch_ewise<bf, bf, bf, false>(x, x, y, p, A, C, B, S, st);
-  return (int)cudaErrorInvalidValue;
+  EwIn p{};
+  p.mean = mean;
+  p.rstd = rstd;
+  p.weight = weight;
+  p.bias = bias;
+  return (int)launch_apply<kApply>(x, y, p, A, C, B, S, x_dtype, y_dtype,
+                                   st);
+}
+
+// bn_apply from sums f32 [2, C] (sum x, sum x*x over m values a channel):
+// stats f32 [4, C] (mean, var, rstd, scale) as bn_stats's epilogue gives
+// them, y as bpbreid_bn_apply gives it from those; running_mean,
+// running_var: f32 [C], both or neither, updated in place.
+int bpbreid_bn_apply_sums(const void* x, const float* sums,
+                          const float* weight, const float* bias,
+                          float* running_mean, float* running_var,
+                          float* stats, void* y, int A, int C, int B, int S,
+                          int m, float eps, int x_dtype, int y_dtype,
+                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bad_shape(A, C, B, 1, 1) || S <= 0 || S > 65535 || m <= 0 ||
+      (running_mean == nullptr) != (running_var == nullptr))
+    return (int)cudaErrorInvalidValue;
+  EwIn p{};
+  p.weight = weight;
+  p.bias = bias;
+  p.m = (unsigned int)m;
+  p.sums = sums;
+  p.stats = stats;
+  p.running_mean = running_mean;
+  p.running_var = running_var;
+  p.eps = eps;
+  return (int)launch_apply<kApplySums>(x, y, p, A, C, B, S, x_dtype,
+                                       y_dtype, st);
 }
 
 // dx = scale * (dy - sum_dy/m - xhat * sum_dy_xhat/m), dx of x's type;
@@ -737,39 +828,26 @@ int bpbreid_bn_dx(const void* dy, const void* x, const float* mean,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(A, C, B, 1, 1) || S <= 0 || S > 65535 || m <= 0)
     return (int)cudaErrorInvalidValue;
-  const EwIn p{mean,  rstd,        nullptr,
-               nullptr, scale, sum_dy, sum_dy_xhat,
-               (unsigned int)m};
+  EwIn p{};
+  p.mean = mean;
+  p.rstd = rstd;
+  p.scale = scale;
+  p.sum_dy = sum_dy;
+  p.sum_dy_xhat = sum_dy_xhat;
+  p.m = (unsigned int)m;
   using bf = __nv_bfloat16;
   if (x_dtype == 0 && dy_dtype == 0)
-    return (int)launch_ewise<float, float, float, true>(x, dy, dx, p, A, C, B,
-                                                        S, st);
+    return (int)launch_ewise<float, float, float, kDx>(x, dy, dx, p, A, C, B,
+                                                       S, st);
   if (x_dtype == 0 && dy_dtype == 1)
-    return (int)launch_ewise<float, bf, float, true>(x, dy, dx, p, A, C, B, S,
-                                                     st);
+    return (int)launch_ewise<float, bf, float, kDx>(x, dy, dx, p, A, C, B, S,
+                                                    st);
   if (x_dtype == 1 && dy_dtype == 0)
-    return (int)launch_ewise<bf, float, bf, true>(x, dy, dx, p, A, C, B, S,
-                                                  st);
+    return (int)launch_ewise<bf, float, bf, kDx>(x, dy, dx, p, A, C, B, S,
+                                                 st);
   if (x_dtype == 1 && dy_dtype == 1)
-    return (int)launch_ewise<bf, bf, bf, true>(x, dy, dx, p, A, C, B, S, st);
+    return (int)launch_ewise<bf, bf, bf, kDx>(x, dy, dx, p, A, C, B, S, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// stats: f32 [4, C] (mean, var, rstd, scale) from sums f32 [2, C] (sum x,
-// sum x*x over m values a channel); running_mean, running_var: f32 [C],
-// both or neither, updated in place.
-int bpbreid_bn_finalize(const float* sums, const float* weight,
-                        float* running_mean, float* running_var,
-                        float* stats, int C, int m, float eps,
-                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C <= 0 || m <= 0 ||
-      (running_mean == nullptr) != (running_var == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const StatsOut so{stats, nullptr, weight, running_mean, running_var, eps};
-  finalize_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      sums, so, C, (unsigned int)m);
-  return (int)cudaGetLastError();
 }
 
 const char* bpbreid_cuda_error_string(int code) {

@@ -14,20 +14,60 @@ JAX kernel's ``(num, den, vismax)`` f32 contract.
 ``fused_attention_pool`` launches the CUDA kernel
 (``attention_pool.cu``) for CUDA tensors and raises if it cannot; it
 runs the plain version ``attention_pool_reference`` only for tensors
-that lie on the CPU. The kernel has no backward (nor has the JAX
-package's): on the card it raises when an input requires grad, rather
-than return outputs cut from the graph. On the CPU the plain version is
-differentiable, as the JAX one is.
+that lie on the CPU. ``attention_pool_plan`` (plain Python) cuts the
+work for the kernel: a cluster of CTAs a sample, each a slice of the
+pixels, and the chunks its shared memory holds. The kernel has no
+backward (nor has the JAX package's): on the card it raises when an
+input requires grad, rather than return outputs cut from the graph. On
+the CPU the plain version is differentiable, as the JAX one is.
 """
 import torch
 
 from bpbreid_tpu_torch.ops.cuda.build import (check_cuda_error, launch_counts,
                                               load_kernel)
 
-__all__ = ['fused_attention_pool', 'attention_pool_reference']
+__all__ = ['fused_attention_pool', 'attention_pool_reference',
+           'attention_pool_plan', 'attention_pool_smem_bytes']
 
 MAX_PARTS = 64          # K+1 the kernel's register accumulators cover
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's tiling (attention_pool.cu)
+STEP = 64               # pixels a warp step covers; slices are multiples
+MAX_CLUSTER = 8         # CTAs a sample (a portable cluster)
+# CTAs the plan aims at: one of 256 threads on each of an H100's 132 SMs,
+# all resident at once
+TARGET_CTAS = 132
+PROBS_BYTES = 48 * 1024      # a CTA's table of probabilities
+PARTIAL_BYTES = 96 * 1024    # a CTA's partial sums [K+1, channels]
+RING_BYTES = 64 * 1024       # a CTA's ring of feature loads (cp.async)
+
+
+def attention_pool_plan(n, d, p, k1):
+    """The kernel's cut of ``n`` samples of ``d`` channels and ``p``
+    pixels with ``k1`` parts: ``(s, slice, pc, dr, dc)``. ``s`` CTAs a
+    sample (one cluster) each own ``slice`` pixels (a multiple of
+    ``STEP``; the ``s`` slices cover ``p`` in equal steps, none empty) of
+    ``dr`` channels (a multiple of 16; ``ceil(d / dr)`` ranges, more than
+    one only where the map is too small to slice); a CTA tables the
+    probabilities ``pc`` pixels at a time and keeps the partial sums
+    ``dc`` channels (a multiple of 16) at a time."""
+    steps = -(-p // STEP)
+    per_sample = max(1, round(TARGET_CTAS / n))
+    s = max(c for c in range(1, min(MAX_CLUSTER, steps, per_sample) + 1)
+            if steps % c == 0)
+    slice_ = steps // s * STEP
+    ds = max(1, min(per_sample // s, -(-d // 16)))
+    dr = -(-d // ds)
+    dr = -(-dr // 16) * 16
+    pc = min(slice_, max(STEP, PROBS_BYTES // (4 * k1) // STEP * STEP))
+    dc = min(dr, max(16, PARTIAL_BYTES // (4 * k1) // 16 * 16))
+    return s, slice_, pc, dr, dc
+
+
+def attention_pool_smem_bytes(k1, pc, dc):
+    """Dynamic shared memory of a CTA: the ring of feature loads, the
+    table, the partial sums, the slice's den and vismax."""
+    return RING_BYTES + 4 * (k1 * pc + k1 * dc + 2 * k1)
 
 
 def attention_pool_reference(features, logits):
@@ -98,6 +138,7 @@ def fused_attention_pool(features, logits):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(features.data_ptr(), logits.data_ptr(), num.data_ptr(),
                   den.data_ptr(), vismax.data_ptr(), n, d, h * w, k1,
+                  *attention_pool_plan(n, d, h * w, k1),
                   _DTYPE_CODES[features.dtype], _DTYPE_CODES[logits.dtype],
                   stream)
     check_cuda_error(lib, code, 'attention_pool kernel')

@@ -11,8 +11,8 @@ device, each rank holding the same replicated model:
   lockstep) and runs the model on its slice;
 - train-mode batch norm takes its statistics over every rank's samples
   (``models.common.FastBatchNorm``: the sums of ``bn_stats`` all-reduced,
-  then ``bn_finalize`` with the global count; backward, the sums of
-  ``bn_grad_stats`` all-reduced before ``bn_dx``), and the running
+  then ``bn_apply_sums`` with the global count; backward, a copy of the
+  sums of ``bn_grad_stats`` all-reduced before ``bn_dx``), and the running
   statistics move by the global statistics on every rank;
 - the outputs are gathered (the rank's own slice live), so batch-hard
   triplet mining, the cross entropy and BPA run over the global batch;

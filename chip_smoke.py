@@ -20,7 +20,10 @@ and Market-1501 + 500k distractors scale. Phases:
 1. build every kernel (one nvcc per source, started together), and count
    the tensor-core instructions (HMMA) in K1's SASS;
 2. each kernel against its plain PyTorch version on the card, at the
-   main-path shapes and at ragged shapes, with timings (CUDA events);
+   main-path shapes and at ragged shapes, with timings (CUDA events:
+   eager, and for K2, the reported K3 input and K1 also the device time
+   of the kernel and of its library call from a CUDA graph of 20 calls;
+   K2 at f32 and at bf16, the dtype the models hand it);
 3. the serving run: eval_preprocess -> model -> test embeddings ->
    normalize -> part-based distance -> CMC/mAP over seeded query and
    gallery batches of 64, with the kernels' launch counts (one bn_apply
@@ -257,24 +260,29 @@ and Market-1501 + 500k distractors scale. Phases:
 
 17. data parallelism on ``torch.distributed`` (``parallel/``), every
    launch and collective count set to 0 just before each run and read
-   just after: (a) ``bn_finalize`` (the cross-rank batch norm's epilogue)
+   just after: (a) ``bn_apply_sums`` (the cross-rank batch norm's forward
+   from all-reduced sums: the epilogue and the normalize in one launch)
    on the summed sums of two equal slices with the global count, and
    ``bn_dx`` with the global count, against their plain versions at each
    distinct BN input of phase 6's step (the same bits over two calls),
-   and ``bn_finalize`` timed against its bound and
-   ``torch.batch_norm_gather_stats_with_counts``; (b) two flagship train
-   steps (HRNet-W32, 384x128, five_v, bf16, batch 64) through
-   ``distribute_engine`` on a one-rank NCCL process group (``bn_stats``
-   sums, ``all_reduce``, ``bn_finalize``, ``bn_dx`` with the count) against
-   the one-process steps on the same batch and draws (step 1's loss,
-   gradients and state at phase 7's tolerances), bit-equality reported;
+   and ``bn_apply_sums`` timed beside ``bn_apply`` alone on the same
+   input, its bound and SyncBatchNorm's two library calls; (b) three
+   flagship train steps (HRNet-W32, 384x128, five_v, bf16, batch 64)
+   through ``distribute_engine`` on a one-rank NCCL process group
+   (``bn_stats`` sums, ``all_reduce``, ``bn_apply_sums``; backward
+   ``bn_grad_stats``'s sums twice, ``all_reduce`` of the copy in place,
+   ``bn_dx`` with the count) against the one-process steps on the same
+   batch and draws (step 1's loss, gradients and state at phase 7's
+   tolerances), bit-equality reported, the third step of each run
+   profiled (device kernels, busy share);
    (c) 2 gloo ranks on ``cuda:0`` (NCCL refuses two ranks on one GPU),
    spawned: 2 x 32 images against the one-process 64-image step (the
    loss), 20 steps on the one batch at phase 7's depth (the flagship's
    width) whose loss falls, the ranks' parameters and BN statistics
    bit-equal (sha256) after the full-depth step and after the 20, each
-   rank's BN and
-   ``bn_finalize`` launches and ``all_reduce`` calls a step, and phase 7's
+   rank's BN launches (``bn_apply_sums``, no plain ``bn_apply`` and no
+   ``bn_finalize``) and
+   ``all_reduce`` calls a step, and phase 7's
    small f32 step held to phase 7's tolerances against the one-process
    step; (d) in the same ranks, Market-1501-size features (phase 8b's
    recipe, 3,368 queries, a gallery of 19,733 padded to 19,734):
@@ -313,10 +321,10 @@ the PCB line (phase 11), the int8 line (phase 12), the global line
 figures line (phase 16), the dp line (phase 17), the graphs line
 (phase 18), the kernels line
 (launches: the BN kernels' in run 9a, phase 10, phase 11a-b, phase 13,
-phase 14, phase 15, phase 16, phase 17b and phase 18 (``bn_finalize``:
-17b alone), K2's in run 9c, phase 10, phase 13c, phase 14b, phase 15c,
-phase 16a and phase 18b, each replay of a CUDA graph counting the
-launches its capture made,
+phase 14, phase 15, phase 16, phase 17b and phase 18
+(``bn_apply_sums``: 17b alone), K2's in run
+9c, phase 10, phase 13c, phase 14b, phase 15c, phase 16a and phase 18b,
+each replay of a CUDA graph counting the launches its capture made,
 K1's in phase 3b, ``conv_s8`` and ``quantize_s8``'s in phase 12's int8
 step, extractor batch and CLI test) and the result line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -473,7 +481,10 @@ def phase_kernels(torch):
               (3, 100, 96, 32, 37, torch.bfloat16),
               (2, 1920, 7, 1, 6, torch.bfloat16),
               (4, 40, 96, 32, 37, torch.float32),
-              (1, 100, 13, 11, 64, torch.float32)]
+              (1, 100, 13, 11, 64, torch.float32),
+              # K+1 = 64 in sub-chunks of pixels, and in chunks of channels
+              (2, 500, 96, 32, 64, torch.bfloat16),
+              (132, 500, 8, 8, 64, torch.bfloat16)]
     # f32 sums over up to 3072 pixels in another order than the plain
     # version: tolerance relative to the largest output magnitude
     rows, failures = [], []
@@ -496,8 +507,9 @@ def k2_row(torch, feats, logits, timed=True):
     """K2 against its plain version on ``feats``, ``logits`` (f32 sums
     over the pixels in another order: 2e-5 of the largest output
     magnitude), with its times, the plain version's and the library
-    call's (CUDA events) and its bound when ``timed``. Returns the row
-    and the failed checks."""
+    call's (CUDA events: eager, and ``device_ms`` from a CUDA graph of 20
+    calls) and its bound when ``timed``. Returns the row and the failed
+    checks."""
     from bpbreid_tpu_torch.ops.cuda.pooling import (attention_pool_reference,
                                                     fused_attention_pool)
     rtol = 2e-5
@@ -523,6 +535,10 @@ def k2_row(torch, feats, logits, timed=True):
             lambda: attention_pool_reference(feats, logits), torch)
         row['library_ms'] = time_ms(
             lambda: attention_pool_library(feats, logits), torch)
+        row['device_ms'] = graph_ms(
+            torch, lambda: fused_attention_pool(feats, logits))
+        row['library_device_ms'] = graph_ms(
+            torch, lambda: attention_pool_library(feats, logits))
         row['bound_ms'], row['bound_by'] = attention_pool_bound_ms(
             feats, logits)
     return row, failures
@@ -603,10 +619,12 @@ def _k3_bound_ms(nbytes, flops):
                                  else 'operations')
 
 
-def _time_bn_calls(torch, calls, plain=True, iters=5):
+def _time_bn_calls(torch, calls, plain=True, iters=5, device=False):
     """``{kernel}_ms``, ``_plain_ms``, ``_library_ms``, ``_bound_ms`` and
-    ``_bound_by`` of each BN kernel (CUDA events). ``_library_ms`` is null
-    where torch's call refuses the operands' types."""
+    ``_bound_by`` of each BN kernel (CUDA events), with ``device`` also
+    ``_device_ms`` and ``_library_device_ms`` (a CUDA graph of 20 calls).
+    ``_library_ms`` is null where torch's call refuses the operands'
+    types."""
     t = lambda fn: time_ms(fn, torch, warmup=2, iters=iters,  # noqa: E731
                            repeats=3)
     row = {}
@@ -614,11 +632,17 @@ def _time_bn_calls(torch, calls, plain=True, iters=5):
         row[name + '_ms'] = t(kernel)
         if plain:
             row[name + '_plain_ms'] = t(ref)
+        if device:
+            row[name + '_device_ms'] = graph_ms(torch, kernel)
         try:
             row[name + '_library_ms'] = t(lib)
+            if device:
+                row[name + '_library_device_ms'] = graph_ms(torch, lib)
         except RuntimeError as e:
             row[name + '_library_ms'] = None
             row[name + '_library_error'] = str(e).splitlines()[0][:200]
+            if device:
+                row[name + '_library_device_ms'] = None
         row[name + '_bound_ms'], row[name + '_bound_by'] = _k3_bound_ms(
             nbytes, flops)
     return row
@@ -763,7 +787,9 @@ def phase_k3(torch):
                'view': [o['a'], o['c'], o['b']], **errs}
         failures += ['{} at {} {}'.format(f, shape, dt) for f in failed]
         if timed:
-            row.update(_time_bn_calls(torch, _bn_calls(torch, x, dy, cd, o)))
+            row.update(_time_bn_calls(
+                torch, _bn_calls(torch, x, dy, cd, o),
+                device=(tuple(shape), str(dt)) == K3_REPORT))
         log('K3', json.dumps(row))
         rows.append(row)
         del x, dy, o
@@ -876,6 +902,12 @@ def phase_k1(torch):
             s_l, b_l = s.to(dt), b.to(dt)
             row['library_ms'] = t(lambda: conv_chain_library(
                 torch, x_cl, w_lib, s_l, b_l))
+            if (tuple(shape), str(dt)) == K1_REPORT:
+                row['device_ms'] = graph_ms(
+                    torch, lambda: fused_basicblock_chain(x, w, s, b))
+                row['library_device_ms'] = graph_ms(
+                    torch, lambda: conv_chain_library(torch, x_cl, w_lib,
+                                                      s_l, b_l))
             row['bound_ms'], row['bound_by'] = conv_chain_bound_ms(x, w)
             row['tflop_per_s'] = 2.0 * x.numel() * 9 * shape[3] \
                 * 2 * blocks / row['ms'] / 1e9
@@ -5245,9 +5277,9 @@ DP_SAVE_DIR = os.path.join('_scratch', 'chip_smoke_dp')
 DP_SMALL_STAGES = {'stage2': (1, 2, (2, 2), (32, 64)),
                    'stage3': (1, 3, (2, 2, 2), (32, 64, 128)),
                    'stage4': (1, 4, (2, 2, 2, 2), (32, 64, 128, 256))}
-BN_FINALIZE_REPLACES = ('experiments/pallas_bn_v2.py:55 (K3a, its epilogue '
-                        'on sums all-reduced across ranks; '
-                        'bpbreid_tpu/models/common.py:191)')
+BN_APPLY_SUMS_REPLACES = ('experiments/pallas_bn_v2.py:55 (K3a: its '
+                          'epilogue on sums all-reduced across ranks and its '
+                          'second pass; bpbreid_tpu/models/common.py:191)')
 
 
 def _dp_spec(device='cuda', backend='nccl', height=HEIGHT, width=WIDTH,
@@ -5301,7 +5333,7 @@ def _dp_engine(torch, spec, small=False, stages=None):
 
 
 def _dp_batches(torch, spec):
-    """The full-width batch with two steps' draws and the learning draws,
+    """The full-width batch with three steps' draws and the learning draws,
     and the small f32 batch with its draws (phase 7's recipe); on the
     CPU, to cross to the ranks."""
     from bpbreid_tpu_torch.data.augment import sample_train_draws
@@ -5314,7 +5346,7 @@ def _dp_batches(torch, spec):
         'batch': make_train_batch(np.random.default_rng(SEED + 2),
                                   spec['ids'], spec['instances'],
                                   spec['height'], spec['width'], 'cpu'),
-        'draws': [draw(n, spec['height'], spec['width']) for _ in range(2)],
+        'draws': [draw(n, spec['height'], spec['width']) for _ in range(3)],
         'learn_draws': draw(n, spec['height'], spec['width']),
         'small_batch': make_train_batch(np.random.default_rng(SEED + 3), 2,
                                         4, 64, 32, 'cpu'),
@@ -5349,44 +5381,58 @@ def _small_step(torch, engine, model, p, device):
 
 
 def _dp_bn_kernels(torch, bn_shapes):
-    """17a: ``bn_finalize`` on the sums of two ranks' equal slices (the
-    global count) and ``bn_dx`` with the global count, against their plain
-    versions at each distinct BN input of the train step (phase 6):
-    ``bn_finalize`` 1e-6 relative with its running update, ``bn_dx`` one
-    ulp plus 1e-6 of its terms, each the same bits over two calls; then
-    ``bn_finalize``'s times at the reported input's channels."""
-    from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_dx, bn_dx_reference,
-                                                      bn_finalize,
-                                                      bn_finalize_reference)
+    """17a: ``bn_apply_sums`` (the cross-rank BN's forward from all-reduced
+    sums) on the sums of two ranks' equal slices with the global count,
+    and ``bn_dx`` with the global count, against their plain versions at
+    each distinct BN input of the train step (phase 6): the statistics
+    and the running update to 1e-6 relative of ``bn_finalize_reference``,
+    ``y`` to one ulp of its type plus 1e-6 of its terms of
+    ``bn_apply_reference`` on those statistics, ``bn_dx`` one ulp plus
+    1e-6 of its terms, each the same bits over two calls; then
+    ``bn_apply_sums``'s times at the reported input beside ``bn_apply``'s
+    alone on the same input (eager, CUDA events; device, a CUDA graph of
+    20 calls), its plain version's, SyncBatchNorm's two library calls
+    after its gather (``batch_norm_gather_stats_with_counts``,
+    ``batch_norm_elemt``) and its bound."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (
+        bn_apply, bn_apply_reference, bn_apply_sums, bn_apply_sums_reference,
+        bn_dx, bn_dx_reference, bn_finalize_reference)
     gen = torch.Generator(device='cuda').manual_seed(SEED + 17)
     rows, failures, timed = [], [], None
     for (shape, dt, cd), _calls in bn_shapes:
         x = (0.5 + torch.randn(shape, device='cuda', generator=gen)).to(dt)
         dy = torch.randn(shape, device='cuda', generator=gen).to(dt)
         o = _bn_operands(torch, x, dy, cd, gen)
-        a, c, b, w = o['a'], o['c'], o['b'], o['w']
+        a, c, b, w, bias = o['a'], o['c'], o['b'], o['w'], o['bias']
         m = 2 * a * b
         sums = torch.stack(o['st'][4:]) * 2
         runs = []
         for _ in range(2):
             rm, rv = o['rm'].clone(), o['rv'].clone()
-            runs.append(bn_finalize(sums, m, w, 1e-5, rm, rv) + (rm, rv))
+            y, stats = bn_apply_sums(x, sums, m, w, bias, 1e-5, cd,
+                                     running_mean=rm, running_var=rv)
+            runs.append((y,) + stats + (rm, rv))
         rm, rv = o['rm'].clone(), o['rv'].clone()
         want = bn_finalize_reference(sums[0], sums[1], m, w, 1e-5, rm, rv) \
             + (rm, rv)
         fin_err, ok = 0.0, True
-        for g, g2, v in zip(runs[0], runs[1], want):
+        for g, g2, v in zip(runs[0][1:], runs[1][1:], want):
             d = (g - v).abs()
             fin_err = max(fin_err, d.max().item())
             ok = ok and bool((d <= 1e-6 * v.abs() + 1e-7).all()) \
                 and torch.equal(g, g2)
-        if not ok:
-            failures.append('bn_finalize at {} {}'.format(shape, dt))
-        mean, _, rstd, scale = runs[0][:4]
+        mean, rstd, scale = want[0], want[2], want[3]
+        x3 = x.reshape(a, c, b).float()
+        terms = ((x3 - mean.view(1, c, 1)).abs() * scale.abs().view(1, c, 1)
+                 + bias.abs().view(1, c, 1))
+        y_err, y_ok = _ew_errors(torch, runs[0][0], bn_apply_reference(
+            x, mean, rstd, w, bias, cd), terms.view(x.shape))
+        if not (ok and y_ok and torch.equal(runs[0][0], runs[1][0])):
+            failures.append('bn_apply_sums at {} {}'.format(shape, dt))
+        mean, _, rstd, scale = runs[0][1:5]
         sum_dy, sum_dy_xhat = (t * 2 for t in o['g'])
         got = [bn_dx(dy, x, mean, rstd, scale, sum_dy, sum_dy_xhat, cd, m)
                for _ in range(2)]
-        x3 = x.reshape(a, c, b).float()
         xhat = (x3 - mean.view(1, c, 1)) * rstd.view(1, c, 1)
         terms = scale.abs().view(1, c, 1) * (
             dy.reshape(a, c, b).float().abs()
@@ -5398,58 +5444,76 @@ def _dp_bn_kernels(torch, bn_shapes):
         if not (ok and torch.equal(got[0], got[1])):
             failures.append('bn_dx with a count at {} {}'.format(shape, dt))
         row = {'shape': list(shape), 'dtype': str(dt), 'channel_dim': cd,
-               'bn_finalize_max_abs_err': fin_err,
+               'bn_apply_sums_stats_err': fin_err,
+               'bn_apply_sums_max_abs_err': y_err,
                'bn_dx_count_max_abs_err': dx_err}
         rows.append(row)
+        del dy, x3, xhat, terms, got, runs
         if timed is None or (tuple(shape), str(dt)) == K3_REPORT:
-            timed = (row, sums, m, o)
-        del x, dy, x3, xhat, terms, got
-    row, sums, m, o = timed
-    c, w = o['c'], o['w']
+            timed = (row, x, cd, sums, m, o)
+        del x
+    row, x, cd, sums, m, o = timed
+    c, w, bias = o['c'], o['w'], o['bias']
     rm, rv = o['rm'].clone(), o['rv'].clone()
+    mean, rstd = o['st'][0], o['st'][2]
     t = lambda fn: time_ms(fn, torch, warmup=3, iters=20,  # noqa: E731
                            repeats=5)
-    row['bn_finalize_ms'] = t(lambda: bn_finalize(sums, m, w, 1e-5, rm, rv))
-    row['bn_finalize_plain_ms'] = t(lambda: bn_finalize_reference(
-        sums[0], sums[1], m, w, 1e-5, rm, rv))
-    row['bn_finalize_graph_ms'] = graph_ms(
-        torch, lambda: bn_finalize(sums, m, w, 1e-5, rm, rv))
-    # PyTorch's SyncBatchNorm epilogue: the statistics of 2 ranks' means
-    # and inverse deviations with their counts, and the running update
-    mean2, invstd2 = (v.expand(2, c).contiguous() for v in (
-        o['st'][0], o['st'][2]))
+    fused = lambda: bn_apply_sums(x, sums, m, w, bias, 1e-5, cd,  # noqa: E731
+                                  running_mean=rm, running_var=rv)
+    alone = lambda: bn_apply(x, mean, rstd, w, bias, cd)  # noqa: E731
+    row['bn_apply_sums_ms'] = t(fused)
+    row['bn_apply_ms'] = t(alone)
+    row['bn_apply_sums_device_ms'] = graph_ms(torch, fused)
+    row['bn_apply_device_ms'] = graph_ms(torch, alone)
+    row['bn_apply_sums_plain_ms'] = t(lambda: bn_apply_sums_reference(
+        x, sums, m, w, bias, 1e-5, cd, None, rm, rv))
+    # SyncBatchNorm's forward once its ranks' means and inverse deviations
+    # are gathered: the statistics with the counts, then the normalize
+    mean2, invstd2 = (v.expand(2, c).contiguous() for v in (mean, rstd))
     counts = torch.full((2,), float(m // 2), device='cuda')
+    xl = _nc(x, cd)
+
+    def sync_bn():
+        mu, inv = torch.batch_norm_gather_stats_with_counts(
+            xl, mean2, invstd2, rm, rv, 0.1, 1e-5, counts)
+        return torch.batch_norm_elemt(xl, w, bias, mu, inv, 1e-5)
     try:
-        row['bn_finalize_library_ms'] = t(
-            lambda: torch.batch_norm_gather_stats_with_counts(
-                sums, mean2, invstd2, rm, rv, 0.1, 1e-5, counts))
+        row['library_two_calls_ms'] = t(sync_bn)
+        row['library_two_calls_device_ms'] = graph_ms(torch, sync_bn)
     except RuntimeError as e:
-        row['bn_finalize_library_ms'] = None
-        row['bn_finalize_library_error'] = str(e).splitlines()[0][:200]
-    # each input read once (sums 2C, weight C, running 2C), each output
-    # written once (statistics 4C, running 2C); about 12 f32 operations a
-    # channel
-    row['bn_finalize_bound_ms'], row['bn_finalize_bound_by'] = \
-        _k3_bound_ms(11 * c * 4, 12.0 * c)
+        row['library_two_calls_ms'] = None
+        row['library_two_calls_device_ms'] = None
+        row['library_two_calls_error'] = str(e).splitlines()[0][:200]
+    # x read and y written once; the sums, weight, bias and running
+    # statistics read (6C) and the statistics and running statistics
+    # written (6C); 3 f32 operations an element and about 12 a channel
+    row['bn_apply_sums_bound_ms'], row['bn_apply_sums_bound_by'] = \
+        _k3_bound_ms(2 * x.numel() * x.element_size() + 12 * c * 4,
+                     3.0 * x.numel() + 12.0 * c)
     log('17a', json.dumps(row))
     if failures:
         raise AssertionError('\n'.join(failures))
     return {'rows': rows, 'timed': row,
-            'bn_finalize_worst_err': max(r['bn_finalize_max_abs_err']
-                                         for r in rows),
+            'bn_apply_sums_worst_err': max(r['bn_apply_sums_max_abs_err']
+                                           for r in rows),
+            'bn_apply_sums_stats_worst_err': max(
+                r['bn_apply_sums_stats_err'] for r in rows),
             'bn_dx_count_worst_err': max(r['bn_dx_count_max_abs_err']
                                          for r in rows)}
 
 
 def _dp_world1(torch, spec, p):
-    """17b: two flagship train steps through ``distribute_engine`` on a
+    """17b: three flagship train steps through ``distribute_engine`` on a
     one-rank process group (NCCL on the card): ``bn_stats`` (sums) ->
-    ``all_reduce`` -> ``bn_finalize`` and ``bn_dx`` with the count, held
-    against the one-process steps on the same batch and draws: losses
-    1e-5 relative, step 1's gradients and the state after it at phase 7's
-    tolerances (``compare_train_steps``); whether the states after both
-    steps are bit-equal is reported. Returns the record and the kernel
-    launches of the distributed steps."""
+    ``all_reduce`` -> ``bn_apply_sums`` forward, ``bn_grad_stats`` (the
+    sums twice) -> ``all_reduce`` of the copy in place -> ``bn_dx`` with
+    the count backward, held against the one-process steps on the same
+    batch and draws: losses 1e-5 relative, step 1's gradients and the
+    state after it at phase 7's tolerances (``compare_train_steps``);
+    whether the states after the steps are bit-equal is reported. Steps 1
+    and 2 are timed (host clock), step 3 runs under torch.profiler (its
+    device kernels and busy share) in both runs. Returns the record and
+    the kernel launches of the distributed steps."""
     import torch.distributed as dist
     from bpbreid_tpu_torch.ops.cuda.build import (launch_counts,
                                                   reset_launch_counts)
@@ -5474,14 +5538,19 @@ def _dp_world1(torch, spec, p):
         bn, no_grad = _bn_names(torch, model)
         reset_launch_counts()
         reset_collective_counts()
-        losses, step_ms = [], []
+        losses, step_ms, prof = [], [], None
         before = {k: v.detach().cpu().clone()
                   for k, v in model.named_parameters()}
-        for d in p['draws']:
-            t0 = time.perf_counter()
-            losses.append(engine.forward_backward(batch, _to(d, device))[0]
-                          .item())
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+        for i, d in enumerate(p['draws']):
+            def step(d=d):
+                losses.append(engine.forward_backward(
+                    batch, _to(d, device))[0].item())
+            if i == len(p['draws']) - 1 and device == 'cuda':
+                prof = profile_steps(torch, step, steps=1)
+            else:
+                t0 = time.perf_counter()
+                step()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
             if len(losses) == 1:
                 # what compare_train_steps reads of step 1
                 first[name] = {
@@ -5492,7 +5561,10 @@ def _dp_world1(torch, spec, p):
                               for k, v in model.state_dict().items()}}
         out[name] = {'losses': losses, 'launches': dict(launch_counts),
                      'collectives': dict(collective_counts),
-                     'step_ms': step_ms}
+                     'step_ms': step_ms, 'profile': prof and {
+                         k: prof[k] for k in ('wall_ms', 'device_busy_ms',
+                                              'busy_share',
+                                              'device_kernel_launches')}}
         states[name] = {k: v.detach().clone()
                         for k, v in model.state_dict().items()}
         del model, engine
@@ -5521,6 +5593,8 @@ def _dp_world1(torch, spec, p):
            'collectives': out['world1']['collectives'],
            'step_ms_one_process': out['one_process']['step_ms'],
            'step_ms_world1': out['world1']['step_ms'],
+           'profiled_step_one_process': out['one_process']['profile'],
+           'profiled_step_world1': out['world1']['profile'],
            'bn_modules': len(bn), 'bn_without_backward': len(no_grad)}
     log('17b', json.dumps(rec))
     checks = ['step 1: ' + c for c in checks]
@@ -5528,8 +5602,10 @@ def _dp_world1(torch, spec, p):
         if not abs(a - b) <= 1e-5 * abs(b):
             checks.append('losses {} vs {}'.format(a, b))
     steps = rec['steps'] if device == 'cuda' else 0    # CPU: no launch
-    for k, want in (('bn_stats', len(bn)), ('bn_finalize', len(bn)),
-                    ('bn_apply', len(bn)),
+    # one bn_stats and one bn_apply_sums a BN call, no plain bn_apply: two
+    # launches forward, two backward
+    for k, want in (('bn_stats', len(bn)), ('bn_apply_sums', len(bn)),
+                    ('bn_apply', 0),
                     ('bn_grad_stats', len(bn) - len(no_grad)),
                     ('bn_dx', len(bn) - len(no_grad))):
         if rec['launches'].get(k, 0) != want * steps:
@@ -5677,10 +5753,11 @@ def _dp_spawned(torch, spec, p, one_loss):
     on the one batch at phase 7's depth whose loss falls, the ranks'
     parameters and BN statistics bit-equal after the full-depth step and
     after the 20, the small f32 step at phase 7's tolerances, and
-    each rank's BN launches a step (one ``bn_stats``, ``bn_finalize`` and
-    ``bn_apply`` for each kernel-backed BN, one ``bn_grad_stats`` and
-    ``bn_dx`` for each with a backward); 17d's distances to 1e-5
-    relative and CMC/mAP to 1e-6."""
+    each rank's BN launches a step (one ``bn_stats`` and one
+    ``bn_apply_sums`` for each kernel-backed BN and no plain
+    ``bn_apply``, one ``bn_grad_stats`` and ``bn_dx`` for each with a
+    backward);
+    17d's distances to 1e-5 relative and CMC/mAP to 1e-6."""
     import torch.multiprocessing as mp
     device = spec['device']
     _cfg, (model, engine) = _dp_engine(torch, spec, small=True)
@@ -5739,8 +5816,8 @@ def _dp_spawned(torch, spec, p, one_loss):
                       .format(rec['digests_equal']))
     on_card = device == 'cuda'          # the CPU runs the plain versions
     for r, launches in enumerate(rec['launches_per_step']):
-        for k, want in (('bn_stats', bn), ('bn_finalize', bn),
-                        ('bn_apply', bn), ('bn_grad_stats', bn - no_grad),
+        for k, want in (('bn_stats', bn), ('bn_apply_sums', bn),
+                        ('bn_apply', 0), ('bn_grad_stats', bn - no_grad),
                         ('bn_dx', bn - no_grad)):
             if launches.get(k, 0) != want * on_card:
                 checks.append('rank {}: {} launches {} != {}'.format(
@@ -6155,7 +6232,7 @@ def main():
     figures_launches = phase_figures_and_tools(torch, results,
                                                ranking_inputs)
     del ranking_inputs
-    log('phase 17: data parallelism (parallel/): bn_finalize and bn_dx '
+    log('phase 17: data parallelism (parallel/): bn_apply_sums and bn_dx '
         'with a count, NCCL at world size 1, 2 gloo ranks on the card')
     dp_launches = phase_data_parallel(torch, results, bn_shapes)
     log('phase 18: grouped dispatch through CUDA graphs '
@@ -6170,17 +6247,24 @@ def main():
         for k, v in counts.items():
             path_launches[k] = path_launches.get(k, 0) + v
 
-    main_row = k2_rows[0]       # main-path shape and dtypes
+    # the main path's shape at bf16, the dtype every model hands K2; the
+    # f32 row beside it
+    main_row, f32_row = k2_rows[1], k2_rows[0]
     kernels = [{
         'name': 'attention_pool', 'route': 'cuda',
         'source': 'bpbreid_tpu_torch/ops/cuda/attention_pool.cu',
         'replaces': 'bpbreid_tpu/ops/pallas/pooling.py:47',
         'launches': k2_cli_launches.get('attention_pool', 0)
                     + path_launches.get('attention_pool', 0),
-        'max_abs_err': main_row['max_abs_err'],
+        'max_abs_err': max(r['max_abs_err'] for r in k2_rows),
         'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
         'library_ms': main_row['library_ms'],
+        'device_ms': main_row['device_ms'],
+        'library_device_ms': main_row['library_device_ms'],
+        'dtype': main_row['dtype'],
+        'f32': {k: f32_row[k] for k in ('ms', 'device_ms', 'bound_ms',
+                                        'library_ms', 'library_device_ms')},
     }]
     k3_row = next(r for r in k3_rows
                   if (tuple(r['shape']), r['dtype']) == K3_REPORT)
@@ -6194,18 +6278,29 @@ def main():
             'ms': k3_row[name + '_ms'], 'plain_ms': k3_row[name + '_plain_ms'],
             'bound_ms': k3_row[name + '_bound_ms'],
             'bound_by': k3_row[name + '_bound_by'],
-            'library_ms': k3_row[name + '_library_ms']})
+            'library_ms': k3_row[name + '_library_ms'],
+            'device_ms': k3_row[name + '_device_ms'],
+            'library_device_ms': k3_row[name + '_library_device_ms']})
     dp = results['data_parallel']
     fin = dp['17a']['timed']
+    # no one PyTorch call finalizes sums and normalizes: SyncBatchNorm's
+    # two calls stand beside it
     kernels.append({
-        'name': 'bn_finalize', 'route': 'cuda', 'source': K3_SOURCE,
-        'replaces': BN_FINALIZE_REPLACES,
-        'launches': dp_launches.get('bn_finalize', 0),
-        'max_abs_err': dp['17a']['bn_finalize_worst_err'],
-        'ms': fin['bn_finalize_ms'], 'plain_ms': fin['bn_finalize_plain_ms'],
-        'bound_ms': fin['bn_finalize_bound_ms'],
-        'bound_by': fin['bn_finalize_bound_by'],
-        'library_ms': fin['bn_finalize_library_ms']})
+        'name': 'bn_apply_sums', 'route': 'cuda', 'source': K3_SOURCE,
+        'replaces': BN_APPLY_SUMS_REPLACES,
+        'launches': dp_launches.get('bn_apply_sums', 0),
+        'max_abs_err': dp['17a']['bn_apply_sums_worst_err'],
+        'stats_max_abs_err': dp['17a']['bn_apply_sums_stats_worst_err'],
+        'ms': fin['bn_apply_sums_ms'],
+        'plain_ms': fin['bn_apply_sums_plain_ms'],
+        'bound_ms': fin['bn_apply_sums_bound_ms'],
+        'bound_by': fin['bn_apply_sums_bound_by'],
+        'library_ms': None,
+        'device_ms': fin['bn_apply_sums_device_ms'],
+        'bn_apply_ms': fin['bn_apply_ms'],
+        'bn_apply_device_ms': fin['bn_apply_device_ms'],
+        'library_two_calls_ms': fin['library_two_calls_ms'],
+        'library_two_calls_device_ms': fin['library_two_calls_device_ms']})
     k1_row = next(r for r in k1_rows
                   if (tuple(r['shape']), r['dtype']) == K1_REPORT)
     kernels.append({
@@ -6213,7 +6308,9 @@ def main():
         'replaces': K1_REPLACES, 'launches': k1_launches,
         'max_abs_err': k1_row['max_abs_err'], 'ms': k1_row['ms'],
         'plain_ms': k1_row['plain_ms'], 'bound_ms': k1_row['bound_ms'],
-        'bound_by': k1_row['bound_by'], 'library_ms': k1_row['library_ms']})
+        'bound_by': k1_row['bound_by'], 'library_ms': k1_row['library_ms'],
+        'device_ms': k1_row['device_ms'],
+        'library_device_ms': k1_row['library_device_ms']})
     for name in ('conv_s8', 'quantize_s8'):
         row = results['int8']['kernels'][name]
         kernels.append({
@@ -6427,16 +6524,17 @@ def main():
         'phase_s': fg['phase_s'], 'gpu': gpu}))
     c, dd = dp['17c'], dp['17d']['ranks']
     log('dp', json.dumps({
-        '17a': {k: dp['17a'][k] for k in ('bn_finalize_worst_err',
+        '17a': {k: dp['17a'][k] for k in ('bn_apply_sums_worst_err',
+                                          'bn_apply_sums_stats_worst_err',
                                           'bn_dx_count_worst_err')},
         '17a_shapes': len(dp['17a']['rows']),
-        '17a_bn_finalize': {k[len('bn_finalize_'):]: v
-                            for k, v in fin.items()
-                            if k.startswith('bn_finalize_')},
+        '17a_timed': {k: v for k, v in fin.items() if k.endswith(
+            ('_ms', '_bound_by'))},
         '17b': {k: dp['17b'][k] for k in (
             'backend', 'losses_world1', 'losses_one_process', 'bit_equal',
             'state_max_abs_diff', 'step1_vs_one_process', 'collectives',
-            'step_ms_one_process', 'step_ms_world1')},
+            'step_ms_one_process', 'step_ms_world1',
+            'profiled_step_one_process', 'profiled_step_world1')},
         '17b_launches_per_step': {k: v / dp['17b']['steps']
                                   for k, v in dp['17b']['launches'].items()},
         '17c': {k: c[k] for k in (

@@ -29,7 +29,17 @@ def cuda():
                                    # nasnetamobile, shufflenet,
                                    # mobilenetv2_x1_0
                                    (64, 1056, 12, 4, 6), (64, 960, 12, 4, 6),
-                                   (64, 1280, 12, 4, 6)])
+                                   (64, 1280, 12, 4, 6),
+                                   # fastreid_resnet_ibn_nl's map; the
+                                   # 'eight' (K+1 = 9) and isp_6_parts
+                                   # (7) masks; slices of a ragged map,
+                                   # K+1 = 17; K+1 = 64 in
+                                   # sub-chunks of pixels, and in chunks
+                                   # of channels
+                                   (64, 2048, 24, 8, 6),
+                                   (8, 1920, 96, 32, 9), (5, 64, 17, 9, 7),
+                                   (3, 40, 33, 29, 17), (2, 500, 96, 32, 64),
+                                   (132, 500, 8, 8, 64)])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_attention_pool_kernel_matches_plain(cuda, shape, dtype):
     from bpbreid_tpu_torch.ops.cuda.build import launch_counts
@@ -48,6 +58,21 @@ def test_attention_pool_kernel_matches_plain(cuda, shape, dtype):
         assert a.dtype == torch.float32 and a.shape == b.shape
         tol = 2e-5 * b.abs().max().item() + 1e-6
         assert (a - b).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_attention_pool_kernel_gives_the_same_bits_twice(cuda, dtype):
+    """The slices' sums meet in a fixed order: two calls on the main
+    shape give the same bits."""
+    from bpbreid_tpu_torch.ops.cuda.pooling import fused_attention_pool
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    feats = torch.randn(64, 1920, 96, 32, device=cuda, generator=gen) \
+        .to(dtype)
+    logits = (3 * torch.randn(64, 6, 96, 32, device=cuda, generator=gen)) \
+        .to(torch.bfloat16)
+    for a, b in zip(fused_attention_pool(feats, logits),
+                    fused_attention_pool(feats, logits)):
+        assert torch.equal(a, b)
 
 
 def test_attention_pool_kernel_refuses_bad_cuda_inputs(cuda):
@@ -304,38 +329,57 @@ def test_train_batch_norm_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.parametrize('shape,channel_dim', K3_SHAPES)
 @pytest.mark.parametrize('world', [1, 2, 4])
-def test_bn_finalize_kernel_matches_plain(cuda, shape, channel_dim, world):
-    """bn_finalize (the cross-rank BN's epilogue) on the sums of ``world``
-    equal slices, with the global count, against its plain version: the
-    statistics and the running update to 1e-6 relative, the same bits
-    over two calls, one launch each; at world 1 on bn_stats's own sums
-    it gives bn_stats's statistics bit for bit."""
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bn_apply_sums_kernel_matches_plain(cuda, shape, channel_dim, world,
+                                            dtype):
+    """bn_apply_sums (the cross-rank BN's forward from all-reduced sums)
+    on the sums of ``world`` equal slices, with the global count, against
+    its plain version: the statistics and the running update to 1e-6
+    relative, y to one ulp plus 1e-6 of its terms on the plain
+    statistics, the same bits over two calls, one launch each (counted
+    once, as bn_apply_sums); at world 1 on bn_stats's own sums it gives bn_stats's
+    statistics and bn_apply's output bit for bit."""
     from bpbreid_tpu_torch.ops.cuda.batchnorm import (
-        bn_finalize, bn_finalize_reference, bn_stats, channel_view)
+        bn_apply, bn_apply_reference, bn_apply_sums, bn_finalize_reference,
+        channel_view)
     from bpbreid_tpu_torch.ops.cuda.build import launch_counts
-    x, _ = _k3_inputs(cuda, shape, torch.bfloat16, 5)
+    x, _ = _k3_inputs(cuda, shape, dtype, 5)
     a, c, b = channel_view(x.shape, channel_dim)
-    weight, _, st = _stats(cuda, x, channel_dim)
+    weight, bias, st = _stats(cuda, x, channel_dim)
     sums = torch.stack(st[4:]) * world
     m = a * b * world
     rm = torch.linspace(-1, 1, c, device=cuda)
     rv = torch.linspace(0.5, 2, c, device=cuda)
     runs = []
-    before = launch_counts['bn_finalize']
+    before = dict(launch_counts)
     for _ in range(2):
         rm_k, rv_k = rm.clone(), rv.clone()
-        runs.append(bn_finalize(sums, m, weight, 1e-5, rm_k, rv_k)
-                    + (rm_k, rv_k))
-    assert launch_counts['bn_finalize'] == before + 2
+        y, stats = bn_apply_sums(x, sums, m, weight, bias, 1e-5, channel_dim,
+                                 running_mean=rm_k, running_var=rv_k)
+        runs.append((y,) + stats + (rm_k, rv_k))
+    torch.cuda.synchronize()
+    assert launch_counts['bn_apply_sums'] == \
+        before.get('bn_apply_sums', 0) + 2
+    assert sum(launch_counts.values()) == sum(before.values()) + 2
     rm_p, rv_p = rm.clone(), rv.clone()
     want = bn_finalize_reference(sums[0], sums[1], m, weight, 1e-5, rm_p,
                                  rv_p) + (rm_p, rv_p)
-    for g, g2, w in zip(runs[0], runs[1], want):
+    for g, g2, w in zip(runs[0][1:], runs[1][1:], want):
         assert torch.equal(g, g2)
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+    assert torch.equal(runs[0][0], runs[1][0])
+    mean, rstd, scale = want[0], want[2], want[3]
+    x3 = x.reshape(a, c, b).float()
+    terms = ((x3 - mean.view(1, c, 1)).abs() * scale.abs().view(1, c, 1)
+             + bias.abs().view(1, c, 1)).view(x.shape)
+    _ew_close(runs[0][0], bn_apply_reference(x, mean, rstd, weight, bias,
+                                             channel_dim), terms)
     if world == 1:
-        for g, w in zip(bn_finalize(sums, m, weight, 1e-5), st[:4]):
+        y, stats = bn_apply_sums(x, sums, m, weight, bias, 1e-5, channel_dim)
+        for g, w in zip(stats, st[:4]):
             assert torch.equal(g, w)
+        assert torch.equal(y, bn_apply(x, st[0], st[2], weight, bias,
+                                       channel_dim))
 
 
 @pytest.mark.parametrize('shape,channel_dim', K3_SHAPES)
@@ -353,6 +397,30 @@ def test_bn_local_sums_kernel_matches_bn_stats(cuda, shape, channel_dim):
     assert got.dtype == torch.float32 and got.is_contiguous()
     assert got.shape == (2, weight.numel())
     assert torch.equal(got, torch.stack(st[4:]))
+
+
+@pytest.mark.parametrize('shape,channel_dim', K3_SHAPES)
+def test_bn_grad_local_sums_kernel_matches_bn_grad_stats(cuda, shape,
+                                                         channel_dim):
+    """bn_grad_local_sums (the backward's sums, a copy of which a rank
+    all-reduces in place) is one bn_grad_stats launch: its own sums and
+    the contiguous f32 [2, C] copy both bn_grad_stats's bit for bit."""
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_grad_local_sums,
+                                                      bn_grad_stats)
+    from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+    x, dy = _k3_inputs(cuda, shape, torch.bfloat16, 7)
+    _, _, (mean, _, rstd, _, _, _) = _stats(cuda, x, channel_dim)
+    want = bn_grad_stats(dy, x, mean, rstd, channel_dim)
+    before = dict(launch_counts)
+    sum_dy, sum_dy_xhat, sums = bn_grad_local_sums(dy, x, mean, rstd,
+                                                   channel_dim)
+    assert launch_counts['bn_grad_stats'] == \
+        before.get('bn_grad_stats', 0) + 1
+    assert sum(launch_counts.values()) == sum(before.values()) + 1
+    assert sums.dtype == torch.float32 and sums.is_contiguous()
+    assert sums.shape == (2, mean.numel())
+    assert torch.equal(sum_dy, want[0]) and torch.equal(sum_dy_xhat, want[1])
+    assert torch.equal(sums, torch.stack(want))
 
 
 @pytest.mark.parametrize('shape,channel_dim', K3_SHAPES)
@@ -387,21 +455,31 @@ def test_bn_dx_with_a_count_matches_plain(cuda, shape, channel_dim, world):
     assert not torch.equal(local, got[0])
 
 
-def test_bn_finalize_and_count_refuse_bad_inputs(cuda):
-    from bpbreid_tpu_torch.ops.cuda.batchnorm import bn_dx, bn_finalize
+def test_bn_apply_sums_and_count_refuse_bad_inputs(cuda):
+    from bpbreid_tpu_torch.ops.cuda.batchnorm import bn_apply_sums, bn_dx
     w = torch.ones(8, device=cuda)
     sums = torch.ones(2, 8, device=cuda)
-    with pytest.raises(ValueError):
-        bn_finalize(sums.t().contiguous().t(), 4, w, 1e-5)
-    with pytest.raises(ValueError):
-        bn_finalize(sums.double(), 4, w, 1e-5)
-    with pytest.raises(ValueError):
-        bn_finalize(sums, 0, w, 1e-5)
-    with pytest.raises(ValueError):
-        bn_finalize(sums, 4, w[:4], 1e-5)
-    with pytest.raises(ValueError):          # one running buffer alone
-        bn_finalize(sums, 4, w, 1e-5, running_mean=w.clone())
     x = torch.zeros(2, 8, 4, 4, device=cuda)
+    with pytest.raises(ValueError):
+        bn_apply_sums(x, sums.t().contiguous().t(), 4, w)
+    with pytest.raises(ValueError):
+        bn_apply_sums(x, sums.double(), 4, w)
+    with pytest.raises(ValueError):
+        bn_apply_sums(x, sums[:, :4].contiguous(), 4, w)
+    with pytest.raises(ValueError):
+        bn_apply_sums(x, sums.cpu(), 4, w)
+    with pytest.raises(ValueError):
+        bn_apply_sums(x, sums, 0, w)
+    with pytest.raises(ValueError):
+        bn_apply_sums(x, sums, 2 ** 31, w)
+    with pytest.raises(ValueError):
+        bn_apply_sums(x, sums, 4, w[:4])
+    with pytest.raises(ValueError):
+        bn_apply_sums(x, sums, 4, w, bias=w.double())
+    with pytest.raises(ValueError):          # one running buffer alone
+        bn_apply_sums(x, sums, 4, w, running_mean=w.clone())
+    with pytest.raises(TypeError):
+        bn_apply_sums(x, sums, 4, w, dtype=torch.float16)
     with pytest.raises(ValueError):
         bn_dx(x, x, w, w, w, w, w, 1, 0)
 
@@ -409,9 +487,10 @@ def test_bn_finalize_and_count_refuse_bad_inputs(cuda):
 def test_cross_rank_batch_norm_at_world_1_is_the_plain_batch_norm(
         cuda, tmp_path):
     """FastBatchNorm under a one-rank gloo mesh on the card: bn_stats
-    (sums) -> all_reduce -> bn_finalize -> bn_apply forward, bn_grad_stats
-    -> all_reduce -> bn_dx backward, bit-equal to the same module without
-    a mesh (f32 and bf16)."""
+    (sums) -> all_reduce -> bn_apply_sums forward, bn_grad_stats (the sums
+    twice) -> all_reduce of the copy in place -> bn_dx backward: two
+    launches each way, bit-equal to the same module without a mesh (f32
+    and bf16)."""
     import torch.distributed as dist
     from bpbreid_tpu_torch.models.common import FastBatchNorm
     from bpbreid_tpu_torch.ops.cuda.build import launch_counts
@@ -436,10 +515,15 @@ def test_cross_rank_batch_norm_at_world_1_is_the_plain_batch_norm(
                 y.backward(dy)
                 torch.cuda.synchronize()
                 if use_mesh:
-                    for name in ('bn_stats', 'bn_finalize', 'bn_apply',
+                    for name in ('bn_stats', 'bn_apply_sums',
                                  'bn_grad_stats', 'bn_dx'):
                         assert launch_counts[name] == \
                             before.get(name, 0) + 1, name
+                    # no plain bn_apply: each launch counted once
+                    assert launch_counts['bn_apply'] == \
+                        before.get('bn_apply', 0)
+                    assert sum(launch_counts.values()) == \
+                        sum(before.values()) + 4
                     assert collective_counts['all_reduce'] == reduces + 2
                 out.append([t.detach() for t in (
                     y, xi.grad, bn.weight.grad, bn.bias.grad,

@@ -21,9 +21,13 @@ CPU mesh and against the port's unsharded path.
   bit; a live gather's gradient is the rank's slice of the weight; the
   differentiable mean over the ranks and its gradient; the dropout mask
   drawn under the mesh is the rank's slice of the one-process mask;
-- ``bn_finalize_reference`` on the summed sums of two halves and
-  ``bn_dx_reference`` with the global count, against JAX's batch norm
-  (``_bn_train`` and its VJP) on the whole batch: to 1e-6 relative.
+- ``bn_apply_sums`` (its plain path: ``bn_finalize_reference`` then
+  ``bn_apply_reference``) on the summed sums of two halves, the summed
+  copies of ``bn_grad_local_sums`` and ``bn_dx_reference`` with the global
+  count, against JAX's batch norm (``_bn_train`` and its VJP) on the whole
+  batch: to 1e-6 relative; and against the port's one-process batch norm
+  (``bn_stats``, ``bn_apply``) on the whole batch: statistics, output and
+  running statistics to 1e-6.
 """
 import functools
 
@@ -43,11 +47,10 @@ from bpbreid_tpu.parallel import sharded_cmc_map as j_sharded_cmc_map
 from bpbreid_tpu_torch.metrics.distance import \
     compute_distance_matrix_using_bp_features
 from bpbreid_tpu_torch.models.common import GeneratorDropout
-from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_apply_reference,
+from bpbreid_tpu_torch.ops.cuda.batchnorm import (bn_apply, bn_apply_sums,
                                                   bn_dx_reference,
-                                                  bn_finalize_reference,
-                                                  bn_grad_stats_reference,
-                                                  bn_local_sums)
+                                                  bn_grad_local_sums,
+                                                  bn_local_sums, bn_stats)
 from bpbreid_tpu_torch.ops.ranking import cmc_map
 from bpbreid_tpu_torch.parallel import pad_to_multiple
 from tests import torch_parallel_ranks as ranks
@@ -294,20 +297,28 @@ def test_cross_rank_bn_plain_versions_match_jax(shape, channel_dim):
     halves = (slice(0, 4), slice(4, 8))
     sums = sum(bn_local_sums(xt[h], wt, eps, channel_dim) for h in halves)
     m = x.size // c
-    rm, rv = torch.zeros(c), torch.ones(c)
-    mean, var, rstd, scale = bn_finalize_reference(sums[0], sums[1], m, wt,
-                                                   eps, rm, rv)
+    out = []
+    for h in halves:
+        rm, rv = torch.zeros(c), torch.ones(c)
+        out.append(bn_apply_sums(xt[h], sums, m, wt, bt, eps, channel_dim,
+                                 running_mean=rm, running_var=rv)
+                   + (rm, rv))
+    (y0, stats, rm, rv), (y1, stats1, rm1, rv1) = out
+    for a, b in zip(stats + (rm, rv), stats1 + (rm1, rv1)):
+        assert torch.equal(a, b)
+    mean, var, rstd, scale = stats
     _rel_close(mean, mean_j, 1e-6)
     _rel_close(var, var_j, 1e-6)
     _rel_close(rm, 0.1 * np.asarray(mean_j), 1e-6)
     _rel_close(rv, 0.9 + 0.1 * np.asarray(var_j), 1e-6)
-    y = torch.cat([bn_apply_reference(xt[h], mean, rstd, wt, bt, channel_dim)
-                   for h in halves])
+    y = torch.cat([y0, y1])
     _rel_close(to_last(y.numpy()), y_j, 1e-6)
-    grads = [bn_grad_stats_reference(dyt[h], xt[h], mean, rstd, channel_dim)
+    grads = [bn_grad_local_sums(dyt[h], xt[h], mean, rstd, channel_dim)
              for h in halves]
-    g_dy = grads[0][0] + grads[1][0]
-    g_dy_xhat = grads[0][1] + grads[1][1]
+    for g in grads:
+        assert torch.equal(g[2], torch.stack(g[:2]))
+    # the copies summed, as the all-reduce sums them in place
+    g_dy, g_dy_xhat = grads[0][2] + grads[1][2]
     _rel_close(g_dy, dbias_j, 1e-6)
     _rel_close(g_dy_xhat, dscale_j, 1e-6)
     dx = torch.cat([bn_dx_reference(dyt[h], xt[h], mean, rstd, scale, g_dy,
@@ -318,3 +329,41 @@ def test_cross_rank_bn_plain_versions_match_jax(shape, channel_dim):
     dx_local = bn_dx_reference(dyt[:4], xt[:4], mean, rstd, scale, g_dy,
                                g_dy_xhat, channel_dim)
     assert not np.allclose(dx_local.numpy(), dx[:4].numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize('shape, channel_dim, dtype', [
+    ((8, 5, 3, 2), 1, torch.float32), ((8, 7), -1, torch.float32),
+    ((6, 4, 5, 3), 1, torch.bfloat16)])
+def test_apply_sums_on_two_halves_is_the_one_process_batch_norm(
+        shape, channel_dim, dtype):
+    """``bn_apply_sums`` on each half with the halves' summed sums and the
+    global count: the one-process ``bn_stats`` + ``bn_apply`` on the whole
+    batch; statistics, output and running statistics to 1e-6 (one bf16
+    ulp more for a bf16 output)."""
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 1.5
+                        + 0.3).to(dtype)
+    c = shape[channel_dim]
+    weight = torch.as_tensor(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    bias = torch.as_tensor(rng.standard_normal(c).astype(np.float32))
+    eps, n = 1e-5, shape[0]
+    rm, rv = torch.full((c,), 0.2), torch.full((c,), 1.5)
+    rm1, rv1 = rm.clone(), rv.clone()
+    want = bn_stats(x, weight, eps, channel_dim, rm1, rv1)
+    y_want = bn_apply(x, want[0], want[2], weight, bias, channel_dim)
+    halves = (slice(0, n // 2), slice(n // 2, n))
+    sums = sum(bn_local_sums(x[h], weight, eps, channel_dim) for h in halves)
+    m = x.numel() // c
+    ys = []
+    for h in halves:
+        rm2, rv2 = rm.clone(), rv.clone()
+        y, stats = bn_apply_sums(x[h], sums, m, weight, bias, eps,
+                                 channel_dim, running_mean=rm2,
+                                 running_var=rv2)
+        assert y.dtype == dtype
+        ys.append(y)
+        for a, b in zip(stats + (rm2, rv2), want + (rm1, rv1)):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    err = (torch.cat(ys).float() - y_want.float()).abs()
+    assert (err <= ulp * y_want.float().abs() + 1e-6).all()

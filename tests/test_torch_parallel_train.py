@@ -11,8 +11,9 @@ with the batch sharded over the mesh (the recipe of
 tests/test_parallel.py), on the batch that JAX's ``train_augment``
 made. Each rank takes 8 or 4 of the 16 images; batch
 norm takes the global statistics (``bn_stats`` sums all-reduced, then
-``bn_finalize``), GiLt + BPA run over the gathered outputs and the
-gradients are summed over the ranks. One spawn of 4 ranks runs the
+``bn_apply_sums``; backward, ``bn_grad_stats``'s sums written twice and
+one copy all-reduced in place), GiLt + BPA run over the gathered outputs
+and the gradients are summed over the ranks. One spawn of 4 ranks runs the
 4-rank step, then the 2-rank step on a group of two of them and the
 one-process step on a third, while this process compiles the JAX step
 (once: its inputs are committed to the mesh as the step returns them).
@@ -165,6 +166,7 @@ def runs(tmp_path_factory):
     out.update({world: [r[world] for r in ranked if world in r]
                 for world in (2, 4)})
     out['one'] = [ranked[2][1]]
+    out['bn_entries_one'] = ranked[2]['bn_entries_one']
     return out
 
 
@@ -221,3 +223,26 @@ def test_collectives_per_step(runs, world):
     assert set(got) == {'all_reduce'}
     assert got['all_reduce'] == runs[2][0][0]['collectives']['all_reduce']
     assert got['all_reduce'] % STEPS == 0
+
+
+@pytest.mark.parametrize('world', [2, 4])
+def test_mesh_batch_norm_is_two_entries_each_way(runs, world):
+    """Under the mesh a train-mode BN calls ``bn_local_sums`` and
+    ``bn_apply_sums`` forward (no ``bn_stats`` and ``bn_apply`` of their
+    own) and ``bn_grad_local_sums`` and ``bn_dx`` backward, as often as
+    the one-process step calls ``bn_stats`` / ``bn_apply`` and
+    ``bn_grad_stats`` / ``bn_dx``; every backward all-reduce is in place
+    on the copy of the sums that ``bn_grad_local_sums`` wrote (no stacked
+    copy)."""
+    one = runs['bn_entries_one']
+    assert one.get('bn_local_sums', 0) == one.get('bn_apply_sums', 0) == 0
+    assert one['bn_stats'] > 0 and one['bn_grad_stats'] > 0
+    for res in runs[world]:
+        got = res[0]['bn_entries']
+        assert got.get('bn_stats', 0) == got.get('bn_grad_stats', 0) == 0
+        assert got['bn_local_sums'] == got['bn_apply_sums'] \
+            == one['bn_stats']
+        # eval-mode BNs (the pixel classifier's): bn_apply in both
+        assert got.get('bn_apply', 0) == one['bn_apply'] - one['bn_stats']
+        assert got['bn_grad_local_sums'] == one['bn_grad_stats']
+        assert got['bn_dx'] == one['bn_dx'] == got['grad_sums_in_place']

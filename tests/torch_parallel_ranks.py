@@ -163,20 +163,66 @@ def run_steps(engine, payload):
     return out
 
 
+_bn_counts = None
+BN_ENTRIES = ('bn_stats', 'bn_local_sums', 'bn_apply', 'bn_apply_sums',
+              'bn_grad_stats', 'bn_grad_local_sums', 'bn_dx')
+
+
+def record_bn_entries():
+    """Count the calls that ``models.common``'s batch norm makes to the
+    ``ops/cuda/batchnorm.py`` entries (``BN_ENTRIES``) and, of its
+    ``all_reduce`` calls, those on a copy of the gradient sums that
+    ``bn_grad_local_sums`` wrote itself (``grad_sums_in_place``). Returns
+    the counter; the wrappers stay for the rest of this process, and a
+    second call returns the same counter."""
+    import collections
+
+    from bpbreid_tpu_torch.models import common
+    global _bn_counts
+    if _bn_counts is not None:
+        return _bn_counts
+    counts = _bn_counts = collections.Counter()
+    grad_sums = set()
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            out = fn(*args, **kwargs)
+            if name == 'bn_grad_local_sums':
+                grad_sums.add(out[2].data_ptr())
+            return out
+        return call
+
+    for name in BN_ENTRIES:
+        setattr(common, name, counted(name, getattr(common, name)))
+    all_reduce = common.all_reduce
+
+    def reduce(t, mesh):
+        if t.data_ptr() in grad_sums:
+            counts['grad_sums_in_place'] += 1
+        return all_reduce(t, mesh)
+    common.all_reduce = reduce
+    return counts
+
+
 def distributed_steps(mesh, payloads):
     """Each payload's engine distributed over ``mesh`` and stepped; with
-    the collective calls of each run."""
+    the collective calls of each run and the batch norm entries it
+    called (``record_bn_entries``)."""
     from bpbreid_tpu_torch.parallel import distribute_engine
     from bpbreid_tpu_torch.parallel.mesh import (collective_counts,
                                                  reset_collective_counts)
+    bn = record_bn_entries()
     results = []
     for payload in payloads:
         engine = build_engine(payload)
         distribute_engine(engine, mesh)
         reset_collective_counts()
+        bn.clear()
         steps = run_steps(engine, payload)
         results.append({'steps': steps,
-                        'collectives': dict(collective_counts)})
+                        'collectives': dict(collective_counts),
+                        'bn_entries': dict(bn)})
     return results
 
 
@@ -192,7 +238,10 @@ def steps_at_4_and_2_ranks(mesh, payload):
     if mesh.rank < 2:
         out[2] = distributed_steps(make_mesh(2, group=pair), [payload])
     elif mesh.rank == 2:
+        bn = record_bn_entries()
+        bn.clear()
         out[1] = one_process_steps(payload)
+        out['bn_entries_one'] = dict(bn)
     return out
 
 
