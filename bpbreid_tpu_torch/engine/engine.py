@@ -23,6 +23,16 @@ k eager steps. The choice is made from the configuration alone
 ``device_prefetch`` moves the next batches (or groups) to the device
 while the current step computes.
 
+Under a profiler the host's phases are spans of its trace
+(``utils/tracing.py``): ``engine.forward_backward_multi`` (the whole
+call) holding ``engine.train_inputs`` (the group's copy to the device)
+and the ``graph.*`` spans of each step (``engine/graphs.py``);
+``engine.backward`` and ``engine.optimizer`` in ``optimizer_step``; and
+``prefetch.wait``, the consumer's wait for each prefetched batch. The
+profiler keeps no op or span of the prefetch's worker thread, only its
+CUDA API calls, so its pinning shows through this wait. PERF.md,
+section 3, names the metric that reads each span.
+
 Under ``parallel.distribute_engine`` (``mesh`` set: one rank of a
 data-parallel run) every rank runs the same loop on the global batches;
 ``optimizer_step`` sums the gradients over the ranks, and rank 0 alone
@@ -42,6 +52,7 @@ from bpbreid_tpu_torch.parallel.mesh import all_reduce_flat, shard_bounds
 from bpbreid_tpu_torch.utils.avgmeter import MetricsSummary, TimeMeter
 from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
 from bpbreid_tpu_torch.utils.engine_state import EngineState
+from bpbreid_tpu_torch.utils.tracing import span
 
 __all__ = ['Engine', 'device_prefetch', 'group_train_batches',
            'normalize', 'stack_steps', 'valid_rows']
@@ -120,10 +131,11 @@ def device_prefetch(loader, device, keys=DEVICE_KEYS):
     device = torch.device(device)
     if device.type != 'cuda':
         for batch in loader:
-            out = dict(batch)
-            for k in keys:
-                if out.get(k) is not None:
-                    out[k] = torch.as_tensor(out[k])
+            with span('prefetch.wait'):
+                out = dict(batch)
+                for k in keys:
+                    if out.get(k) is not None:
+                        out[k] = torch.as_tensor(out[k])
             yield out
         return
     copy_stream = torch.cuda.Stream(device)
@@ -144,12 +156,13 @@ def device_prefetch(loader, device, keys=DEVICE_KEYS):
         return out, done
 
     def hand_over(future):
-        out, done = future.result()
-        compute = torch.cuda.current_stream(device)
-        compute.wait_event(done)
-        for k in keys:
-            if isinstance(out.get(k), torch.Tensor):
-                out[k].record_stream(compute)
+        with span('prefetch.wait'):
+            out, done = future.result()
+            compute = torch.cuda.current_stream(device)
+            compute.wait_event(done)
+            for k in keys:
+                if isinstance(out.get(k), torch.Tensor):
+                    out[k].record_stream(compute)
         return out
 
     # one worker: the copies stay in batch order
@@ -316,31 +329,34 @@ class Engine:
         eager steps. ``draws`` (eager path only) is a list of k
         augmentation draws. Returns the ``[k]`` loss vector and the
         summary with ``[k]`` leaves, on the device."""
-        self.require_optimizer()
-        inputs = self.train_inputs(batch)
-        k = inputs[0].shape[0]
-        steps = [[None if t is None else t[i] for t in inputs]
-                 for i in range(k)]
-        if not self.train_graphs:
-            draws = draws if draws is not None else [None] * k
-            return stack_steps([self.train_step(*s, draws=d)
-                                for s, d in zip(steps, draws)])
-        if draws is not None:
-            raise ValueError('draws are taken from the engine\'s generator '
-                             'on the CUDA graph path')
-        if self._train_graph is None:
-            self._train_graph = GraphStep(
-                self.train_step, generators=self.step_generators(),
-                state=self._train_state)
-        key = (tuple(g['lr'] for g in self.optimizer.param_groups),
-               self._freeze_base)
-        out = stack_steps([self._train_graph(s, key) for s in steps])
-        # the replays wrote the parameters and buffers in place: their
-        # version counters move as an eager step's would (caches such as
-        # the int8 weights' key on them)
-        for t in list(self.model.parameters()) + list(self.model.buffers()):
-            torch.autograd.graph.increment_version(t)
-        return out
+        with span('engine.forward_backward_multi'):
+            self.require_optimizer()
+            with span('engine.train_inputs'):
+                inputs = self.train_inputs(batch)
+            k = inputs[0].shape[0]
+            steps = [[None if t is None else t[i] for t in inputs]
+                     for i in range(k)]
+            if not self.train_graphs:
+                draws = draws if draws is not None else [None] * k
+                return stack_steps([self.train_step(*s, draws=d)
+                                    for s, d in zip(steps, draws)])
+            if draws is not None:
+                raise ValueError('draws are taken from the engine\'s '
+                                 'generator on the CUDA graph path')
+            if self._train_graph is None:
+                self._train_graph = GraphStep(
+                    self.train_step, generators=self.step_generators(),
+                    state=self._train_state)
+            key = (tuple(g['lr'] for g in self.optimizer.param_groups),
+                   self._freeze_base)
+            out = stack_steps([self._train_graph(s, key) for s in steps])
+            # the replays wrote the parameters and buffers in place: their
+            # version counters move as an eager step's would (caches such
+            # as the int8 weights' key on them)
+            for t in (list(self.model.parameters())
+                      + list(self.model.buffers())):
+                torch.autograd.graph.increment_version(t)
+            return out
 
     def step_generators(self):
         """The generators the train step draws from: the engine's."""
@@ -417,19 +433,21 @@ class Engine:
         moments still apply to it. Under a mesh the gradients are first
         summed over the ranks (one flat ``all_reduce``): each rank's
         gradient flows through its own slice of the global batch only."""
-        self.optimizer.zero_grad(set_to_none=False)
-        loss.backward()
-        params = list(self.model.named_parameters())
-        for _name, p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.mesh is not None:
-            all_reduce_flat([p.grad for _name, p in params], self.mesh)
-        if self._freeze_base:
-            for name, p in params:
-                if not any(ol in name for ol in self.open_layers):
-                    p.grad.zero_()
-        self.optimizer.step()
+        with span('engine.backward'):
+            self.optimizer.zero_grad(set_to_none=False)
+            loss.backward()
+        with span('engine.optimizer'):
+            params = list(self.model.named_parameters())
+            for _name, p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.mesh is not None:
+                all_reduce_flat([p.grad for _name, p in params], self.mesh)
+            if self._freeze_base:
+                for name, p in params:
+                    if not any(ol in name for ol in self.open_layers):
+                        p.grad.zero_()
+            self.optimizer.step()
 
     def save_model(self, epoch, save_dir, cmc=None, mAP=None, ssmd=None,
                    is_best=False, force=False):
@@ -465,7 +483,10 @@ class Engine:
             rerank=False, save_features=False, **kwargs):
         """Train ``start_epoch .. max_epoch`` (the engine's own
         ``start_epoch``, set on resume) and test; or only test. Returns
-        ``(cmc, mAP, ssmd, pixel_accuracy)`` of the last test."""
+        ``(cmc, mAP, ssmd, pixel_accuracy)`` of the last test. A training
+        run ends with its elapsed time and, for each CUDA graph of the
+        train and eval steps, its eager steps, captures and replays (a
+        recapture at each new learning rate shows there)."""
         del start_epoch, kwargs
         if max_epoch:
             self.max_epoch = max_epoch
@@ -525,6 +546,12 @@ class Engine:
         if self.writer is not None:
             self.writer.total_run_timer.stop()
         print('Elapsed {:.0f}s'.format(time.time() - time_start))
+        for name, graph in (('train', self._train_graph),
+                            ('eval', self._eval_graph)):
+            if graph is not None:
+                print('CUDA graph of the {} step: eager {}, captures {}, '
+                      'replays {}'.format(name, graph.eager_steps,
+                                          graph.captures, graph.replays))
         if self.writer is not None:
             self.writer.report_performance(cmc, mAP, ssmd, pxl_acc)
         self.engine_state.run_completed()

@@ -38,6 +38,14 @@ back after the capture and added again on every replay, so a launch
 count counts the kernels that ran, eager or replayed. A capture or replay
 that fails raises; nothing falls back to an eager step.
 
+Under a profiler each call is a span ``graph.step`` (``utils/tracing.py``)
+holding ``graph.key`` (the key's inputs and ``state()``), one span of the
+call's kind, ``graph.eager``, ``graph.capture`` or ``graph.replay`` (the
+copy into the static inputs, the replay and the counters; a capture's
+call replays too), and ``graph.clone_out``. Within a profiled stretch,
+the kinds' spans count what ``eager_steps``, ``captures`` and
+``replays`` count on the object.
+
 The step may only launch work on the current stream: no read of a
 tensor's value on the host, no tensor made from host data (after its
 first call), no output whose shape depends on the data.
@@ -47,6 +55,7 @@ import contextlib
 import torch
 
 from bpbreid_tpu_torch.ops.cuda.build import launch_counts
+from bpbreid_tpu_torch.utils.tracing import span
 
 __all__ = ['GraphStep', 'REPLAYED_COUNTERS', 'replayed_counter',
            'tensor_addresses']
@@ -122,27 +131,43 @@ class GraphStep:
         self.deltas = []
 
     def __call__(self, inputs, key=()):
-        inputs = list(inputs)
-        full_key = (_inputs_key(inputs), key, self.state())
-        if full_key != self.key:
-            self.reset()
-            out = self._eager(inputs)
-            self.key = (full_key[0], key, self.state())
-            return out
-        if self.graph is None:
-            self._capture(inputs)
-            self.key = (full_key[0], key, self.state())
-        else:
-            for dst, src in zip(self.static_in, inputs):
-                if dst is not None:
-                    dst.copy_(src)
-        self.graph.replay()
-        self.replays += 1
-        for counter, delta in self.deltas:
-            if any(counter is c for c in REPLAYED_COUNTERS):
-                for name, n in delta.items():
-                    counter[name] = counter.get(name, 0) + n
-        return _map(torch.Tensor.clone, self.static_out)
+        with span('graph.step'):
+            inputs = list(inputs)
+            with span('graph.key'):
+                inputs_key = _inputs_key(inputs)
+                stale = (inputs_key, key, self.state()) != self.key
+            if stale:
+                self.reset()
+                out = self._eager(inputs)
+                self._set_key(inputs_key, key)
+                return out
+            if self.graph is None:
+                self._capture(inputs)
+                self._set_key(inputs_key, key)
+                inputs = None            # the capture's buffers hold them
+            return self._replay(inputs)
+
+    def _set_key(self, inputs_key, key):
+        with span('graph.key'):
+            self.key = (inputs_key, key, self.state())
+
+    def _replay(self, inputs):
+        """Copy ``inputs`` (None: already in place) into the static
+        buffers, replay the graph and add its counts; returns clones of
+        the static outputs."""
+        with span('graph.replay'):
+            if inputs is not None:
+                for dst, src in zip(self.static_in, inputs):
+                    if dst is not None:
+                        dst.copy_(src)
+            self.graph.replay()
+            self.replays += 1
+            for counter, delta in self.deltas:
+                if any(counter is c for c in REPLAYED_COUNTERS):
+                    for name, n in delta.items():
+                        counter[name] = counter.get(name, 0) + n
+        with span('graph.clone_out'):
+            return _map(torch.Tensor.clone, self.static_out)
 
     def _side_stream(self, device):
         if self.stream is None:
@@ -150,37 +175,39 @@ class GraphStep:
         return self.stream
 
     def _eager(self, inputs):
-        device = next(t.device for t in inputs if t is not None)
-        current = torch.cuda.current_stream(device)
-        side = self._side_stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            out = self.fn(*inputs)
-        current.wait_stream(side)
-        # the allocator must not hand out what either stream still uses
-        for t in inputs:
-            if t is not None:
-                t.record_stream(side)
-        _map(lambda t: t.record_stream(current), out)
-        self.eager_steps += 1
-        return out
+        with span('graph.eager'):
+            device = next(t.device for t in inputs if t is not None)
+            current = torch.cuda.current_stream(device)
+            side = self._side_stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                out = self.fn(*inputs)
+            current.wait_stream(side)
+            # the allocator must not hand out what either stream still uses
+            for t in inputs:
+                if t is not None:
+                    t.record_stream(side)
+            _map(lambda t: t.record_stream(current), out)
+            self.eager_steps += 1
+            return out
 
     def _capture(self, inputs):
-        device = next(t.device for t in inputs if t is not None)
-        self.static_in = [None if t is None else t.clone() for t in inputs]
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            graph.register_generator_state(g)
-        before = [dict(c) for c in REPLAYED_COUNTERS]
-        with torch.cuda.graph(graph, stream=self._side_stream(device),
-                              capture_error_mode='thread_local'):
-            out = self.fn(*self.static_in)
-        self.deltas = []
-        for counter, was in zip(REPLAYED_COUNTERS, before):
-            delta = {k: v - was.get(k, 0) for k, v in counter.items()
-                     if v != was.get(k, 0)}
-            for k, n in delta.items():
-                counter[k] -= n
-            self.deltas.append((counter, delta))
-        self.graph, self.static_out = graph, out
-        self.captures += 1
+        with span('graph.capture'):
+            device = next(t.device for t in inputs if t is not None)
+            self.static_in = [None if t is None else t.clone() for t in inputs]
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
+            before = [dict(c) for c in REPLAYED_COUNTERS]
+            with torch.cuda.graph(graph, stream=self._side_stream(device),
+                                  capture_error_mode='thread_local'):
+                out = self.fn(*self.static_in)
+            self.deltas = []
+            for counter, was in zip(REPLAYED_COUNTERS, before):
+                delta = {k: v - was.get(k, 0) for k, v in counter.items()
+                         if v != was.get(k, 0)}
+                for k, n in delta.items():
+                    counter[k] -= n
+                self.deltas.append((counter, delta))
+            self.graph, self.static_out = graph, out
+            self.captures += 1

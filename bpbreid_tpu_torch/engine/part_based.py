@@ -89,6 +89,7 @@ from bpbreid_tpu_torch.parallel.retrieval import sharded_bp_distance
 from bpbreid_tpu_torch.utils.distribution import (
     compute_ssmd, plot_pairs_distance_distribution)
 from bpbreid_tpu_torch.utils.rerank import re_ranking
+from bpbreid_tpu_torch.utils.tracing import span
 from bpbreid_tpu_torch.utils.visualization.batch_triplets import \
     display_batch_triplets
 from bpbreid_tpu_torch.utils.visualization.embeddings import \
@@ -252,8 +253,9 @@ class ImagePartBasedEngine(Engine):
         on the gathered outputs. Returns ``(loss, summary)`` as tensors on
         the device (no host sync)."""
         self.require_optimizer()
-        loss, summary = self.train_step(*self.train_inputs(batch),
-                                        draws=draws)
+        with span('engine.train_inputs'):
+            inputs = self.train_inputs(batch)
+        loss, summary = self.train_step(*inputs, draws=draws)
         freq = self.config.train.batch_debug_freq \
             if self.config is not None else 0
         if freq and self.engine_state.global_step % freq == 0 \
@@ -273,7 +275,10 @@ class ImagePartBasedEngine(Engine):
         what the train graph captures): augmentation (its draws from the
         engine's generator when ``draws`` is None), the forward in train
         mode, GiLt + BPA, backward and the optimizer's step. Returns
-        ``(loss, summary)`` on the device."""
+        ``(loss, summary)`` on the device. Under a profiler its eager
+        calls are the spans ``engine.forward`` (augmentation and the
+        model), ``engine.loss``, ``engine.backward`` and
+        ``engine.optimizer``; a graph's replay runs none of them."""
         n, h, w = imgs_u8.shape[:3]
         if draws is None:
             draws = sample_train_draws(self.generator, n, h, w,
@@ -282,19 +287,21 @@ class ImagePartBasedEngine(Engine):
             lo, hi = self.shard(n)
             imgs_u8, draws = imgs_u8[lo:hi], slice_draws(draws, lo, hi)
             raw_masks = raw_masks[lo:hi] if raw_masks is not None else None
-        imgs, masks = train_augment(imgs_u8, raw_masks, draws,
-                                    norm_mean=self.norm_mean,
-                                    norm_std=self.norm_std,
-                                    mask_kwargs=self.mask_kwargs)
-        self.model.train()
-        outputs = self.model(imgs, masks)
-        if self.mesh is not None:
-            # what the loss reads, over the global batch
-            outputs = tuple(gather_tree(outputs[:4], self.mesh)) + (None,
-                                                                    None)
-            masks = all_gather(masks, self.mesh) \
-                if masks is not None else None
-        loss, summary = self.loss_fn(outputs, masks, pids)
+        with span('engine.forward'):
+            imgs, masks = train_augment(imgs_u8, raw_masks, draws,
+                                        norm_mean=self.norm_mean,
+                                        norm_std=self.norm_std,
+                                        mask_kwargs=self.mask_kwargs)
+            self.model.train()
+            outputs = self.model(imgs, masks)
+        with span('engine.loss'):
+            if self.mesh is not None:
+                # what the loss reads, over the global batch
+                outputs = tuple(gather_tree(outputs[:4], self.mesh)) + (
+                    None, None)
+                masks = all_gather(masks, self.mesh) \
+                    if masks is not None else None
+            loss, summary = self.loss_fn(outputs, masks, pids)
         self.optimizer_step(loss)
         return loss.detach(), summary
 
@@ -460,29 +467,36 @@ class ImagePartBasedEngine(Engine):
         the int8 calibration (JAX :491-590). The valid rows are taken with
         index tensors made from the host's ``valid`` and the pixel counts
         summed on the device (exact in f64), so nothing is read back until
-        the pixel accuracy at the end.
+        the pixel accuracy at the end. Under a profiler the call is the
+        span ``engine.feature_extraction``, and its tail (the features'
+        concatenation and the pixel-accuracy read) ``engine.gather_features``.
 
         Returns ``(features [N, P+2, D], visibility [N, P+2])`` on the
         device, ``(pids, camids)`` numpy and the pixel accuracy.
         """
-        f_, vis_, pids_, camids_, corr_, tot_ = [], [], [], [], [], []
-        quant_opts = self._eval_quant_opts = self.int8_quant_opts(loader)
-        for batch, (feats, vis, corr, tot) in self._eval_batches(
-                loader, self._eval_outputs, keys=('image', 'mask'),
-                key=quant_opts):
-            valid = batch['valid']
-            f_.append(valid_rows(feats, valid))
-            vis_.append(valid_rows(vis, valid))
-            pids_.append(np.asarray(batch['pid'])[valid])
-            camids_.append(np.asarray(batch['camid'])[valid])
-            if corr.dim():
-                corr_.append(valid_rows(corr, valid).sum(dtype=torch.float64))
-                tot_.append(valid_rows(tot, valid).sum(dtype=torch.float64))
-        pxl_correct = float(torch.stack(corr_).sum()) if corr_ else 0.0
-        pxl_total = float(torch.stack(tot_).sum()) if tot_ else 0.0
-        acc = pxl_correct / pxl_total if pxl_total else 0.0
-        return (torch.cat(f_), torch.cat(vis_), np.concatenate(pids_),
-                np.concatenate(camids_), acc)
+        with span('engine.feature_extraction'):
+            f_, vis_, pids_, camids_, corr_, tot_ = [], [], [], [], [], []
+            quant_opts = self._eval_quant_opts = self.int8_quant_opts(loader)
+            for batch, (feats, vis, corr, tot) in self._eval_batches(
+                    loader, self._eval_outputs, keys=('image', 'mask'),
+                    key=quant_opts):
+                valid = batch['valid']
+                f_.append(valid_rows(feats, valid))
+                vis_.append(valid_rows(vis, valid))
+                pids_.append(np.asarray(batch['pid'])[valid])
+                camids_.append(np.asarray(batch['camid'])[valid])
+                if corr.dim():
+                    corr_.append(valid_rows(corr, valid).sum(
+                        dtype=torch.float64))
+                    tot_.append(valid_rows(tot, valid).sum(
+                        dtype=torch.float64))
+            with span('engine.gather_features'):
+                feats, vis = torch.cat(f_), torch.cat(vis_)
+                correct = float(torch.stack(corr_).sum()) if corr_ else 0.0
+                total = float(torch.stack(tot_).sum()) if tot_ else 0.0
+            return (feats, vis, np.concatenate(pids_),
+                    np.concatenate(camids_),
+                    correct / total if total else 0.0)
 
     def evaluate(self, query_loader, gallery_loader, normalize_feature=True,
                  dist_metric='euclidean', max_rank=50, eval_metric='default',

@@ -19,16 +19,16 @@ Prints one JSON line: ``metric`` (JAX's name,
 ``value`` (images/s), ``unit``, ``step_ms`` (the median of ``--repeats``
 timed loops), ``runs_ms``, and the device: its name and, on a card,
 its power limit as ``nvidia-smi`` gives it. ``--profile DIR`` wraps one
-timed loop in ``torch.profiler`` and writes its Chrome trace under DIR
-(read it with ``python -m bpbreid_tpu_torch.tools.profile_summary DIR``);
-the record is then marked ``_profiled``. Runs on ``cuda`` unless
+timed loop in ``utils.writer.ProfilerTrace``, which writes its Chrome
+trace, the engine's spans included, to ``DIR/trace.json`` (read it with
+``python -m bpbreid_tpu_torch.tools.profile_summary DIR``); the record
+is then marked ``_profiled``. Runs on ``cuda`` unless
 ``--device cpu`` is given.
 
     python -m bpbreid_tpu_torch.tools.bench_train [--iters 20] ...
 """
 import argparse
 import json
-import os
 import subprocess
 import time
 
@@ -99,9 +99,9 @@ def main(argv=None):
                              '(cfg.train.steps_per_dispatch; 1 = the '
                              'per-batch path)')
     parser.add_argument('--profile', default=None, metavar='DIR',
-                        help='wrap one timed loop in torch.profiler and '
-                             'write its Chrome trace under DIR; summarize '
-                             'with python -m '
+                        help='profile one timed loop (ProfilerTrace) and '
+                             'write its Chrome trace to DIR/trace.json; '
+                             'summarize with python -m '
                              'bpbreid_tpu_torch.tools.profile_summary DIR')
     parser.add_argument('--repeats', type=int, default=3,
                         help='timed repetitions; the record reports the '
@@ -150,15 +150,9 @@ def main(argv=None):
         return (time.perf_counter() - t0) / n_steps
 
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if device.type == 'cuda':
-            activities.append(ProfilerActivity.CUDA)
-        os.makedirs(args.profile, exist_ok=True)
-        with profile(activities=activities) as prof:
+        from bpbreid_tpu_torch.utils.writer import ProfilerTrace
+        with ProfilerTrace(args.profile):
             dts = [timed_loop()]
-        prof.export_chrome_trace(os.path.join(args.profile,
-                                              'bench_train_trace.json'))
     else:
         dts = sorted(timed_loop() for _ in range(max(1, args.repeats)))
     dt = dts[len(dts) // 2] if len(dts) % 2 else \

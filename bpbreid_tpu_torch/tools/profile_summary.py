@@ -21,6 +21,11 @@ attention pool (K2), layout copy (NCHW <-> NHWC), convolution (cuDNN,
 ``conv_s8``, ``conv_chain``), matmul (gemm, cutlass), reduce,
 elementwise, memcpy/memset, other.
 
+It then lists the host's spans (``user_annotation`` events: the port's
+``utils/tracing.py`` spans, such as ``engine.forward_backward_multi``,
+``graph.replay`` or ``prefetch.wait``) by name, with their summed
+duration and count.
+
 Usage:
   python -m bpbreid_tpu_torch.tools.profile_summary <trace.json or dir> \\
       [--top 30]
@@ -32,7 +37,8 @@ import json
 import os.path as osp
 import re
 
-__all__ = ['find_trace', 'categorize', 'summarize', 'main']
+__all__ = ['find_trace', 'categorize', 'summarize', 'span_totals',
+           'main']
 
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
@@ -163,6 +169,20 @@ def summarize(trace_path, top=30):
     return rows[:top], cats, sum(per_name.values()), label
 
 
+def span_totals(trace_path):
+    """``[(name, total_ns, count)]`` of the trace's spans
+    (``user_annotation`` events), longest total first."""
+    with open(trace_path) as f:
+        trace = json.load(f)
+    events = trace['traceEvents'] if isinstance(trace, dict) else trace
+    per_name, counts = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.get('ph') == 'X' and e.get('cat') == 'user_annotation':
+            per_name[e['name']] += int(round(e.get('dur', 0) * 1000))
+            counts[e['name']] += 1
+    return [(name, ns, counts[name]) for name, ns in per_name.most_common()]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('path', help='trace .json file or a directory')
@@ -181,6 +201,13 @@ def main(argv=None):
     print('{:<64} {:>10} {:>7}'.format('kernel', 'ms', 'count'))
     for name, ns, count in rows:
         print('{:<64} {:>10.3f} {:>7}'.format(name[:64], ns / 1e6, count))
+    spans = span_totals(trace)
+    if spans:
+        print('\n-- spans --')
+        print('{:<64} {:>10} {:>7}'.format('span', 'ms', 'count'))
+        for name, ns, count in spans:
+            print('{:<64} {:>10.3f} {:>7}'.format(name[:64], ns / 1e6,
+                                                  count))
 
 
 if __name__ == '__main__':
