@@ -13,6 +13,11 @@ Train time (``train_augment``), as in the JAX version:
   chain as one bilinear resample at the feature grid
   (``_mask_composed_chain``).
 
+Test time (``eval_preprocess``): normalize, and the same feature-grid
+mask chain with no crop, flip or erase; fields larger than the image
+grid go through the full-resolution chain instead (``_masks_to_image_grid``
+then ``mask_chain``), whose resize filters them.
+
 The random draws are made apart from their use: ``sample_train_draws``
 takes them from an explicit ``torch.Generator``, and ``train_augment``
 takes them as arguments, so that a test can hand the same draws to this
@@ -26,6 +31,7 @@ from bpbreid_tpu_torch.ops.masks import (GroupingSpec, add_background_mask,
                                          masks_preprocess_all)
 from bpbreid_tpu_torch.ops.resize import nearest_indices, resize_nearest
 from bpbreid_tpu_torch.ops.tensortools import constant
+from bpbreid_tpu_torch.utils.tracing import span
 
 __all__ = ['eval_preprocess', 'mask_chain', 'mask_chain_kwargs',
            'train_augment', 'sample_train_draws', 'slice_draws']
@@ -37,13 +43,12 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 def _masks_to_image_grid(masks, h, w):
     """Bilinear resize of native-resolution confidence fields
     ``[N, C, h0, w0]`` to the image grid, half-pixel centres
-    (``jax.image.resize(..., 'linear')``). Upsampling, the case the data
-    gives (fields at 1/8 of the image), is ``F.interpolate`` with
-    ``align_corners=False``. Downsampling uses its ``antialias=True``
+    (``jax.image.resize(..., 'linear')``): the first step of the
+    full-resolution mask chain, which ``eval_preprocess`` takes for fields
+    larger than the image grid in an axis. Upsampling is ``F.interpolate``
+    with ``align_corners=False``. Downsampling uses its ``antialias=True``
     triangle filter, the same kind of filter JAX applies there."""
     h0, w0 = masks.shape[-2:]
-    if (h0, w0) == (h, w):
-        return masks
     return F.interpolate(masks, size=(h, w), mode='bilinear',
                          align_corners=False, antialias=h < h0 or w < w0)
 
@@ -376,6 +381,17 @@ def eval_preprocess(imgs_u8, masks=None, norm_mean=IMAGENET_MEAN,
                     norm_std=IMAGENET_STD, mask_kwargs=None):
     """Test-time pipeline: normalize + mask chain.
 
+    Fields no larger than the image grid in either axis (the data's 1/8
+    grid, or the image's own) take the train path's feature-grid
+    resample with no crop, flip or erase (``_mask_composed_chain``,
+    span ``augment.eval_masks_grid``): every step of the chain acts per
+    pixel, so only the pixels the nearest /mask_scale pick keeps are
+    computed. Larger fields keep the full-resolution chain (span
+    ``augment.eval_masks_full``): the image-grid resize with its
+    antialiasing filter, which no point sample reproduces, then
+    ``mask_chain``. Both give the same masks up to the order of the
+    bilinear weights' rounding.
+
     Args:
         imgs_u8: ``[N, H, W, 3]`` uint8.
         masks: ``[N, h, w, C]`` float confidence fields or None.
@@ -385,9 +401,16 @@ def eval_preprocess(imgs_u8, masks=None, norm_mean=IMAGENET_MEAN,
     imgs = _normalize(imgs_u8.float() / 255.0, norm_mean, norm_std)
     imgs = imgs.permute(0, 3, 1, 2).contiguous()
     if masks is not None:
-        masks = masks.float().permute(0, 3, 1, 2)
-        masks = _masks_to_image_grid(masks, imgs.shape[2], imgs.shape[3])
-        masks = mask_chain(masks, **(mask_kwargs or {}))
+        h, w = imgs.shape[2:]
+        if masks.shape[1] <= h and masks.shape[2] <= w:
+            with span('augment.eval_masks_grid'):
+                masks = _mask_composed_chain(masks.float(), h, w, None, None,
+                                             None, mask_kwargs)
+        else:
+            with span('augment.eval_masks_full'):
+                masks = _masks_to_image_grid(
+                    masks.float().permute(0, 3, 1, 2), h, w)
+                masks = mask_chain(masks, **(mask_kwargs or {}))
     return imgs, masks
 
 

@@ -108,3 +108,65 @@ def test_eval_preprocess_without_masks():
     want_i, _ = jaug.eval_preprocess(jnp.asarray(imgs))
     assert got_m is None
     np.testing.assert_allclose(to_nhwc(got_i), np.asarray(want_i), atol=1e-6)
+
+
+def _full_chain(fields, h, w, kw):
+    """The explicit full-resolution chain: fields resized to the image
+    grid, then grouping, background and the nearest /4 pick."""
+    return taug.mask_chain(taug._masks_to_image_grid(nchw(fields), h, w),
+                           **kw)
+
+
+def _chain_kwargs(preprocess):
+    if preprocess == 'has_background':
+        return taug.mask_chain_kwargs(get_default_config(),
+                                      has_background=True)
+    return _mask_kwargs(preprocess)
+
+
+@pytest.mark.parametrize('preprocess',
+                         ['five_v', 'bs_fu_bb', 'six_no', 'has_background'])
+def test_eval_preprocess_feature_grid_matches_full_chain(preprocess):
+    """At the cells' shapes (384x128 crops, 36 fields at 48x16; seven
+    channels with their own background) the feature-grid masks equal the
+    full-resolution chain to 1e-5, with the same part winning each
+    pixel."""
+    n, h, w = 6, 384, 128
+    channels = 7 if preprocess == 'has_background' else 36
+    imgs = np.random.default_rng(5).integers(
+        0, 256, size=(n, h, w, 3)).astype(np.uint8)
+    fields = _fields((n, h // 8, w // 8, channels), 6)
+    kw = _chain_kwargs(preprocess)
+    _, got = taug.eval_preprocess(torch.from_numpy(imgs),
+                                  torch.from_numpy(fields), mask_kwargs=kw)
+    want = _full_chain(fields, h, w, kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert tuple(got.shape[2:]) == (h // 4, w // 4)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    assert torch.equal(got.argmax(dim=1), want.argmax(dim=1))
+
+
+@pytest.mark.parametrize('field_hw', [(8, 4), (64, 32), (64, 8), (16, 32)])
+def test_eval_preprocess_fields_up_to_the_image_grid(field_hw):
+    """Fields smaller than the image, equal to it, or equal in one axis
+    only take the feature-grid path and match the full chain."""
+    imgs = np.zeros((3, 64, 32, 3), np.uint8)
+    fields = _fields((3,) + field_hw + (36,), 7)
+    kw = _mask_kwargs('five_v')
+    _, got = taug.eval_preprocess(torch.from_numpy(imgs),
+                                  torch.from_numpy(fields), mask_kwargs=kw)
+    want = _full_chain(fields, 64, 32, kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    assert torch.equal(got.argmax(dim=1), want.argmax(dim=1))
+
+
+@pytest.mark.parametrize('field_hw', [(128, 64), (128, 16), (32, 48)])
+def test_eval_preprocess_larger_fields_keep_the_full_chain(field_hw):
+    """Fields larger than the image in either axis are resized with the
+    antialiasing filter at full resolution: exactly the full chain."""
+    imgs = np.zeros((2, 64, 32, 3), np.uint8)
+    fields = _fields((2,) + field_hw + (36,), 8)
+    kw = _mask_kwargs('five_v')
+    _, got = taug.eval_preprocess(torch.from_numpy(imgs),
+                                  torch.from_numpy(fields), mask_kwargs=kw)
+    assert torch.equal(got, _full_chain(fields, 64, 32, kw))

@@ -2,7 +2,8 @@
 ``span`` never enters ``record_function``; profiled, each span is a
 ``user_annotation`` event of the profiler's Chrome trace on the wall
 clock, and a tiny engine's train group and feature extraction leave the
-spans the benchmark's readers take (``benchmark/metrics/``). The CUDA
+spans the benchmark's readers take (``benchmark/metrics/``);
+``eval_preprocess`` names the mask path it took. The CUDA
 graph's spans (``engine/graphs.py``) are counted against its counters on
 the card (marker ``cuda``). ``Engine.run`` ends with the graphs' counts.
 No module here imports JAX: the card's test run imports this file."""
@@ -15,6 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from bpbreid_tpu_torch.config import get_default_config
+from bpbreid_tpu_torch.data.augment import (eval_preprocess,
+                                            mask_chain_kwargs)
 from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
 from bpbreid_tpu_torch.engine.engine import Engine
 from bpbreid_tpu_torch.scripts import main as cli
@@ -89,6 +93,31 @@ def test_span_is_a_trace_event_on_the_wall_clock(tmp_path):
     assert ('outer', 1) in [(n, c) for n, _ns, c in
                             profile_summary.span_totals(
                                 str(tmp_path / 'trace.json'))]
+
+
+@pytest.mark.parametrize('field_hw,name', [
+    ((8, 4), 'augment.eval_masks_grid'),
+    ((64, 32), 'augment.eval_masks_grid'),
+    ((128, 64), 'augment.eval_masks_full'),
+    ((128, 16), 'augment.eval_masks_full'),
+    ((32, 48), 'augment.eval_masks_full')])
+def test_eval_preprocess_spans_name_the_mask_path(monkeypatch, field_hw,
+                                                  name):
+    """Fields at 1/8 of the image grid or at the grid itself run the
+    feature-grid mask chain, fields larger than it in either axis the
+    full-resolution one: one span, of that path, a call."""
+    entered = _counting(monkeypatch)
+    imgs = torch.zeros((2, 64, 32, 3), dtype=torch.uint8)
+    fields = torch.rand((2,) + field_hw + (36,),
+                        generator=torch.Generator().manual_seed(0))
+    cfg = get_default_config()
+    cfg.model.bpbreid.masks.preprocess = 'five_v'
+    kw = mask_chain_kwargs(cfg)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, masks = eval_preprocess(imgs, fields, mask_kwargs=kw)
+    assert tuple(masks.shape) == (2, 6, 16, 8)
+    assert entered == [name]
 
 
 @pytest.fixture(scope='module')

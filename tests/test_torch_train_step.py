@@ -51,7 +51,9 @@ from bpbreid_tpu.engine import ImagePartBasedEngine as JEngine
 from bpbreid_tpu.models.bpbreid import BPBreID as JBPBreID
 from bpbreid_tpu.optim import build_optimizer as j_build_optimizer
 from bpbreid_tpu_torch.config import get_default_config
+from bpbreid_tpu_torch.data import augment as taug
 from bpbreid_tpu_torch.data.augment import mask_chain_kwargs
+from bpbreid_tpu_torch.engine import part_based
 from bpbreid_tpu_torch.engine.part_based import ImagePartBasedEngine
 from bpbreid_tpu_torch.models.bpbreid import BPBreID as TBPBreID
 from bpbreid_tpu_torch.models.common import init_parameters
@@ -262,3 +264,38 @@ def test_eval_step_then_train_step_on_one_engine():
     again = engine.eval_step(torch.from_numpy(batch['image']),
                              torch.from_numpy(batch['mask']))[0]
     assert again.shape == feats.shape and not tmodel.training
+
+
+@pytest.mark.parametrize('segmentation', ['none', 'soft'])
+def test_eval_step_feature_grid_masks_match_full_resolution(monkeypatch,
+                                                            segmentation):
+    """``eval_step`` on masks built at the feature grid gives the pixel
+    accuracy (and the features, which read the masks only under target
+    segmentation) of the full-resolution mask chain."""
+    cfg = get_default_config()
+    cfg.model.bpbreid.masks.preprocess = 'five_v'
+    tmodel = TBPBreID(test_use_target_segmentation=segmentation, **KW)
+    init_parameters(tmodel, torch.Generator().manual_seed(2))
+    kw = mask_chain_kwargs(cfg)
+    engine = ImagePartBasedEngine.from_config(cfg, tmodel, kw, device='cpu')
+    batch = _batches(1)[0]
+    imgs = torch.from_numpy(batch['image'])
+    fields = torch.from_numpy(batch['mask'])
+    grid = engine.eval_step(imgs, fields)
+
+    def full_resolution(imgs_u8, masks, mask_kwargs=None, **norm):
+        imgs_out, _ = taug.eval_preprocess(imgs_u8, None, **norm)
+        full = taug._masks_to_image_grid(masks.float().permute(0, 3, 1, 2),
+                                         H, W)
+        return imgs_out, taug.mask_chain(full, **mask_kwargs)
+    monkeypatch.setattr(part_based, 'eval_preprocess', full_resolution)
+    full = engine.eval_step(imgs, fields)
+    features, visibility, _pm, _pix, masks, pxl_correct, pxl_total = grid
+    torch.testing.assert_close(masks, full[4], atol=1e-5, rtol=0)
+    assert torch.equal(pxl_total, full[6]) and pxl_total.sum() > 0
+    assert torch.equal(pxl_correct, full[5]) and pxl_correct.sum() > 0
+    assert torch.equal(visibility, full[1])
+    if segmentation == 'none':
+        assert torch.equal(features, full[0])
+    else:
+        torch.testing.assert_close(features, full[0], atol=1e-5, rtol=1e-5)
