@@ -9,6 +9,14 @@ A run: set-up (the traffic kind's ``setup``), the measured window
 ``correct`` (``check``). With ``--trace 0`` the result carries the cell's
 end-to-end metrics, with ``--trace 1`` its per-layer metrics, each read
 by its own module ``benchmark/metrics/<name>.py``.
+
+A traffic kind is the module ``benchmark/traffic/<kind>.py``. It gives
+``TRAINS`` (whether its step trains: the counts then take the train-mode
+forward and its backward), the class ``Traffic(ctx)`` with ``setup``,
+``window(seconds)``, ``traced``, ``release`` and ``check``, and, for
+``benchmark/calibrate.py``, ``calibration_readings(ctx_for, seed,
+controls, seconds)``. Its model comes from the configuration's plain
+reference (``benchmark/reference/__init__.py``).
 """
 import argparse
 import importlib
@@ -18,9 +26,11 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
-__all__ = ['ROOT', 'load_benchmark', 'find_cell', 'load_reader', 'main',
-           'percentile', 'process_age_s', 'forbidden_modules', 'Cell']
+__all__ = ['ROOT', 'load_benchmark', 'find_cell', 'load_module',
+           'load_traffic', 'load_reader', 'main', 'percentile',
+           'process_age_s', 'forbidden_modules', 'Cell']
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_DIR = os.path.join(ROOT, 'benchmark')
@@ -74,9 +84,34 @@ def find_cell(name, root=ROOT):
     return Cell(load_benchmark(root), name, root)
 
 
-def load_traffic(kind):
+def load_module(sub, name, root=ROOT):
+    """The module ``benchmark/<sub>/<name>.py``: the benchmark package's
+    own where it has one, else the file in the checkout at ``root`` (a kind
+    or a reference that a cell adds as a new file), loaded once."""
+    if os.path.exists(os.path.join(BENCH_DIR, sub, name + '.py')):
+        return importlib.import_module('benchmark.{}.{}'.format(sub, name))
+    path = os.path.realpath(os.path.join(root, 'benchmark', sub,
+                                         name + '.py'))
+    if not os.path.exists(path):
+        raise FileNotFoundError('no benchmark/{}/{}.py in {}'.format(
+            sub, name, root))
+    key = 'benchmark_{}_{}_{:08x}'.format(sub, name,
+                                          zlib.crc32(path.encode()))
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(key, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[key] = module
+        try:
+            spec.loader.exec_module(module)
+        except BaseException:
+            del sys.modules[key]
+            raise
+    return sys.modules[key]
+
+
+def load_traffic(kind, root=ROOT):
     """The traffic kind's module ``benchmark/traffic/<kind>.py``."""
-    return importlib.import_module('benchmark.traffic.' + kind)
+    return load_module('traffic', kind, root)
 
 
 def load_reader(metric_name, root=ROOT):
@@ -154,7 +189,8 @@ def run_cell(cell, seed, seconds, trace, device, t_setup0=0.0):
     """One run of ``cell``; returns the result dict (without printing).
     ``t_setup0``: seconds of set-up already spent before this call."""
     import torch
-    traffic = load_traffic(cell.kind).Traffic(Context(cell, seed, device))
+    traffic = load_traffic(cell.kind, cell.root).Traffic(
+        Context(cell, seed, device))
     ctx = traffic.ctx
     t0 = time.perf_counter()
     traffic.setup()
@@ -173,7 +209,7 @@ def run_cell(cell, seed, seconds, trace, device, t_setup0=0.0):
     metrics = {}
     if trace:
         from benchmark.counts import model_counts
-        ctx.counts = model_counts(cell.config, cell.workload)
+        ctx.counts = model_counts(cell.config, cell.workload, cell.root)
         for m in cell.per_layer:
             value = load_reader(m['name'], cell.root).read(ctx)
             if value is not None:

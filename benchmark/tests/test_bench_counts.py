@@ -1,5 +1,8 @@
 """The FLOP and byte counts behind ``mfu.*``, ``bn_roofline.*`` and
-``k2_roofline.embed``, on shapes worked out by hand."""
+``k2_roofline.embed``, on shapes worked out by hand, and the counts of
+the four cells pinned as the benchmark first computed them (PERF.md
+section 3 rounds them), so a change to the harness moves no reading."""
+import hashlib
 import json
 import os
 import types
@@ -10,7 +13,9 @@ import torch
 from benchmark import core
 from benchmark.counts import model_counts
 from benchmark.reference import model as ref_model
+from benchmark.reference import reference_of
 from benchmark.trace import Trace, union_us
+from benchmark.weights import _ends_residual, make_weights
 
 PEAKS = json.load(open(os.path.join(core.ROOT, 'benchmark', 'peaks.json')))
 
@@ -131,3 +136,81 @@ def test_forward_flops_match_the_layers():
     no_grad = {name for name, _, g in train.bns if not g}
     assert 'background_identity_classifier.bn' in no_grad
     assert 'global_identity_classifier.bn' not in no_grad
+
+
+# the batch norms that no loss term reaches, in both train cells
+NO_GRAD = ['background_after_pooling_dim_reduce.layers.1',
+           'background_identity_classifier.bn'] + [
+    'parts_identity_classifier.{}.bn'.format(i) for i in range(5)]
+# cell: (forward FLOPs an image, batch norms, of them with a gradient,
+# sha256 of the JSON list [[name, shape, gets a gradient], ...], map)
+PINNED = {
+    'train.bpbreid_hrnet32': (
+        16092924928, 335, 328,
+        '5b1640e46e3337829b36d6339f5a31133bb0e33c0421d5d1e59ed161b6cac918',
+        (64, 1920, 96, 32)),
+    'embed.bpbreid_hrnet32': (
+        16092924928, 335, 0,
+        'de7bc5944dbbdf13443e90d2db11684a38431a55c5f4dd983f74319e1f34af9f',
+        (64, 1920, 96, 32)),
+    'train.bpbreid_resnet50': (
+        12196809728, 67, 60,
+        '9aa85aaab927b37f07f64088b2dc9d8430fbc910a9d152e7b3e3e6c968133640',
+        (64, 2048, 24, 8)),
+    'embed.bpbreid_resnet50': (
+        12196809728, 67, 0,
+        '2b9deea65fc7a09a6bacdba3510615f35e829f10af14b2483e396ab6ec31065f',
+        (64, 2048, 24, 8)),
+}
+
+
+@pytest.mark.parametrize('name', sorted(PINNED))
+def test_cell_counts_are_pinned(name):
+    flops, n_bns, n_grad, digest, fmap = PINNED[name]
+    cell = core.find_cell(name)
+    counts = model_counts(cell.config, cell.workload)
+    assert counts.batch == 64
+    assert counts.forward_flops_per_image == flops
+    assert len(counts.bns) == n_bns
+    assert sum(g for _, _, g in counts.bns) == n_grad
+    if n_grad:
+        assert [n for n, _, g in counts.bns if not g] == NO_GRAD
+    assert counts.bns[0] == ('backbone_appearance_feature_extractor.bn1',
+                             (64, 64, 192, 64), n_grad > 0)
+    listed = json.dumps([[n, list(s), g] for n, s, g in counts.bns])
+    assert hashlib.sha256(listed.encode()).hexdigest() == digest
+    assert counts.feature_map == fmap
+
+
+# config: (residual ends among the scales, sha256 of their sorted names)
+RESIDUAL_ENDS = {
+    'bpbreid_hrnet32': (
+        112,
+        '0ff87741f938fe531b120598df892e801ddf9b25ad116d4eb60e34b8cb47f951'),
+    'bpbreid_resnet50': (
+        16,
+        'c8b93aef9f6cb3b13d675f6c9adaa90e1266e8212062d9b16d49f0136362c8f6'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(RESIDUAL_ENDS))
+def test_residual_ends_are_pinned(name):
+    """The BPBReID reference gives no ``ends_residual``, so the weights
+    take the default rule, and scale the same scales as before."""
+    config = json.load(open(os.path.join(core.ROOT, 'benchmark', 'configs',
+                                         name + '.json')))
+    ref = reference_of(config)
+    assert ref is ref_model and not hasattr(ref, 'ends_residual')
+    shapes = ref.state_shapes(config)
+    ends = sorted(n for n in shapes
+                  if n.endswith('.weight') and _ends_residual(n, shapes))
+    count, digest = RESIDUAL_ENDS[name]
+    assert len(ends) == count
+    assert hashlib.sha256(json.dumps(ends).encode()).hexdigest() == digest
+    small = {n: (4,) for n in ends[:2]}
+    small['other.bn.weight'] = (4,)
+    w = make_weights(small, 5, 'cpu', ref)
+    plain = make_weights(small, 5, 'cpu')
+    for n in small:
+        assert torch.equal(w[n], plain[n])
+    assert w[ends[0]].abs().max() < 0.2 < w['other.bn.weight'].abs().min()

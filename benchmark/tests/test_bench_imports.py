@@ -28,13 +28,26 @@ def _top_level(stdout):
     return set(json.loads(stdout.strip().splitlines()[-1]))
 
 
+def _references():
+    """Every module under ``benchmark/reference/``, by listing it."""
+    folder = os.path.join(core.ROOT, 'benchmark', 'reference')
+    return sorted(f[:-3] for f in os.listdir(folder)
+                  if f.endswith('.py') and f != '__init__.py')
+
+
 def test_reference_loads_no_program_and_no_jax():
+    modules = _references()
+    assert {'layers', 'model', 'train', 'masks'} <= set(modules)
     out = _python(
-        'import sys, json; sys.path.insert(0, {!r})\n'
-        'import benchmark.reference.model, benchmark.reference.train\n'
-        'import benchmark.reference.masks\n'
+        'import importlib, sys, json; sys.path.insert(0, {!r})\n'
+        'import benchmark.reference\n'
+        'for name in {!r}:\n'
+        '    importlib.import_module("benchmark.reference." + name)\n'
+        'from benchmark.core import load_benchmark\n'
+        'for c in load_benchmark()["configs"]:\n'
+        '    benchmark.reference.reference_of(json.load(open(c["file"])))\n'
         'print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))'
-        .format(core.ROOT))
+        .format(core.ROOT, modules))
     assert out.returncode == 0, out.stderr
     names = _top_level(out.stdout)
     assert 'benchmark' in names

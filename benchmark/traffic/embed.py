@@ -14,6 +14,7 @@ the graph. The check draws ``checked_requests`` of the window's requests
 from the seed and compares their features and visibility with the plain
 reference's on the same crops.
 """
+import copy
 import gc
 import random
 import statistics
@@ -24,11 +25,14 @@ import torch
 from benchmark import compare, data
 from benchmark.core import percentile
 from benchmark.port import build_engine
-from benchmark.reference import model as ref_model
+from benchmark.reference import reference_of
+from benchmark.reference.layers import precision
 from benchmark.reference.train import eval_images
 from benchmark.weights import calibrate_bn, make_weights
 
-__all__ = ['Traffic']
+__all__ = ['Traffic', 'TRAINS', 'calibration_readings']
+
+TRAINS = False
 
 
 class Traffic:
@@ -37,6 +41,11 @@ class Traffic:
         self.config, self.workload = ctx.cell.config, ctx.cell.workload
         self.engine = self.model = None
         self.outputs = []
+
+    @property
+    def ref(self):
+        """The configuration's plain reference module."""
+        return reference_of(self.config, self.ctx.cell.root)
 
     def _sync(self):
         if torch.device(self.ctx.device).type == 'cuda':
@@ -49,10 +58,10 @@ class Traffic:
         images, fields, pids = data.make_batches(ctx.seed + 1, n,
                                                  self.workload, self.config,
                                                  dev)
-        weights = make_weights(ref_model.state_shapes(self.config), ctx.seed,
-                               dev)
-        with ref_model.precision('f32'):
-            model = ref_model.build(self.config, dev)
+        weights = make_weights(self.ref.state_shapes(self.config), ctx.seed,
+                               dev, self.ref)
+        with precision('f32'):
+            model = self.ref.build(self.config, dev)
             model.load_state_dict(weights, strict=True)
             weights.update(calibrate_bn(model, eval_images(images[0])))
         del model
@@ -120,8 +129,8 @@ class Traffic:
         ``requests``."""
         dev = self.ctx.device
         out = []
-        with ref_model.precision(mode), torch.no_grad():
-            model = ref_model.build(self.config, dev)
+        with precision(mode), torch.no_grad():
+            model = self.ref.build(self.config, dev)
             model.load_state_dict(self.host_weights, strict=True)
             model.eval()
             for request in requests:
@@ -161,3 +170,36 @@ class Traffic:
                                  self.reference([r for r, _, _ in picked]))
         return {name: compare.check(readings[name], limit)
                 for name, limit in self.workload['limits'].items()}
+
+
+def calibration_readings(ctx_for, seed, controls, seconds):
+    """``[(what, readings, extra)]`` for ``benchmark/calibrate.py``: the
+    sound run's after a window of ``seconds``, and with ``controls`` the
+    program's own int8 path on the same requests (``control``) and the
+    float8 reference beside it (``control_fp8``)."""
+    tr = ctx_for(seed)
+    tr.setup()
+    tr.window(seconds)
+    picked = [tr.outputs[i] for i in tr.sample()]
+    requests = [r for r, _, _ in picked]
+    tr.release()
+    ref = tr.reference(requests)
+    rows = [('sound', tr.readings([(f, v) for _, f, v in picked], ref), {})]
+    if controls:
+        workload = copy.deepcopy(tr.workload)
+        workload.setdefault('port', {}).setdefault('test', {})['int8'] = True
+        weights = {k: v.to(tr.ctx.device) for k, v in tr.host_weights.items()}
+        tr.engine, tr.model = build_engine(tr.config, workload,
+                                           tr.ctx.seed + 2, weights,
+                                           tr.ctx.device, train=False)
+        del weights
+        int8 = [tr._request(r) for r in requests]
+        tr.release()
+        rows.append(('control', tr.readings(int8, ref), {'path': 'int8'}))
+        rows.append(('control_fp8', tr.readings(
+            tr.reference(requests, 'fp8'), ref), {}))
+    del tr
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return rows

@@ -28,12 +28,19 @@ import torch
 
 from benchmark import compare, data
 from benchmark.port import build_engine
-from benchmark.reference import model as ref_model
+from benchmark.reference import reference_of
 from benchmark.reference import train as ref_train
+from benchmark.reference.layers import precision
 from benchmark.weights import make_weights
 
-__all__ = ['Traffic', 'KEYS']
+__all__ = ['Traffic', 'KEYS', 'TRAINS', 'TRAIN_CONTROL',
+           'calibration_readings']
 
+TRAINS = True
+# the control's precision: float8 (e4m3 operands, e5m2 output gradients,
+# per-tensor scales); int8 separated less from the program's bf16 on the
+# identity heads' gradients (see PERF.md)
+TRAIN_CONTROL = 'fp8'
 KEYS = ('image', 'mask', 'pid')
 CHECKED_STEPS = 3
 HEADS = ('identity_classifier.classifier.weight',
@@ -48,6 +55,11 @@ class Traffic:
         self.engine = self.model = None
         # the leaf of the largest gap, by number, of the last readings
         self.worst_leaves = {}
+
+    @property
+    def ref(self):
+        """The configuration's plain reference module."""
+        return reference_of(self.config, self.ctx.cell.root)
 
     def _sync(self):
         if torch.device(self.ctx.device).type == 'cuda':
@@ -79,8 +91,8 @@ class Traffic:
                 group[key] = host.pin_memory() if cuda else host
             self.pool.append(group)
         del images, fields, pids
-        weights = make_weights(ref_model.state_shapes(self.config), ctx.seed,
-                               dev)
+        weights = make_weights(self.ref.state_shapes(self.config), ctx.seed,
+                               dev, self.ref)
         self.host_weights = {k: v.cpu() for k, v in weights.items()}
         self.engine, self.model = build_engine(
             self.config, self.workload, self.engine_seed, weights, dev,
@@ -198,8 +210,8 @@ class Traffic:
                     t[:rows] for t in d['erase'])}
             steps.append((images, fields, pids, d))
         o = config['optim']
-        with ref_model.precision(mode):
-            model = ref_model.build(config, dev)
+        with precision(mode):
+            model = self.ref.build(config, dev)
             model.load_state_dict(self.host_weights, strict=True)
             names = [n for n, _ in model.named_parameters()]
             p0 = [p.detach().clone() for p in model.parameters()]
@@ -283,3 +295,33 @@ class Traffic:
         readings = self.readings(self.program_readings(), self.reference())
         return {name: compare.check(readings[name], limit)
                 for name, limit in self.workload['limits'].items()}
+
+
+def calibration_readings(ctx_for, seed, controls, seconds):
+    """``[(what, readings, extra)]`` for ``benchmark/calibrate.py``: the
+    sound run's (set-up only; no window), and with ``controls`` the float8
+    reference's in the program's place (``control``) and the reference on
+    half of each batch (``fault_half_batch``)."""
+    tr = ctx_for(seed)
+    t0 = time.perf_counter()
+    tr.setup()
+    setup_s = time.perf_counter() - t0
+    tr.release()
+    ref = tr.reference('f32')
+    rows = [('sound', tr.readings(tr.program_readings(), ref),
+             {'setup_s': setup_s, 'losses': tr.prog_losses,
+              'ref_losses': ref['losses'],
+              'worst_leaves': dict(tr.worst_leaves)})]
+    if controls:
+        low = tr.reference(TRAIN_CONTROL)
+        rows.append(('control', tr.readings(low, ref),
+                     {'losses': low['losses'], 'precision': TRAIN_CONTROL}))
+        n = int(tr.pool[0]['pid'].shape[1])
+        half = tr.reference('f32', rows=n // 2)
+        rows.append(('fault_half_batch', tr.readings(half, ref),
+                     {'losses': half['losses']}))
+    del tr
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return rows

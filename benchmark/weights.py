@@ -10,8 +10,10 @@ so a seed gives the same weights on every run. ``calibrate_bn`` then
 replaces the running statistics by those of the reference model on a
 batch of crops, as a trained model's would match its inputs.
 
-The last batch norm of each residual branch has its scale times
-``RESIDUAL_SCALE`` (0.1; zero-init-residual training starts it at 0):
+The last batch norm of each residual branch (the reference module's
+``ends_residual``, by default ``_ends_residual``'s naming of ResNet and
+HRNet blocks) has its scale times ``RESIDUAL_SCALE`` (0.1;
+zero-init-residual training starts it at 0):
 with unit scales the random network is chaotic, so that a 1e-3 change
 of its input moves HRNet-W32's features by 20 % and ResNet-50's by 30 %
 (float32, 128x64 crops), and bf16 rounding alone by more; at 0.1, by
@@ -39,9 +41,11 @@ def _ends_residual(name, shapes):
                            and prefix + '.bn3.weight' not in shapes)
 
 
-def make_weights(shapes, seed, device):
+def make_weights(shapes, seed, device, reference=None):
     """``{name: tensor}`` (float32 on ``device``) for ``shapes``
-    (``{name: shape}``) from ``seed``."""
+    (``{name: shape}``) from ``seed``; the residual branches' ends by the
+    ``reference`` module's ``ends_residual`` where it gives one."""
+    ends_residual = getattr(reference, 'ends_residual', _ends_residual)
     names = sorted(shapes)
     sizes = [math.prod(shapes[n]) for n in names]
     g = torch.Generator(device=device).manual_seed(int(seed))
@@ -55,7 +59,7 @@ def make_weights(shapes, seed, device):
             v = v * (1.0 / math.sqrt(size / shapes[name][0]))
         elif last == 'weight':
             v = (1.0 + 0.1 * v) * (RESIDUAL_SCALE
-                                   if _ends_residual(name, shapes) else 1.0)
+                                   if ends_residual(name, shapes) else 1.0)
         elif last == 'bias':
             v = 0.05 * v
         elif last == 'running_mean':
@@ -73,7 +77,7 @@ def calibrate_bn(model, images):
     """Set every batch norm's running statistics of the reference
     ``model`` to the batch statistics it meets on ``images`` (one forward
     in train mode, momentum 1). Returns the new running statistics."""
-    from benchmark.reference.model import BN
+    from benchmark.reference.layers import BN
     bns = [m for m in model.modules() if isinstance(m, BN)]
     for m in bns:
         m.momentum = 1.0
