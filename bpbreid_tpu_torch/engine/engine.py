@@ -15,10 +15,10 @@ eval batches by ``test.batches_per_dispatch``
 (or batches) replay a captured CUDA graph of the step
 (``engine/graphs.py``) with no host sync in between, where JAX scans
 them in one compiled program; on the CPU, under a mesh (gloo cannot be
-captured) or with an optimizer whose step reads the host
-(``optim.OptaxRule``; an Adam built without ``capturable``) they run as
-k eager steps. The choice is made from the configuration alone
-(``train_graphs``); a capture that fails raises.
+captured) or with an optimizer whose step reads the host (an Adam
+built without ``capturable``; ``build_optimizer`` builds it so over CUDA
+parameters) they run as k eager steps. The choice is made from the
+configuration alone (``train_graphs``); a capture that fails raises.
 
 ``device_prefetch`` moves the next batches (or groups) to the device
 while the current step computes.
@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from bpbreid_tpu_torch.engine.graphs import GraphStep, tensor_addresses
-from bpbreid_tpu_torch.optim.optimizer import OptaxRule
+from bpbreid_tpu_torch.optim.optimizer import is_capturable
 from bpbreid_tpu_torch.parallel.mesh import all_reduce_flat, shard_bounds
 from bpbreid_tpu_torch.utils.avgmeter import MetricsSummary, TimeMeter
 from bpbreid_tpu_torch.utils.checkpoint import save_checkpoint
@@ -255,26 +255,25 @@ class Engine:
         """Whether ``forward_backward_multi`` replays a CUDA graph of the
         train step: on a CUDA device, without a mesh (gloo cannot be
         captured), with an optimizer whose step reads nothing on the
-        host: SGD, or Adam built with ``capturable=True``
-        (``optim.build_optimizer`` builds it so on a CUDA device).
-        ``OptaxRule`` computes its scalars on the host and an Adam without
-        ``capturable`` keeps its step count there, so both take k eager
-        steps."""
-        opt = self.optimizer
-        capturable = isinstance(opt, torch.optim.SGD) or (
-            isinstance(opt, torch.optim.Adam) and all(
-                g.get('capturable', False) for g in opt.param_groups))
-        return (self.eval_graphs and capturable
-                and not isinstance(opt, OptaxRule))
+        host (``optim.is_capturable``): SGD, the ``OptaxRule`` optimizers
+        (amsgrad, rmsprop, radam), whose step counts live on the device,
+        or Adam built with ``capturable=True`` (``optim.build_optimizer``
+        builds it so on a CUDA device). An Adam without ``capturable``
+        keeps its step count on the host, where a graph would freeze it,
+        so it takes k eager steps."""
+        return self.eval_graphs and is_capturable(self.optimizer)
 
     def _train_state(self):
         """Where the tensors a train step reads and writes lie: the
         parameters, their gradients, the buffers and the optimizer's
-        state."""
+        state, a group's own tensors (an ``OptaxRule``'s step count on
+        the device) included."""
         params = list(self.model.parameters())
         opt_state = [v for p in params
                      for v in self.optimizer.state.get(p, {}).values()
                      if isinstance(v, torch.Tensor)]
+        opt_state += [v for g in self.optimizer.param_groups
+                      for v in g.values() if isinstance(v, torch.Tensor)]
         return tensor_addresses(params + [p.grad for p in params]
                                 + list(self.model.buffers()) + opt_state)
 

@@ -46,6 +46,7 @@ from bpbreid_tpu_torch.parallel.mesh import gather_tree
 from bpbreid_tpu_torch.utils.distribution import \
     plot_pairs_distance_distribution
 from bpbreid_tpu_torch.utils.rerank import re_ranking
+from bpbreid_tpu_torch.utils.tracing import span
 
 __all__ = ['ImageSoftmaxEngine', 'supervised', 'first_head']
 
@@ -141,7 +142,10 @@ class ImageSoftmaxEngine(Engine):
 
     def train_step(self, imgs_u8, pids, draws=None):
         """The train step on device tensors (``forward_backward``'s, and
-        what the train graph captures)."""
+        what the train graph captures). Under a profiler its eager calls
+        are the spans ``engine.forward`` (augmentation and the model),
+        ``engine.loss``, ``engine.backward`` and ``engine.optimizer``, as
+        the part-based engine's; a graph's replay runs none of them."""
         n, h, w = imgs_u8.shape[:3]
         if draws is None:
             draws = sample_train_draws(self.generator, n, h, w,
@@ -149,14 +153,16 @@ class ImageSoftmaxEngine(Engine):
         if self.mesh is not None:
             lo, hi = self.shard(n)
             imgs_u8, draws = imgs_u8[lo:hi], slice_draws(draws, lo, hi)
-        imgs, _ = train_augment(imgs_u8, None, draws,
-                                norm_mean=self.norm_mean,
-                                norm_std=self.norm_std)
-        self.model.train()
-        outputs = self.model(imgs)
-        if self.mesh is not None:
-            outputs = gather_tree(outputs, self.mesh)
-        loss, summary = self.compute_loss(outputs, pids)
+        with span('engine.forward'):
+            imgs, _ = train_augment(imgs_u8, None, draws,
+                                    norm_mean=self.norm_mean,
+                                    norm_std=self.norm_std)
+            self.model.train()
+            outputs = self.model(imgs)
+        with span('engine.loss'):
+            if self.mesh is not None:
+                outputs = gather_tree(outputs, self.mesh)
+            loss, summary = self.compute_loss(outputs, pids)
         self.optimizer_step(loss)
         return loss.detach(), summary
 

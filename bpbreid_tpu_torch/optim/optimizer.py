@@ -16,27 +16,32 @@ amsgrad, rmsprop and radam are ``OptaxRule``: optax's own update rules
 here by hand because ``torch.optim``'s differ: optax's amsgrad takes the
 maximum of the bias-corrected second moment, its rmsprop divides by
 ``sqrt(nu + eps)`` without bias correction, and its radam rectifies from
-the step where rho reaches 5. The step's scalars (bias corrections,
-rho, the rectification) are computed on the host in float32, in optax's
-order of operations, so radam switches on at the same step as JAX; so
-its step cannot run inside a CUDA graph. The JAX version's
+the step where rho reaches 5. Each group's step count is a float32
+tensor on the parameters' device, advanced in place, and the step's
+scalars (bias corrections, rho, the rectification) are computed from it
+on that device in float32, in optax's order of operations, so radam
+switches on at the same step as JAX and a CUDA graph of the train step
+(``engine/graphs.py``) reads the current step on every replay; radam's
+switch is a select, as optax's ``jnp.where``. The JAX version's
 ``flatten_bucketed`` is a TPU dispatch trick with the same math and has
 no port.
 
-Adam over parameters on a CUDA device is built ``capturable``: its step
-count and bias corrections live on the device
-(``torch.optim.Adam(capturable=True)``), as a CUDA graph of the train
-step needs (``engine/graphs.py``); eager Adam keeps the count on the
-host, where a graph would freeze it. The bias corrections are then
+Adam over parameters on a CUDA device is built ``capturable`` too: its
+step count and bias corrections live on the device
+(``torch.optim.Adam(capturable=True)``); eager Adam keeps the count on
+the host, where a graph would freeze it. The bias corrections are then
 computed in f32 on the device, not in f64 on the host, so the card's
 updates differ from the CPU's in the last bits (on the CPU, Adam cannot
-be capturable). SGD reads nothing on the host and is captured as it is;
-the learning rates are part of a graph's key.
+be capturable). SGD and ``OptaxRule`` read nothing on the host and are
+captured as they are; the learning rates are part of a graph's key.
+``is_capturable`` tells the engine which optimizers a graph may
+capture.
 """
-import numpy as np
 import torch
 
-__all__ = ['build_optimizer', 'AVAI_OPTIMS', 'OptaxRule']
+from bpbreid_tpu_torch.utils.tracing import span
+
+__all__ = ['build_optimizer', 'AVAI_OPTIMS', 'OptaxRule', 'is_capturable']
 
 AVAI_OPTIMS = ['adam', 'amsgrad', 'sgd', 'rmsprop', 'radam']
 ADAM_EPS = 1e-8           # optax.scale_by_adam's default (and its kin's)
@@ -49,7 +54,10 @@ class OptaxRule(torch.optim.Optimizer):
     'amsgrad', 'rmsprop' and 'radam'. Each parameter group is updated by
     ``torch._foreach_*`` calls over its tensors with a gradient (a
     handful of launches a step); the group keeps one step count
-    (``group['step']``), as optax keeps one ``count``.
+    (``group['step']``), as optax keeps one ``count``: a float32 tensor
+    on the group's device that each step advances in place (the scalars
+    below are tensors on that device, computed under the span
+    ``optim.scalars``).
 
     With g = grad + wd * p and t the step (from 1):
     - amsgrad: mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2,
@@ -72,6 +80,20 @@ class OptaxRule(torch.optim.Optimizer):
                                       b1=b1, b2=b2, alpha=alpha, eps=eps,
                                       step=0))
 
+    def add_param_group(self, param_group):
+        super().add_param_group(param_group)
+        group = self.param_groups[-1]
+        group['step'] = _device_step(group, group['step'])
+
+    def load_state_dict(self, state_dict):
+        """Each group's count as a new float32 tensor on its parameters'
+        device, whatever the saved one was (a tensor on another device,
+        or an int as older checkpoints hold it): a CUDA graph keyed on
+        the old count's address is captured anew."""
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            group['step'] = _device_step(group, group['step'])
+
     def _state(self, p):
         st = self.state[p]
         if not st:
@@ -88,13 +110,39 @@ class OptaxRule(torch.optim.Optimizer):
                 loss = closure()
         for group in self.param_groups:
             params = [p for p in group['params'] if p.grad is not None]
-            if params:
-                group['step'] += 1
-                self._update(group, params, group['step'])
+            if not params:
+                continue
+            with span('optim.scalars'):
+                group['step'].add_(1)
+                scalars = self._scalars(group, group['step'])
+            self._update(group, params, scalars)
         return loss
 
-    def _update(self, group, params, t):
-        f32 = np.float32
+    def _scalars(self, group, t):
+        """The step's scalars as float32 tensors on ``t``'s device, from
+        the step count ``t`` there: ``(1 - b1^t, 1 - b2^t)``, and for
+        radam its rectification r and its switch ``on`` (1.0 where rho
+        >= 5, else 0.0 with r 0.0); None for rmsprop, which reads
+        none."""
+        if self.rule == 'rmsprop':
+            return None
+        c1 = 1.0 - torch.pow(group['b1'], t)
+        b2t = torch.pow(group['b2'], t)
+        c2 = 1.0 - b2t
+        if self.rule == 'amsgrad':
+            return c1, c2
+        ro_inf = 2.0 / (1.0 - group['b2']) - 1.0
+        ro = ro_inf - (2.0 * t) * b2t / c2
+        on = ro >= RADAM_THRESHOLD
+        q = (ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0)
+                                               * (ro_inf - 2.0) * ro)
+        # the square root rounded once to float32, as optax's (the CPU's
+        # float32 sqrt can miss by an ulp; through float64 it cannot)
+        r = torch.sqrt(q.double()).float()
+        # r is NaN where 2 < rho < 4: zero it where it is not used
+        return c1, c2, torch.where(on, r, 0.0), on.float()
+
+    def _update(self, group, params, scalars):
         sts = [self._state(p) for p in params]
         grads = [p.grad for p in params]
         if group['weight_decay'] > 0:
@@ -113,26 +161,44 @@ class OptaxRule(torch.optim.Optimizer):
         mus = [st['mu'] for st in sts]
         torch._foreach_mul_(mus, group['b1'])
         torch._foreach_add_(mus, grads, alpha=1.0 - group['b1'])
-        b1t, b2t = f32(group['b1']) ** f32(t), f32(group['b2']) ** f32(t)
-        mu_hat = torch._foreach_div(mus, float(f32(1) - b1t))
-        nu_hat = torch._foreach_div(nus, float(f32(1) - b2t))
+        mu_hat = torch._foreach_div(mus, scalars[0])
+        nu_hat = torch._foreach_div(nus, scalars[1])
         if self.rule == 'amsgrad':
             nu_max = [st['nu_max'] for st in sts]
             torch._foreach_maximum_(nu_max, nu_hat)
             nu_hat = nu_max
-        else:                                   # radam
-            ro_inf = 2.0 / (1.0 - group['b2']) - 1.0
-            ro = f32(ro_inf) - f32(2 * t) * b2t / (f32(1) - b2t)
-            if ro < RADAM_THRESHOLD:
-                torch._foreach_add_(params, mu_hat, alpha=-group['lr'])
-                return
-            r = np.sqrt((ro - f32(4)) * (ro - f32(2)) * f32(ro_inf)
-                        / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro))
-            torch._foreach_mul_(mu_hat, float(r))
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, group['eps'])
-        torch._foreach_add_(params, torch._foreach_div(mu_hat, denom),
-                            alpha=-group['lr'])
+        if self.rule == 'amsgrad':
+            torch._foreach_add_(params, torch._foreach_div(mu_hat, denom),
+                                alpha=-group['lr'])
+            return
+        # radam: r mu_hat / denom where rho >= 5, else mu_hat, as optax's
+        # jnp.where; each term times 1 or 0, so either is taken exactly
+        r, on = scalars[2:]
+        rect = torch._foreach_mul(mu_hat, r)
+        torch._foreach_div_(rect, denom)
+        torch._foreach_mul_(rect, on)
+        torch._foreach_mul_(mu_hat, 1.0 - on)
+        torch._foreach_add_(rect, mu_hat)
+        torch._foreach_add_(params, rect, alpha=-group['lr'])
+
+
+def _device_step(group, step):
+    """``step`` (a number or a tensor) as a float32 tensor on the
+    group's parameters' device (the CPU for an empty group)."""
+    device = group['params'][0].device if group['params'] else 'cpu'
+    return torch.full((), float(step), dtype=torch.float32, device=device)
+
+
+def is_capturable(optimizer):
+    """Whether a CUDA graph may capture ``optimizer``'s step: SGD or an
+    ``OptaxRule``, which read nothing on the host, or an Adam all of
+    whose groups are ``capturable``."""
+    if isinstance(optimizer, (torch.optim.SGD, OptaxRule)):
+        return True
+    return bool(optimizer.param_groups) and all(
+        g.get('capturable', False) for g in optimizer.param_groups)
 
 
 def _param_groups(model, lr, staged_lr, new_layers, base_lr_mult):

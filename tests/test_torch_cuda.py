@@ -1750,6 +1750,88 @@ def test_capturable_adam_checkpoint_loads_into_an_eager_engine(cuda,
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize('rule', ['amsgrad', 'rmsprop', 'radam'])
+def test_optax_rules_on_the_card_are_captured(cuda, rule):
+    """amsgrad, rmsprop and radam over CUDA parameters keep each
+    group's step count as a float32 tensor on the card, and the engine's
+    rule takes them into the train graph."""
+    from bpbreid_tpu_torch.engine.engine import Engine
+    from bpbreid_tpu_torch.optim import build_optimizer
+    engine = Engine()
+    engine.device = cuda
+    engine.model = torch.nn.Linear(3, 2).to(cuda)
+    engine.optimizer = build_optimizer(engine.model, optim=rule,
+                                       staged_lr=True, new_layers=['bias'])
+    for g in engine.optimizer.param_groups:
+        assert g['step'].device.type == 'cuda'
+        assert g['step'].dtype == torch.float32
+    assert engine.train_graphs
+
+
+def _osnet_graph_engine(tmp_path):
+    """``osnet_x1_0`` under the softmax engine with torchreid's recipe
+    (amsgrad, random flip, label smoothing) at 64x32, batch 8, f32."""
+    import types
+    from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
+    from bpbreid_tpu_torch.scripts import main as cli
+    clear_dataset_cache()
+    cfg = cli.build_config(types.SimpleNamespace(
+        save_dir=str(tmp_path), job_id=1, opts=[
+            'model.compute_dtype', 'float32', 'data.sources',
+            "['synthetic']", 'data.targets', "['synthetic']",
+            'data.height', '64', 'data.width', '32', 'data.transforms',
+            "['random_flip']", 'loss.name', 'softmax', 'model.name',
+            'osnet_x1_0', 'train.optim', 'amsgrad', 'train.lr', '0.0015',
+            'train.batch_size', '8', 'sampler.num_instances', '4']), None)
+    return cli.build_model_engine(cfg)[0]
+
+
+def test_osnet_amsgrad_graph_steps_equal_eager_steps(cuda, tmp_path,
+                                                     monkeypatch):
+    """A group of 3 ``osnet_x1_0`` amsgrad steps through the train graph
+    (an eager step, a capture and its replay, a replay) against 3 eager
+    steps from the same state, twice, with cuDNN's deterministic
+    algorithms: losses, parameters, BN statistics, amsgrad's moments and
+    the generator's state bit-equal wherever the two eager runs are,
+    else within 4 times their own difference; the step count reads 3, so
+    the replays advanced it (a count frozen at the capture's 2 moves the
+    third update by about 15 %)."""
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    engine = _osnet_graph_engine(tmp_path)
+    assert engine.train_graphs
+    import itertools
+    import numpy as np
+    batches = list(itertools.islice(
+        itertools.cycle(engine.datamanager.train_loader), 3))
+    stacked = {key: torch.as_tensor(np.stack([b[key] for b in batches]))
+               .cuda() for key in ('image', 'pid')}
+    snap = _train_snapshot(engine)
+    runs = []
+    for _ in range(2):
+        _train_restore(engine, snap)
+        losses = torch.stack([engine.forward_backward(b)[0]
+                              for b in batches])
+        torch.cuda.synchronize()
+        runs.append((losses, _train_state(engine),
+                     engine.generator.get_state()))
+    _train_restore(engine, snap)
+    losses, _summary = engine.forward_backward_multi(stacked)
+    torch.cuda.synchronize()
+    graph = engine._train_graph
+    assert (graph.eager_steps, graph.captures, graph.replays) == (1, 1, 2)
+    assert float(engine.optimizer.param_groups[0]['step']) == 3
+    state = _train_state(engine)
+    (l_a, s_a, g_a), (l_b, s_b, g_b) = runs
+    assert torch.equal(engine.generator.get_state(), g_a)
+    for name, got, a, b in [('loss', losses, l_a, l_b)] + [
+            (k, state[k], s_a[k], s_b[k]) for k in s_a]:
+        if torch.equal(a, b):
+            assert torch.equal(got, a), name
+        else:
+            spread = (b - a).abs().max().item()
+            assert (got - a).abs().max().item() <= 4 * spread, name
+
+
 @pytest.mark.parametrize('int8', [False, True])
 def test_grouped_eval_graph_equals_per_batch_eval(cuda, tmp_path, int8):
     """Grouped eval (``batches_per_dispatch`` 4 over 6 query batches: a

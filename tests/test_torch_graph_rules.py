@@ -9,7 +9,10 @@ config's BPBReID with int8 eval, an OSNet with the softmax engine, a
 video resnet18) make no tensor from host data and read nothing back
 (``HostSyncRecorder``; the optimizer's step excluded: on the card Adam
 runs ``capturable``, here SGD stands in for it). The graphs themselves
-run on the card (tests/test_torch_cuda.py, chip_smoke.py phase 18)."""
+run on the card (tests/test_torch_cuda.py, chip_smoke.py phase 18).
+The ``OptaxRule`` optimizers (amsgrad, rmsprop, radam), whose step
+counts live on the parameters' device, are graph-capturable by the same
+rule, and their step, warm, reads nothing on the host either."""
 import types
 
 import pytest
@@ -20,6 +23,7 @@ from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
 from bpbreid_tpu_torch.engine.engine import Engine
 from bpbreid_tpu_torch.engine.video.softmax import flatten_tracklets
 from bpbreid_tpu_torch.optim import build_optimizer
+from bpbreid_tpu_torch.optim.optimizer import OptaxRule
 from bpbreid_tpu_torch.scripts import main as cli
 from bpbreid_tpu_torch.utils.checkpoint import load_optimizer_state
 from tests.torch_port_helpers import HostSyncRecorder, limit_torch_threads
@@ -40,9 +44,9 @@ OPTIMIZERS = {
                                                    capturable=True), True),
     'adam': (lambda m: torch.optim.Adam(m.parameters()), False),
     'sgd': (lambda m: build_optimizer(m, optim='sgd'), True),
-    'radam': (lambda m: build_optimizer(m, optim='radam'), False),
-    'rmsprop': (lambda m: build_optimizer(m, optim='rmsprop'), False),
-    'amsgrad': (lambda m: build_optimizer(m, optim='amsgrad'), False),
+    'radam': (lambda m: build_optimizer(m, optim='radam'), True),
+    'rmsprop': (lambda m: build_optimizer(m, optim='rmsprop'), True),
+    'amsgrad': (lambda m: build_optimizer(m, optim='amsgrad'), True),
 }
 
 
@@ -191,6 +195,24 @@ def test_steps_capture_safe(case, tmp_path):
     with HostSyncRecorder() as rec:
         step()
     assert rec.found == [], rec.found
+
+
+@pytest.mark.parametrize('rule', ['amsgrad', 'rmsprop', 'radam'])
+def test_optax_rule_step_is_capture_safe(rule):
+    """An ``OptaxRule``'s step, after a warm one (which makes
+    the moments), with weight decay and radam on either side of its
+    switch: no tensor from host data, no read back."""
+    model = torch.nn.Linear(3, 2)
+    opt = OptaxRule(model.parameters(), rule, lr=1e-3, weight_decay=5e-4)
+    for step in range(8):
+        model(torch.ones(4, 3)).sum().backward()
+        if step == 0:
+            opt.step()
+            continue
+        with HostSyncRecorder() as rec:
+            opt.step()
+        assert rec.found == [], (step, rec.found)
+    assert float(opt.param_groups[0]['step']) == 8
 
 
 def test_host_sync_recorder_finds_host_reads():

@@ -5,7 +5,10 @@ clock, and a tiny engine's train group and feature extraction leave the
 spans the benchmark's readers take (``benchmark/metrics/``);
 ``eval_preprocess`` names the mask path it took. The CUDA
 graph's spans (``engine/graphs.py``) are counted against its counters on
-the card (marker ``cuda``). ``Engine.run`` ends with the graphs' counts.
+the card (marker ``cuda``). The softmax engine's train step has the
+part-based engine's ``engine.forward`` and ``engine.loss``, and an
+``OptaxRule`` the span ``optim.scalars`` of its device scalars: on eager and capturing calls, none on a replay (on the card).
+``Engine.run`` ends with the graphs' counts.
 No module here imports JAX: the card's test run imports this file."""
 import json
 import os
@@ -21,6 +24,7 @@ from bpbreid_tpu_torch.data.augment import (eval_preprocess,
                                             mask_chain_kwargs)
 from bpbreid_tpu_torch.data.datasets import clear_dataset_cache
 from bpbreid_tpu_torch.engine.engine import Engine
+from bpbreid_tpu_torch.optim.optimizer import OptaxRule
 from bpbreid_tpu_torch.scripts import main as cli
 from bpbreid_tpu_torch.tools import profile_summary
 from bpbreid_tpu_torch.utils import tracing
@@ -166,6 +170,51 @@ def test_engine_spans_on_the_cpu(engine, tmp_path):
     assert _inside(spans['engine.gather_features'], extraction)
 
 
+def _softmax_engine(tmp_path, device):
+    """An OSNet (``osnet_x0_25`` at 64x32, float32, batch 8, random flip)
+    under the softmax engine with amsgrad, as the CLI builds them."""
+    clear_dataset_cache()
+    cfg = cli.build_config(types.SimpleNamespace(
+        save_dir=str(tmp_path), job_id=1, opts=[
+            'use_gpu', str(device != 'cpu'), 'model.compute_dtype',
+            'float32', 'data.sources', "['synthetic']", 'data.targets',
+            "['synthetic']", 'data.height', '64', 'data.width', '32',
+            'data.transforms', "['random_flip']", 'loss.name', 'softmax',
+            'model.name', 'osnet_x0_25', 'train.optim', 'amsgrad',
+            'train.batch_size', '8', 'sampler.num_instances', '4']), None)
+    engine = cli.build_model_engine(cfg)[0]
+    batches = [b for _, b in zip(range(3), engine.datamanager.train_loader)]
+    group = {k: torch.as_tensor(np.stack([b[k] for b in batches]))
+             .to(device) for k in ('image', 'pid')}
+    return engine, group
+
+
+@pytest.mark.parametrize('optim', ['amsgrad', 'sgd'])
+def test_softmax_engine_spans_on_the_cpu(tmp_path, optim):
+    """Three eager steps of a group: each has the part-based engine's
+    four phases; amsgrad adds its ``optim.scalars`` inside
+    ``engine.optimizer``, SGD none."""
+    engine, group = _softmax_engine(tmp_path / 'run', 'cpu')
+    if optim == 'sgd':
+        engine.optimizer = torch.optim.SGD(engine.model.parameters(),
+                                           lr=1e-3)
+    assert isinstance(engine.optimizer, OptaxRule) is (optim == 'amsgrad')
+    with ProfilerTrace(str(tmp_path / 'trace')):
+        losses, _summary = engine.forward_backward_multi(group)
+    assert losses.shape == (3,)
+    spans = _spans(str(tmp_path / 'trace'))
+    fbm = spans['engine.forward_backward_multi']
+    for name in ('engine.forward', 'engine.loss', 'engine.backward',
+                 'engine.optimizer'):
+        assert len(spans[name]) == 3, name
+        assert _inside(spans[name], fbm), name
+    if optim == 'amsgrad':
+        assert len(spans['optim.scalars']) == 3
+        assert _inside(spans['optim.scalars'], spans['engine.optimizer'])
+    else:
+        assert 'optim.scalars' not in spans
+
+
 def test_engine_run_prints_the_graph_counts(capsys):
     engine = Engine()
     engine.run()
@@ -218,3 +267,27 @@ def test_graph_spans_count_the_graph_calls(tmp_path):
     assert len(spans['engine.forward']) == 4
     assert _inside(spans['engine.forward'],
                    spans['graph.eager'] + spans['graph.capture'])
+
+
+@pytest.mark.cuda
+def test_softmax_graph_spans(tmp_path):
+    """The softmax engine's group of three steps through the train graph
+    with amsgrad, its step count on the card:
+    the eager step and the capture run ``engine.forward``,
+    ``engine.loss`` and ``optim.scalars``, the replays none."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    engine, group = _softmax_engine(tmp_path / 'run', 'cuda')
+    assert isinstance(engine.optimizer, OptaxRule)
+    assert engine.train_graphs
+    with ProfilerTrace(str(tmp_path / 'trace')):
+        engine.forward_backward_multi(group)
+        torch.cuda.synchronize()
+    graph = engine._train_graph
+    assert (graph.eager_steps, graph.captures, graph.replays) == (1, 1, 2)
+    spans = _spans(str(tmp_path / 'trace'))
+    calls = spans['graph.eager'] + spans['graph.capture']
+    for name in ('engine.forward', 'engine.loss', 'optim.scalars'):
+        assert len(spans[name]) == 2, name
+        assert _inside(spans[name], calls), name
+    assert float(engine.optimizer.param_groups[0]['step']) == 3
